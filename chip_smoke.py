@@ -1,0 +1,306 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's signature-kernel forward path on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing runs without CUDA):
+
+1. build the Goursat kernels (``src/repro_torch/kernels/sigkernel_pde/csrc``)
+   with nvcc and print the compiler's register / shared-memory report;
+2. drive the main path through the public entry points at the paper's
+   Table 2 "full" sizes, with every launch count set to 0 just before and
+   read just after: ``sigkernel`` on (128, 1024, 32) paths (auto -> "gpu",
+   and "gpu_fused"), ``SigKernel().gram(X, Y)``, the symmetric
+   ``gram(X)``, ``mmd2`` and the RBF-lift Gram on (128, 256, 8) paths;
+   results must be finite, the routes must agree, and every kernel must
+   have launched;
+3. hold each kernel against its plain PyTorch version on the card at
+   B = 8, L = 128, d = 8 for every scheme, interior dtype and refinement in
+   the sweep, plus strips that do not divide Lx and an nx > ny case;
+4. time each kernel and its plain version at the main path's shapes
+   (CUDA events, median), compute the bound (bytes / 3.35 TB/s vs
+   operations / 67 TFLOP/s FP32, H100 SXM data sheet), sweep the strip
+   height, and print one JSON line per kernel, the ``kernels`` line, the
+   card's name and power limit, and the final ``ok`` line.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(ROOT, "src")
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+FP32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, FP32 outside the tensor cores
+RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: flops per refined cell of the order-1 stencil: p·scale, A (5), B (3),
+#: (left + up)·A − upleft·B (4)
+CELL_FLOPS = 13
+
+SOURCE = "src/repro_torch/kernels/sigkernel_pde/csrc/sigkernel_pde.cu"
+REPLACES = {
+    "fwd": "src/repro/kernels/sigkernel_pde/kernel.py:111",
+    "fwd_fused": "src/repro/kernels/sigkernel_pde/kernel.py:84",
+    "gram_fused": "src/repro/kernels/sigkernel_pde/kernel.py:323",
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def random_paths(rng, B, L, d):
+    """Random walks whose signature kernels stay of order one."""
+    steps = rng.normal(size=(B, L, d)) / np.sqrt(L * np.sqrt(d))
+    return np.cumsum(steps, axis=1).astype(np.float32)
+
+
+def rel_err(a, b) -> float:
+    scale = float(b.abs().max().clamp_min(1e-30))
+    return float((a - b).abs().max()) / scale
+
+
+def time_ms(fn, reps: int) -> float:
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def main() -> int:
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, SRC)
+    try:
+        import repro_torch as rt
+        from repro_torch.kernels.sigkernel_pde import kernel, ops
+        from repro_torch.core.sigkernel import delta_matrix
+        from repro_torch.core import transforms as tf
+    except ImportError as e:
+        print(f"chip_smoke: the repo's src/repro_torch is missing ({e})",
+              file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    card = card_line()
+    name, power = [s.strip() for s in card.split(",", 1)]
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    # ---- 1. build ----------------------------------------------------------
+    t = time.time()
+    lib_path = kernel.build()
+    kernel.library()
+    print(f"build: {time.time() - t:.1f} s -> {os.path.relpath(lib_path, ROOT)}")
+    log = (lib_path.parent / "nvcc.log").read_text()
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print("  ptxas:", line.strip())
+
+    # ---- 2. the main path at full width ------------------------------------
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(random_paths(rng, 128, 1024, 32)).to(dev)
+    y = torch.from_numpy(random_paths(rng, 128, 1024, 32)).to(dev)
+    X = torch.from_numpy(random_paths(rng, 128, 256, 8)).to(dev)
+    Y = torch.from_numpy(random_paths(rng, 128, 256, 8)).to(dev)
+
+    kernel.reset_launch_counts()
+    t_path = time.time()
+    steps = []
+
+    def step(what, fn, launcher):
+        before = launcher.launches
+        out = fn()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), f"{what}: non-finite values")
+        check(launcher.launches > before, f"{what}: {launcher.__name__} did not launch")
+        steps.append({"call": what, "kernel": launcher.__name__,
+                      "launches": launcher.launches - before,
+                      "shape": list(out.shape)})
+        return out
+
+    k_gpu = step("sigkernel(x, y)", lambda: rt.sigkernel(x, y), kernel.fwd)
+    k_fused = step("sigkernel(x, y, backend='gpu_fused')",
+                   lambda: rt.sigkernel(x, y, backend="gpu_fused"), kernel.fwd_fused)
+    sk = rt.SigKernel()
+    K = step("SigKernel().gram(X, Y)", lambda: sk.gram(X, Y), kernel.gram_fused)
+    K_gpu = step("SigKernel(backend='gpu').gram(X, Y)",
+                 lambda: rt.SigKernel(backend="gpu").gram(X, Y), kernel.fwd)
+    Kxx = step("SigKernel().gram(X)", lambda: sk.gram(X), kernel.fwd_fused)
+    Kxx_dense = step("SigKernel().gram(X, X)", lambda: sk.gram(X, X), kernel.gram_fused)
+    Kyy = step("SigKernel().gram(Y)", lambda: sk.gram(Y), kernel.fwd_fused)
+    m = step("SigKernel().mmd2(X, Y)", lambda: sk.mmd2(X, Y), kernel.gram_fused)
+    rbf = rt.SigKernel(static_kernel=rt.RBF(1.0))
+    K_rbf = step("SigKernel(static_kernel=RBF(1.0)).gram(X, Y, row_block=16)",
+                 lambda: rbf.gram(X, Y, row_block=16), kernel.fwd)
+    path_s = time.time() - t_path
+    counts = kernel.launch_counts()
+    for launcher in kernel.LAUNCHERS:
+        check(counts[launcher.__name__] > 0,
+              f"main path never launched {launcher.__name__}")
+
+    check(rel_err(k_fused, k_gpu) <= 1e-4, "sigkernel: gpu and gpu_fused disagree")
+    check(rel_err(K, K_gpu) <= 1e-4, "gram: gpu_fused and gpu disagree")
+    check(rel_err(Kxx, Kxx_dense) <= 1e-4, "gram: symmetric pairs and dense disagree")
+    b = X.shape[0]
+    m_ref = ((Kxx.sum() - Kxx.trace()) / (b * (b - 1))
+             + (Kyy.sum() - Kyy.trace()) / (b * (b - 1)) - 2.0 * K.mean())
+    check(abs(float(m) - float(m_ref)) <= 1e-4 * float(K.abs().max()),
+          "mmd2 disagrees with its Gram terms")
+    # the same RBF-lift block through the plain wavefront on the card
+    K_rbf_plain = rt.sigkernel_gram(X[:4], Y[:8], backend="antidiag",
+                                    static_kernel=rt.RBF(1.0))
+    check(rel_err(K_rbf[:4, :8], K_rbf_plain) <= 1e-4, "RBF gram disagrees with plain")
+    # small input: the card's path against the CPU's plain solvers
+    xs, ys = x[:4, :64, :4].cpu(), y[:4, :48, :4].cpu()
+    small = rt.sigkernel(xs.to(dev), ys.to(dev)).cpu()
+    check(rel_err(small, rt.sigkernel(xs, ys, backend="reference")) <= 1e-4,
+          "small input: card and CPU reference disagree")
+    emit({"main_path": steps, "launches": counts, "seconds": round(path_s, 3),
+          "sigkernel_gpu_vs_fused_rel": rel_err(k_fused, k_gpu),
+          "gram_fused_vs_gpu_rel": rel_err(K, K_gpu), "mmd2": float(m),
+          "card": name, "power_limit": power})
+
+    # ---- 3. kernels against their plain versions ---------------------------
+    cases = []
+    for scheme in ("order1", "order2"):
+        for idt in ("float32", "bfloat16"):
+            for lam in ((0, 0), (1, 1), (2, 0)):
+                cases.append((scheme, idt, lam, 128, 128, None))
+    cases.append(("order2", "float32", (1, 1), 128, 128, 32))   # 32 ∤ Lx = 127
+    cases.append(("order1", "float32", (0, 0), 128, 64, 16))    # nx > ny
+    cases.append(("order2", "bfloat16", (1, 0), 128, 64, None))
+    worst = {}
+    for scheme, idt, (l1, l2), Lx_pts, Ly_pts, strip in cases:
+        launch = rt.LaunchConfig(pde_strip=strip)
+        a = torch.from_numpy(random_paths(rng, 8, Lx_pts, 8)).to(dev)
+        c = torch.from_numpy(random_paths(rng, 8, Ly_pts, 8)).to(dev)
+        da = tf.pipeline_increments(a, rt.TransformPipeline())
+        dc = tf.pipeline_increments(c, rt.TransformPipeline())
+        delta = delta_matrix(a, c)
+        runs = [
+            ("fwd", lambda: ops.solve(delta, l1, l2, launch, scheme, idt),
+             lambda: kernel.solve_plain(delta, l1, l2, scheme, idt)),
+            ("fwd_fused", lambda: ops.solve_fused(da, dc, l1, l2, launch, scheme, idt),
+             lambda: kernel.solve_fused_plain(da, dc, l1, l2, scheme, idt)),
+            ("gram_fused", lambda: ops.gram_fused(da, dc, l1, l2, launch, scheme, idt),
+             lambda: kernel.gram_fused_plain(da, dc, l1, l2, scheme, idt)),
+        ]
+        for kname, run_kernel, run_plain in runs:
+            got = run_kernel()
+            torch.cuda.synchronize()
+            want = run_plain()
+            torch.cuda.synchronize()
+            err = rel_err(got, want)
+            tag = f"{kname} {scheme} {idt} lam={l1},{l2} L={Lx_pts}x{Ly_pts} strip={strip}"
+            check(bool(torch.isfinite(got).all()), f"{tag}: non-finite")
+            check(err <= RTOL[idt], f"{tag}: rel err {err:.3g} > {RTOL[idt]}")
+            worst[f"{kname}/{idt}"] = max(worst.get(f"{kname}/{idt}", 0.0), err)
+    emit({"kernel_vs_plain": {"cases": len(cases) * 3, "worst_rel_err": worst,
+                              "rtol": RTOL}})
+
+    # ---- 4. timing at the main path's shapes -------------------------------
+    identity = rt.TransformPipeline()
+    delta = delta_matrix(x, y)                                     # B1 input
+    dx, dy = tf.pipeline_increments(x, identity), tf.pipeline_increments(y, identity)
+    dX, dY = tf.pipeline_increments(X, identity), tf.pipeline_increments(Y, identity)
+    B, Lx, Ly = delta.shape
+    d = dx.shape[-1]
+    Bx, Lgx, dg = dX.shape
+    By, Lgy = dY.shape[0], dY.shape[1]
+    work = {
+        "fwd": (delta.numel() * 4 + B * 4, B * Lx * Ly * CELL_FLOPS),
+        "fwd_fused": ((dx.numel() + dy.numel()) * 4 + B * 4,
+                      B * (2 * d + CELL_FLOPS) * Lx * Ly),
+        "gram_fused": ((dX.numel() + dY.numel()) * 4 + Bx * By * 4,
+                       Bx * By * (2 * dg + CELL_FLOPS) * Lgx * Lgy),
+    }
+    default_T = {
+        "fwd": ops.choose_T(Lx, Ly, 0, 0, B),
+        "fwd_fused": ops.choose_T(Lx, Ly, 0, 0, B, d=d),
+        "gram_fused": ops.choose_T(Lgx, Lgy, 0, 0, Bx * By, d=dg),
+    }
+    launchers = {
+        "fwd": lambda T: kernel.fwd(delta, T, 0, 0, "order1", "float32"),
+        "fwd_fused": lambda T: kernel.fwd_fused(dx, dy, T, 0, 0, "order1", "float32"),
+        "gram_fused": lambda T: kernel.gram_fused(dX, dY, T, 0, 0, "order1", "float32"),
+    }
+    plains = {
+        "fwd": lambda: kernel.solve_plain(delta, 0, 0, "order1", "float32"),
+        "fwd_fused": lambda: kernel.solve_fused_plain(dx, dy, 0, 0, "order1", "float32"),
+        "gram_fused": lambda: kernel.gram_fused_plain(dX, dY, 0, 0, "order1", "float32"),
+    }
+    rows = []
+    for kname in ("fwd", "fwd_fused", "gram_fused"):
+        T = default_T[kname]
+        ms = time_ms(lambda: launchers[kname](T), 5)
+        plain_ms = time_ms(plains[kname], 2)
+        got = launchers[kname](T)
+        want = plains[kname]()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(rel_err(got, want) <= RTOL["float32"], f"{kname} at full size disagrees")
+        nbytes, nflops = work[kname]
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nflops / FP32_FLOPS_PER_S * 1e3
+        fused = kname != "fwd"
+        sweep = {Ts: round(time_ms(lambda: launchers[kname](Ts), 3), 4)
+                 for Ts in (32, 64, 128, 256, 512, 1024)
+                 if kernel.smem_bytes(fused, "order1", Ts, Ly if kname != "gram_fused"
+                                      else Lgy, 0, 0, d if kname == "fwd_fused" else dg)
+                 <= kernel.SMEM_LIMIT}
+        row = {"name": kname, "route": "cuda", "source": SOURCE,
+               "replaces": REPLACES[kname], "launches": counts[kname],
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": None}
+        rows.append(row)
+        emit({"timing": kname, "strip_T": T, "bytes": nbytes, "flops": nflops,
+              "bytes_ms": t_bytes, "ops_ms": t_ops, "strip_sweep_ms": sweep,
+              **row, "card": name, "power_limit": power})
+
+    emit({"kernels": rows})
+    print(card)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,19 @@
+"""Functional core of the PyTorch port: configs, transforms, dispatch, the
+Goursat solvers, the Gram engine and the losses."""
+
+from .config import (GridConfig, LaunchConfig, Linear, RBF, StaticKernel,
+                     TransformPipeline, configs_from_reference, delta_from_gram)
+from .dispatch import count_pair_solves
+from .gram import sigkernel_gram
+from .losses import mmd2, scoring_rule
+from .sigkernel import (delta_matrix, sigkernel, solve_goursat,
+                        solve_goursat_antidiag)
+from .transforms import bucket_length, pad_ragged
+
+__all__ = [
+    "GridConfig", "LaunchConfig", "Linear", "RBF", "StaticKernel",
+    "TransformPipeline", "bucket_length", "configs_from_reference",
+    "count_pair_solves", "delta_from_gram", "delta_matrix", "mmd2",
+    "pad_ragged", "scoring_rule", "sigkernel", "sigkernel_gram",
+    "solve_goursat", "solve_goursat_antidiag",
+]

@@ -1,0 +1,193 @@
+"""The Gram engine: one entry point for the signature-kernel Gram variants.
+
+Counterpart of the single-device engine in ``repro/core/gram.py``:
+
+* **dense** — all ``Bx·By`` problems at once;
+* **row-blocked** (``row_block=``) — ``row_block`` Gram rows in flight at a
+  time.  The JAX engine zero-pads ``Bx`` to the block for ``lax.map``; a
+  Python loop needs no padding, so the last block is just shorter;
+* **fused** (``backend="gpu_fused"``) — Δ is built inside the CUDA kernel
+  from the increments and never exists in device memory;
+* **symmetric** (``Y`` omitted) — only the ``Bx·(Bx+1)/2`` upper-triangle
+  pairs are solved, then mirrored.
+
+The sharded and streaming layers (``sigkernel_gram_sharded``,
+``sigkernel_gram_reduce``) and the approximate feature-map backends are not
+ported yet (ROADMAP).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import dispatch
+from . import transforms as tf
+from .config import (_maybe_scale, delta_from_gram, resolve_kernel_configs,
+                     resolve_launch)
+from .sigkernel import _sigkernel_from_delta
+from repro_torch.kernels.sigkernel_pde import ops as pde_ops
+from repro_torch.kernels.sigkernel_pde.ops import require_no_grad
+
+
+def _prepare(paths: torch.Tensor, cfg, kernel, lengths=None) -> torch.Tensor:
+    """Per-path stream the pair solvers consume: transformed increments for
+    the linear lift, transformed points otherwise; end-aligned when ragged."""
+    if kernel.lifts_increments:
+        return tf.pipeline_increments(paths, cfg, lengths, align="end")
+    return tf.transform_path(paths, cfg, lengths, align="end")
+
+
+def _pair_delta(sa: torch.Tensor, sb: torch.Tensor, kernel) -> torch.Tensor:
+    """Δ for batches of prepared streams (leading dims broadcast)."""
+    if kernel.lifts_increments:
+        return kernel.delta_from_increments(sa, sb)
+    return delta_from_gram(kernel.gram(sa, sb))
+
+
+def _solve_pairs(sa: torch.Tensor, sb: torch.Tensor, kernel, backend: str, g,
+                 launch=None) -> torch.Tensor:
+    """Solve one batch of prepared pairs (P, ·, d) × (P, ·, d) -> (P,)."""
+    if backend == "gpu_fused":
+        # scale·⟨dx, dy⟩ = ⟨scale·dx, dy⟩: fold a linear scale into one side
+        return pde_ops.solve_fused(_maybe_scale(sa, kernel.scale), sb, g.lam1,
+                                   g.lam2, launch, g.scheme, g.interior_dtype)
+    return _sigkernel_from_delta(_pair_delta(sa, sb, kernel), g, backend, launch)
+
+
+def _gram_block(sxb: torch.Tensor, sY: torch.Tensor, kernel, backend: str, g,
+                launch=None) -> torch.Tensor:
+    """Gram block from prepared streams (r, ·, d) × (By, ·, d) -> (r, By)."""
+    if backend == "gpu_fused":
+        return pde_ops.gram_fused(_maybe_scale(sxb, kernel.scale), sY, g.lam1,
+                                  g.lam2, launch, g.scheme, g.interior_dtype)
+    delta = _pair_delta(sxb[:, None], sY[None, :], kernel)
+    return _sigkernel_from_delta(delta, g, backend, launch)
+
+
+def _gram_rows(sX: torch.Tensor, sY: torch.Tensor, kernel, backend: str, g,
+               row_block: Optional[int], launch=None) -> torch.Tensor:
+    """(Bx, ·, d) × (By, ·, d) -> (Bx, By), optionally ``row_block`` rows
+    at a time."""
+    if row_block is None:
+        return _gram_block(sX, sY, kernel, backend, g, launch)
+    return torch.cat([_gram_block(sxb, sY, kernel, backend, g, launch)
+                      for sxb in sX.split(row_block)])
+
+
+def _solve_pairs_chunked(sX: torch.Tensor, a_idx, b_idx, kernel, backend: str,
+                         g, chunk: Optional[int], launch=None) -> torch.Tensor:
+    """k values for a pair list into one stream batch, at most ``chunk``
+    pairs of gathered streams alive at once."""
+    a_idx = torch.as_tensor(a_idx, device=sX.device)
+    b_idx = torch.as_tensor(b_idx, device=sX.device)
+    n = a_idx.shape[0]
+    if chunk is None or chunk >= n:
+        return _solve_pairs(sX[a_idx], sX[b_idx], kernel, backend, g, launch)
+    return torch.cat([_solve_pairs(sX[a], sX[b], kernel, backend, g, launch)
+                      for a, b in zip(a_idx.split(chunk), b_idx.split(chunk))])
+
+
+#: bytes of gathered pair streams above which an unset ``row_block`` is
+#: chosen for the symmetric path, so it never costs more memory than the
+#: dense Gram it replaces
+_SYM_GATHER_BUDGET = 64 * 1024 * 1024
+
+
+def _auto_row_block(other: int, L: int, d: int) -> int:
+    """Row block bounding one block's gathered-stream bytes by the budget."""
+    return max(1, _SYM_GATHER_BUDGET // (8 * max(1, other) * L * d))
+
+
+def _symmetric_gram(sX: torch.Tensor, kernel, backend: str,
+                    row_block: Optional[int], g, launch=None) -> torch.Tensor:
+    """Upper-triangle pair solve + mirror: Bx·(Bx+1)/2 PDE solves."""
+    Bx = sX.shape[0]
+    a_np, b_np = np.triu_indices(Bx)
+    n_pairs = a_np.size
+    if row_block is None and 8 * n_pairs * sX.shape[1] * sX.shape[2] \
+            > _SYM_GATHER_BUDGET:
+        row_block = _auto_row_block(Bx, sX.shape[1], sX.shape[2])
+    chunk = None if row_block is None else max(1, int(row_block)) * Bx
+    dispatch.record_pair_solves(n_pairs)
+    k = _solve_pairs_chunked(sX, a_np, b_np, kernel, backend, g, chunk, launch)
+    a_idx = torch.as_tensor(a_np, device=k.device)
+    b_idx = torch.as_tensor(b_np, device=k.device)
+    K = torch.zeros(Bx, Bx, dtype=k.dtype, device=k.device)
+    K[a_idx, b_idx] = k
+    K[b_idx, a_idx] = k
+    return K
+
+
+def _resolve_engine(X, Y, symmetric, lengths, lengths_y, transforms, grid,
+                    static_kernel, backend, launch):
+    """Shared front end: validation, configs, ragged padding, dispatch."""
+    if X.dim() != 3 or (Y is not None and Y.dim() != 3):
+        raise ValueError(
+            f"sigkernel_gram expects (B, L, d) paths, got X {tuple(X.shape)}"
+            + ("" if Y is None else f", Y {tuple(Y.shape)}"))
+    require_no_grad(X, Y)
+    if symmetric is None:
+        symmetric = Y is None
+    if symmetric and not (Y is None or Y is X):
+        raise ValueError("symmetric=True requires Y to be None or X itself")
+    if not symmetric and Y is None:
+        raise ValueError("symmetric=False requires Y (pass Y=X for the "
+                         "full symmetric Gram without the fast path)")
+    if lengths_y is not None and Y is None:
+        raise ValueError("lengths_y= requires Y; for the symmetric Gram "
+                         "pass lengths= (it applies to both sides)")
+    cfg, g, kernel = resolve_kernel_configs(transforms, grid, static_kernel)
+    launch = resolve_launch(launch)
+    if lengths is not None:
+        X, lengths = tf.pad_ragged(X, lengths)
+    if lengths_y is not None:
+        Y, lengths_y = tf.pad_ragged(Y, lengths_y)
+    backend = dispatch.canonicalize(backend, op="gram")
+    if backend == "gpu_fused" and not kernel.lifts_increments:
+        raise ValueError(
+            "backend='gpu_fused' builds Δ from increments inside the kernel and "
+            f"only supports the linear lift, got static_kernel="
+            f"{type(kernel).__name__}; pass backend='auto'")
+    Lx = cfg.transformed_steps(X.shape[1])
+    Ly = Lx if Y is None else cfg.transformed_steps(Y.shape[1])
+    backend = dispatch.resolve(backend, op="gram", device=X.device,
+                               grid_cells=(Lx << g.lam1) * (Ly << g.lam2),
+                               allow_fused=kernel.lifts_increments, scheme=g.scheme)
+    return X, Y, lengths, lengths_y, cfg, g, kernel, backend, symmetric, launch
+
+
+def sigkernel_gram(X: torch.Tensor, Y: Optional[torch.Tensor] = None, *,
+                   backend: str = "auto", row_block: Optional[int] = None,
+                   symmetric: Optional[bool] = None, lengths=None,
+                   lengths_y=None, transforms=None, grid=None,
+                   static_kernel=None, launch=None) -> torch.Tensor:
+    """Signature-kernel Gram matrix ``K[a, b] = k(X_a, Y_b)``.
+
+    Args:
+      X: (Bx, L, d) paths.
+      Y: (By, L', d) paths, or ``None`` for the symmetric Gram of ``X``
+        (upper triangle only, ≈2× fewer PDE solves).
+      backend: ``"auto"`` (CUDA: ``"gpu_fused"`` for the linear lift, else
+        ``"gpu"``; CPU: the plain solvers), or a registered name.
+      row_block: at most this many Gram rows (or ``row_block·Bx`` symmetric
+        pairs) in flight; default ``launch.gram_row_block``.
+      symmetric: force/forbid the symmetric path (default: ``Y is None``).
+      lengths / lengths_y: per-path true point counts (ragged batches).
+      transforms / grid / static_kernel / launch: the configs.
+
+    Returns the (Bx, By) Gram (f32 on the card).  Forward only.
+    """
+    (X, Y, lengths, lengths_y, cfg, g, kernel, backend, symmetric,
+     launch) = _resolve_engine(X, Y, symmetric, lengths, lengths_y, transforms,
+                               grid, static_kernel, backend, launch)
+    if row_block is None:
+        row_block = launch.gram_row_block
+    sX = _prepare(X, cfg, kernel, lengths)
+    if symmetric:
+        return _symmetric_gram(sX, kernel, backend, row_block, g, launch)
+    sY = _prepare(Y, cfg, kernel, lengths_y)
+    dispatch.record_pair_solves(sX.shape[0] * sY.shape[0])
+    return _gram_rows(sX, sY, kernel, backend, g, row_block, launch)

@@ -1,0 +1,78 @@
+"""Signature-kernel losses (MMD², scoring rule), forward only.
+
+Counterpart of ``repro/core/losses.py`` on its non-streaming branch: each
+Gram term goes through :func:`repro_torch.core.gram.sigkernel_gram`, whose
+symmetric ``Kxx``/``Kyy`` terms solve only the upper triangle.  The
+streaming reduction (``streaming=True``) is ROADMAP Queue A item 5 and not
+ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .config import resolve_kernel_configs
+from .gram import sigkernel_gram
+
+
+def _no_streaming(streaming: Optional[bool]) -> None:
+    if streaming:
+        raise NotImplementedError(
+            "streaming=True (the Gram-sum reduction that never materialises "
+            "the Gram) is ROADMAP Queue A item 5 and not ported yet; pass "
+            "streaming=None/False (row_block= still bounds the rows in flight)")
+
+
+def mmd2(X: torch.Tensor, Y: torch.Tensor, *, transforms=None, grid=None,
+         static_kernel=None, unbiased: bool = True, backend: str = "auto",
+         row_block: Optional[int] = None, streaming: Optional[bool] = None,
+         lengths=None, lengths_y=None) -> torch.Tensor:
+    """Squared MMD between two path distributions under the signature kernel.
+
+    X: (Bx, L, d) samples from P; Y: (By, L', d) samples from Q.  The
+    unbiased estimator needs at least two samples per side.
+    """
+    bx, by = X.shape[0], Y.shape[0]
+    if unbiased and min(bx, by) < 2:
+        raise ValueError(
+            f"unbiased MMD needs >= 2 samples per side (got Bx={bx}, "
+            f"By={by}); the 1/(b·(b-1)) normaliser is NaN at b=1 — "
+            "pass unbiased=False")
+    _no_streaming(streaming)
+    cfg, g, kernel = resolve_kernel_configs(transforms, grid, static_kernel)
+    kw = dict(transforms=cfg, grid=g, static_kernel=kernel, backend=backend,
+              row_block=row_block)
+    Kxx = sigkernel_gram(X, lengths=lengths, **kw)   # upper triangle only
+    Kyy = sigkernel_gram(Y, lengths=lengths_y, **kw)
+    Kxy = sigkernel_gram(X, Y, lengths=lengths, lengths_y=lengths_y, **kw)
+    if unbiased:
+        sxx = (Kxx.sum() - torch.trace(Kxx)) / (bx * (bx - 1))
+        syy = (Kyy.sum() - torch.trace(Kyy)) / (by * (by - 1))
+    else:
+        sxx = Kxx.mean()
+        syy = Kyy.mean()
+    return sxx + syy - 2.0 * Kxy.mean()
+
+
+def scoring_rule(X: torch.Tensor, y: torch.Tensor, *, transforms=None, grid=None,
+                 static_kernel=None, backend: str = "auto",
+                 row_block: Optional[int] = None, streaming: Optional[bool] = None,
+                 lengths=None, length_y=None) -> torch.Tensor:
+    """Signature-kernel score E[k(X,X')]/2 − E[k(X,y)] for one observation
+    y (L, d); ``E[k(X,X')]`` averages over distinct pairs."""
+    b = X.shape[0]
+    if b < 2:
+        raise ValueError(
+            f"scoring_rule needs an ensemble of >= 2 paths (got B={b}); "
+            "the 1/(b·(b-1)) normaliser is NaN at b=1")
+    _no_streaming(streaming)
+    cfg, g, kernel = resolve_kernel_configs(transforms, grid, static_kernel)
+    kw = dict(transforms=cfg, grid=g, static_kernel=kernel, backend=backend,
+              row_block=row_block)
+    ly = None if length_y is None else torch.as_tensor(length_y).reshape(1)
+    Kxx = sigkernel_gram(X, lengths=lengths, **kw)
+    exx = (Kxx.sum() - torch.trace(Kxx)) / (b * (b - 1))
+    Kxy = sigkernel_gram(X, y[None], lengths=lengths, lengths_y=ly, **kw)
+    return 0.5 * exx - Kxy.mean()
