@@ -23,12 +23,13 @@ import torch
 
 from . import kernel
 
-#: Strip caps measured by chip_smoke.py's strip sweep on an H100: a launch
-#: with few problems (one block per SM) is latency-bound, and tall strips
-#: cut its dependent steps (512 beat 1024 and 256 at 1023 x 1023); one with
-#: more than _MANY_PROBLEMS blocks fills the card several times over, and
-#: short strips keep the wavefront's lanes busy (64 beat 32 and 128 at
-#: 128 x 128 pairs of 255 x 255).
+#: Strip caps from chip_smoke.py's strip sweep on an H100: a launch with
+#: few problems (one block per SM) is latency-bound, and tall strips cut its
+#: dependent steps (at 1023 x 1023, 512 and 1024 were within run-to-run
+#: noise of each other and well ahead of 256); one with more than
+#: _MANY_PROBLEMS blocks fills the card several times over, and short
+#: strips keep the wavefront's lanes busy (64 beat 128 by ~12% at 128 x 128
+#: pairs of 255 x 255, and tied with 32).
 _FEW_PROBLEMS_T = 512
 _MANY_PROBLEMS = 4 * 132
 _MANY_PROBLEMS_T = 64
