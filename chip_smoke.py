@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's signature-kernel forward path on one CUDA card.
+"""Drive the PyTorch port's signature-kernel path, forward and gradient, on
+one CUDA card.
 
     python3 chip_smoke.py
 
@@ -7,21 +8,30 @@ Phases (any failure exits non-zero; nothing runs without CUDA):
 
 1. build the Goursat kernels (``src/repro_torch/kernels/sigkernel_pde/csrc``)
    with nvcc and print the compiler's register / shared-memory report;
-2. drive the main path through the public entry points at the paper's
+2. drive the forward path through the public entry points at the paper's
    Table 2 "full" sizes, with every launch count set to 0 just before and
    read just after: ``sigkernel`` on (128, 1024, 32) paths (auto -> "gpu",
    and "gpu_fused"), ``SigKernel().gram(X, Y)``, the symmetric
    ``gram(X)``, ``mmd2`` and the RBF-lift Gram on (128, 256, 8) paths;
-   results must be finite, the routes must agree, and every kernel must
-   have launched;
-3. hold each kernel against its plain PyTorch version on the card at
+   results must be finite, the routes must agree, and every kernel of the
+   path must have launched;
+3. drive the gradient path the same way, counts reset just before it:
+   ``torch.autograd.grad`` of ``sigkernel(x, y).sum()`` on (128, 1024, 32)
+   through auto ("gpu") and "gpu_fused", of ``SigKernel().mmd2(X, Y)`` and
+   of the streaming ``mmd2(X, Y, row_block=16)`` on (128, 256, 8), a small
+   input against the CPU reference gradient, and a trainer: five Adam steps
+   on an ``nn.Parameter`` of (64, 256, 8) paths under the biased MMD² to
+   fixed targets (ms/step; the loss must fall);
+4. hold each kernel against its plain PyTorch version on the card at
    B = 8, L = 128, d = 8 for every scheme, interior dtype and refinement in
-   the sweep, plus strips that do not divide Lx and an nx > ny case;
-4. time each kernel and its plain version at the main path's shapes
+   the sweep, plus strips that do not divide Lx, an nx > ny case and T = 2
+   (the checkpoint rows exactly, the backward to 1e-4);
+5. time each kernel and its plain version at the main path's shapes
    (CUDA events, median), compute the bound (bytes / 3.35 TB/s vs
-   operations / 67 TFLOP/s FP32, H100 SXM data sheet), sweep the strip
-   height, and print one JSON line per kernel, the ``kernels`` line, the
-   card's name and power limit, and the final ``ok`` line.
+   operations / 67 TFLOP/s FP32, H100 SXM data sheet), sweep the forward
+   kernels' strip height, and print one JSON line per kernel, the
+   ``kernels`` line, the card's name and power limit, and the final ``ok``
+   line.
 """
 
 from __future__ import annotations
@@ -43,13 +53,22 @@ RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: flops per refined cell of the order-1 stencil: p·scale, A (5), B (3),
 #: (left + up)·A − upleft·B (4)
 CELL_FLOPS = 13
+#: flops per refined cell of the order-1 backward kernel: the recompute (13)
+#: and the adjoint: p·scale, A and B (5), g (2), g·A and g·B (2), A' (2),
+#: the dΔ term (5), g·term (1), the fold (1)
+BWD_CELL_FLOPS = 13 + 19
 
 SOURCE = "src/repro_torch/kernels/sigkernel_pde/csrc/sigkernel_pde.cu"
 REPLACES = {
     "fwd": "src/repro/kernels/sigkernel_pde/kernel.py:111",
+    "fwd_cps": "src/repro/kernels/sigkernel_pde/kernel.py:134",
     "fwd_fused": "src/repro/kernels/sigkernel_pde/kernel.py:84",
     "gram_fused": "src/repro/kernels/sigkernel_pde/kernel.py:323",
+    "bwd": "src/repro/kernels/sigkernel_pde/grad_kernel.py:62",
 }
+#: the kernels each driven path must launch
+FORWARD_PATH = ("fwd", "fwd_fused", "gram_fused")
+GRADIENT_PATH = ("fwd_cps", "bwd", "fwd_fused", "gram_fused")
 
 
 class SmokeFailure(RuntimeError):
@@ -90,6 +109,13 @@ def time_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def grads(fn, *inputs):
+    """``torch.autograd.grad`` of fn(*leaves) at fresh leaves of the inputs."""
+    import torch
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    return torch.autograd.grad(fn(*leaves), leaves)
 
 
 def card_line() -> str:
@@ -169,9 +195,8 @@ def main() -> int:
                  lambda: rbf.gram(X, Y, row_block=16), kernel.fwd)
     path_s = time.time() - t_path
     counts = kernel.launch_counts()
-    for launcher in kernel.LAUNCHERS:
-        check(counts[launcher.__name__] > 0,
-              f"main path never launched {launcher.__name__}")
+    for kname in FORWARD_PATH:
+        check(counts[kname] > 0, f"forward path never launched {kname}")
 
     check(rel_err(k_fused, k_gpu) <= 1e-4, "sigkernel: gpu and gpu_fused disagree")
     check(rel_err(K, K_gpu) <= 1e-4, "gram: gpu_fused and gpu disagree")
@@ -195,7 +220,67 @@ def main() -> int:
           "gram_fused_vs_gpu_rel": rel_err(K, K_gpu), "mmd2": float(m),
           "card": name, "power_limit": power})
 
-    # ---- 3. kernels against their plain versions ---------------------------
+    # ---- 3. the gradient path at full width, and a trainer -------------------
+    kernel.reset_launch_counts()
+    t_path = time.time()
+    gsteps = []
+
+    def gstep(what, fn):
+        out = fn()
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(g).all()) for g in out), f"{what}: non-finite grads")
+        gsteps.append({"call": what, "shapes": [list(g.shape) for g in out]})
+        return out
+
+    gk = gstep("grad sigkernel(x, y).sum()",
+               lambda: grads(lambda a, b: rt.sigkernel(a, b).sum(), x, y))
+    gk_fused = gstep("grad sigkernel(x, y, backend='gpu_fused').sum()",
+                     lambda: grads(lambda a, b: rt.sigkernel(a, b, backend="gpu_fused").sum(),
+                                   x, y))
+    gm = gstep("grad SigKernel().mmd2(X, Y)", lambda: grads(sk.mmd2, X, Y))
+    gm_stream = gstep("grad mmd2(X, Y, row_block=16)",
+                      lambda: grads(lambda a, b: rt.mmd2(a, b, row_block=16), X, Y))
+    # a small input: the card's gradient against the CPU reference's
+    g_small = grads(lambda a, b: rt.sigkernel(a, b).sum(), xs.to(dev), ys.to(dev))
+    g_small_ref = grads(lambda a, b: rt.sigkernel(a, b, backend="reference").sum(), xs, ys)
+
+    # the trainer: Adam on generated paths under the biased MMD² to targets
+    gen = torch.nn.Parameter(torch.from_numpy(random_paths(rng, 64, 256, 8)).to(dev))
+    target = torch.from_numpy(random_paths(rng, 64, 256, 8) + 0.25).to(dev)
+    opt = torch.optim.Adam([gen], lr=1e-2)
+    losses, step_ms = [], []
+    for _ in range(5):
+        t0 = time.time()
+        opt.zero_grad()
+        loss = rt.mmd2(gen, target, unbiased=False)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.time() - t0) * 1e3)
+        losses.append(float(loss.detach()))
+    with torch.no_grad():
+        losses.append(float(rt.mmd2(gen, target, unbiased=False)))
+    gpath_s = time.time() - t_path
+    gcounts = kernel.launch_counts()
+    for kname in GRADIENT_PATH:
+        check(gcounts[kname] > 0, f"gradient path never launched {kname}")
+
+    grad_rel = {
+        "sigkernel_gpu_vs_fused": max(rel_err(a, b) for a, b in zip(gk_fused, gk)),
+        "mmd2_streaming_vs_dense": max(rel_err(a, b) for a, b in zip(gm_stream, gm)),
+        "small_card_vs_cpu_reference": max(rel_err(a.cpu(), b)
+                                           for a, b in zip(g_small, g_small_ref)),
+    }
+    for what, err in grad_rel.items():
+        check(err <= 1e-4, f"gradients: {what} rel err {err:.3g} > 1e-4")
+    check(all(np.isfinite(losses)), f"trainer: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"trainer: the loss did not fall {losses}")
+    emit({"gradient_path": gsteps, "launches": gcounts, "seconds": round(gpath_s, 3),
+          "grad_rel_err": grad_rel, "trainer_losses": losses,
+          "trainer_ms_per_step": step_ms, "trainer_ms_per_step_median":
+          float(np.median(step_ms)), "card": name, "power_limit": power})
+
+    # ---- 4. kernels against their plain versions ---------------------------
     cases = []
     for scheme in ("order1", "order2"):
         for idt in ("float32", "bfloat16"):
@@ -204,6 +289,7 @@ def main() -> int:
     cases.append(("order2", "float32", (1, 1), 128, 128, 32))   # 32 ∤ Lx = 127
     cases.append(("order1", "float32", (0, 0), 128, 64, 16))    # nx > ny
     cases.append(("order2", "bfloat16", (1, 0), 128, 64, None))
+    cases.append(("order2", "float32", (0, 1), 24, 17, 2))      # T = 2
     worst = {}
     for scheme, idt, (l1, l2), Lx_pts, Ly_pts, strip in cases:
         launch = rt.LaunchConfig(pde_strip=strip)
@@ -220,20 +306,33 @@ def main() -> int:
             ("gram_fused", lambda: ops.gram_fused(da, dc, l1, l2, launch, scheme, idt),
              lambda: kernel.gram_fused_plain(da, dc, l1, l2, scheme, idt)),
         ]
+        T = ops.choose_T(delta.shape[1], delta.shape[2], l1, l2, 8, scheme=scheme,
+                         max_t=strip, backward=True)
+        gbar = torch.from_numpy(rng.normal(size=8).astype(np.float32)).to(dev)
+        cps_k = kernel.fwd_cps(delta, T, l1, l2, scheme, idt)[1]
+        cps_p = kernel.solve_with_grid_plain(delta, T, l1, l2, scheme, idt)[1]
+        runs += [
+            ("fwd_cps", lambda: kernel.fwd_cps(delta, T, l1, l2, scheme, idt)[0],
+             lambda: kernel.solve_with_grid_plain(delta, T, l1, l2, scheme, idt)[0]),
+            ("fwd_cps_rows", lambda: cps_k, lambda: cps_p),
+            ("bwd", lambda: kernel.bwd(delta, cps_k, gbar, T, l1, l2, scheme, idt),
+             lambda: kernel.solve_grad_plain(delta, cps_p, gbar, T, l1, l2, scheme, idt)),
+        ]
         for kname, run_kernel, run_plain in runs:
             got = run_kernel()
             torch.cuda.synchronize()
             want = run_plain()
             torch.cuda.synchronize()
             err = rel_err(got, want)
+            tol = {"fwd_cps_rows": 0.0, "bwd": 1e-4}.get(kname, RTOL[idt])
             tag = f"{kname} {scheme} {idt} lam={l1},{l2} L={Lx_pts}x{Ly_pts} strip={strip}"
             check(bool(torch.isfinite(got).all()), f"{tag}: non-finite")
-            check(err <= RTOL[idt], f"{tag}: rel err {err:.3g} > {RTOL[idt]}")
+            check(err <= tol, f"{tag}: rel err {err:.3g} > {tol}")
             worst[f"{kname}/{idt}"] = max(worst.get(f"{kname}/{idt}", 0.0), err)
-    emit({"kernel_vs_plain": {"cases": len(cases) * 3, "worst_rel_err": worst,
-                              "rtol": RTOL}})
+    emit({"kernel_vs_plain": {"cases": len(cases) * len(runs), "worst_rel_err": worst,
+                              "rtol": {**RTOL, "fwd_cps_rows": 0.0, "bwd": 1e-4}}})
 
-    # ---- 4. timing at the main path's shapes -------------------------------
+    # ---- 5. timing at the main path's shapes -------------------------------
     identity = rt.TransformPipeline()
     delta = delta_matrix(x, y)                                     # B1 input
     dx, dy = tf.pipeline_increments(x, identity), tf.pipeline_increments(y, identity)
@@ -242,8 +341,14 @@ def main() -> int:
     d = dx.shape[-1]
     Bx, Lgx, dg = dX.shape
     By, Lgy = dY.shape[0], dY.shape[1]
+    T_grad = ops.choose_T(Lx, Ly, 0, 0, B, backward=True)
+    cps = kernel.fwd_cps(delta, T_grad, 0, 0, "order1", "float32")[1]
+    gbar = torch.from_numpy(rng.normal(size=B).astype(np.float32)).to(dev)
     work = {
         "fwd": (delta.numel() * 4 + B * 4, B * Lx * Ly * CELL_FLOPS),
+        "fwd_cps": (delta.numel() * 4 + B * 4 + cps.numel() * 4, B * Lx * Ly * CELL_FLOPS),
+        "bwd": (2 * delta.numel() * 4 + cps.numel() * 4 + B * 4,
+                B * Lx * Ly * BWD_CELL_FLOPS),
         "fwd_fused": ((dx.numel() + dy.numel()) * 4 + B * 4,
                       B * (2 * d + CELL_FLOPS) * Lx * Ly),
         "gram_fused": ((dX.numel() + dY.numel()) * 4 + Bx * By * 4,
@@ -251,21 +356,29 @@ def main() -> int:
     }
     default_T = {
         "fwd": ops.choose_T(Lx, Ly, 0, 0, B),
+        "fwd_cps": T_grad,
+        "bwd": T_grad,
         "fwd_fused": ops.choose_T(Lx, Ly, 0, 0, B, d=d),
         "gram_fused": ops.choose_T(Lgx, Lgy, 0, 0, Bx * By, d=dg),
     }
     launchers = {
         "fwd": lambda T: kernel.fwd(delta, T, 0, 0, "order1", "float32"),
+        "fwd_cps": lambda T: kernel.fwd_cps(delta, T, 0, 0, "order1", "float32")[0],
+        "bwd": lambda T: kernel.bwd(delta, cps, gbar, T, 0, 0, "order1", "float32"),
         "fwd_fused": lambda T: kernel.fwd_fused(dx, dy, T, 0, 0, "order1", "float32"),
         "gram_fused": lambda T: kernel.gram_fused(dX, dY, T, 0, 0, "order1", "float32"),
     }
     plains = {
         "fwd": lambda: kernel.solve_plain(delta, 0, 0, "order1", "float32"),
+        "fwd_cps": lambda: kernel.solve_with_grid_plain(delta, T_grad, 0, 0, "order1",
+                                                        "float32")[0],
+        "bwd": lambda: kernel.solve_grad_plain(delta, cps, gbar, T_grad, 0, 0, "order1",
+                                               "float32"),
         "fwd_fused": lambda: kernel.solve_fused_plain(dx, dy, 0, 0, "order1", "float32"),
         "gram_fused": lambda: kernel.gram_fused_plain(dX, dY, 0, 0, "order1", "float32"),
     }
     rows = []
-    for kname in ("fwd", "fwd_fused", "gram_fused"):
+    for kname in ("fwd", "fwd_cps", "fwd_fused", "gram_fused", "bwd"):
         T = default_T[kname]
         ms = time_ms(lambda: launchers[kname](T), 5)
         plain_ms = time_ms(plains[kname], 2)
@@ -277,14 +390,17 @@ def main() -> int:
         nbytes, nflops = work[kname]
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nflops / FP32_FLOPS_PER_S * 1e3
-        fused = kname != "fwd"
-        sweep = {Ts: round(time_ms(lambda: launchers[kname](Ts), 3), 4)
-                 for Ts in (32, 64, 128, 256, 512, 1024)
-                 if kernel.smem_bytes(fused, "order1", Ts, Ly if kname != "gram_fused"
-                                      else Lgy, 0, 0, d if kname == "fwd_fused" else dg)
-                 <= kernel.SMEM_LIMIT}
+        sweep = {}
+        if kname in FORWARD_PATH:
+            fused = kname != "fwd"
+            sweep = {Ts: round(time_ms(lambda: launchers[kname](Ts), 3), 4)
+                     for Ts in (32, 64, 128, 256, 512, 1024)
+                     if kernel.smem_bytes(fused, "order1", Ts, Ly if kname != "gram_fused"
+                                          else Lgy, 0, 0, d if kname == "fwd_fused" else dg)
+                     <= kernel.SMEM_LIMIT}
+        path_counts = counts if kname in FORWARD_PATH else gcounts
         row = {"name": kname, "route": "cuda", "source": SOURCE,
-               "replaces": REPLACES[kname], "launches": counts[kname],
+               "replaces": REPLACES[kname], "launches": path_counts[kname],
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",

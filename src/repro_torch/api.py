@@ -27,7 +27,10 @@ class SigKernel(nn.Module):
     path pairs), ``gram(X, Y=None)`` and ``mmd2(X, Y)``.
 
     ``device=None`` means ``"cuda"`` and raises if CUDA is missing; pass
-    ``device="cpu"`` to run the plain solvers on the CPU.  Forward only.
+    ``device="cpu"`` to run the plain solvers on the CPU.  All three are
+    differentiable in their paths with the exact one-pass backward (a path
+    that requires grad and lies elsewhere is moved with ``.to``, which
+    autograd follows).
     """
 
     def __init__(self, static_kernel=None, transforms=None, grid=None,

@@ -4,10 +4,10 @@ Goursat solvers, the Gram engine and the losses."""
 from .config import (GridConfig, LaunchConfig, Linear, RBF, StaticKernel,
                      TransformPipeline, configs_from_reference, delta_from_gram)
 from .dispatch import count_pair_solves
-from .gram import sigkernel_gram
+from .gram import sigkernel_gram, sigkernel_gram_reduce
 from .losses import mmd2, scoring_rule
 from .sigkernel import (delta_matrix, sigkernel, solve_goursat,
-                        solve_goursat_antidiag)
+                        solve_goursat_antidiag, solve_goursat_grad)
 from .transforms import bucket_length, pad_ragged
 
 __all__ = [
@@ -15,5 +15,6 @@ __all__ = [
     "TransformPipeline", "bucket_length", "configs_from_reference",
     "count_pair_solves", "delta_from_gram", "delta_matrix", "mmd2",
     "pad_ragged", "scoring_rule", "sigkernel", "sigkernel_gram",
-    "solve_goursat", "solve_goursat_antidiag",
+    "sigkernel_gram_reduce", "solve_goursat", "solve_goursat_antidiag",
+    "solve_goursat_grad",
 ]

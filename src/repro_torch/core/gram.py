@@ -11,9 +11,11 @@ Counterpart of the single-device engine in ``repro/core/gram.py``:
 * **symmetric** (``Y`` omitted) — only the ``Bx·(Bx+1)/2`` upper-triangle
   pairs are solved, then mirrored.
 
-The sharded and streaming layers (``sigkernel_gram_sharded``,
-``sigkernel_gram_reduce``) and the approximate feature-map backends are not
-ported yet (ROADMAP).
+:func:`sigkernel_gram_reduce` is the streaming layer: ``Σ K`` without the
+Gram, at most one block of solves alive in the forward and the backward.
+Every variant is differentiable with the exact one-pass backward.  The
+sharded Gram and the approximate feature-map backends are not ported yet
+(ROADMAP).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import dispatch
 from . import transforms as tf
@@ -29,7 +32,6 @@ from .config import (_maybe_scale, delta_from_gram, resolve_kernel_configs,
                      resolve_launch)
 from .sigkernel import _sigkernel_from_delta
 from repro_torch.kernels.sigkernel_pde import ops as pde_ops
-from repro_torch.kernels.sigkernel_pde.ops import require_no_grad
 
 
 def _prepare(paths: torch.Tensor, cfg, kernel, lengths=None) -> torch.Tensor:
@@ -115,10 +117,8 @@ def _symmetric_gram(sX: torch.Tensor, kernel, backend: str,
     k = _solve_pairs_chunked(sX, a_np, b_np, kernel, backend, g, chunk, launch)
     a_idx = torch.as_tensor(a_np, device=k.device)
     b_idx = torch.as_tensor(b_np, device=k.device)
-    K = torch.zeros(Bx, Bx, dtype=k.dtype, device=k.device)
-    K[a_idx, b_idx] = k
-    K[b_idx, a_idx] = k
-    return K
+    K = k.new_zeros(Bx, Bx).index_put((a_idx, b_idx), k)
+    return K.index_put((b_idx, a_idx), k)     # the mirror; diagonal once
 
 
 def _resolve_engine(X, Y, symmetric, lengths, lengths_y, transforms, grid,
@@ -128,7 +128,6 @@ def _resolve_engine(X, Y, symmetric, lengths, lengths_y, transforms, grid,
         raise ValueError(
             f"sigkernel_gram expects (B, L, d) paths, got X {tuple(X.shape)}"
             + ("" if Y is None else f", Y {tuple(Y.shape)}"))
-    require_no_grad(X, Y)
     if symmetric is None:
         symmetric = Y is None
     if symmetric and not (Y is None or Y is X):
@@ -178,7 +177,7 @@ def sigkernel_gram(X: torch.Tensor, Y: Optional[torch.Tensor] = None, *,
       lengths / lengths_y: per-path true point counts (ragged batches).
       transforms / grid / static_kernel / launch: the configs.
 
-    Returns the (Bx, By) Gram (f32 on the card).  Forward only.
+    Returns the (Bx, By) Gram (f32 on the card), differentiable in X and Y.
     """
     (X, Y, lengths, lengths_y, cfg, g, kernel, backend, symmetric,
      launch) = _resolve_engine(X, Y, symmetric, lengths, lengths_y, transforms,
@@ -191,3 +190,94 @@ def sigkernel_gram(X: torch.Tensor, Y: Optional[torch.Tensor] = None, *,
     sY = _prepare(Y, cfg, kernel, lengths_y)
     dispatch.record_pair_solves(sX.shape[0] * sY.shape[0])
     return _gram_rows(sX, sY, kernel, backend, g, row_block, launch)
+
+
+# ---------------------------------------------------------------------------
+# streaming reductions — ΣK without materialising K (mmd2 / scoring_rule)
+# ---------------------------------------------------------------------------
+
+def sigkernel_gram_reduce(X: torch.Tensor, Y: Optional[torch.Tensor] = None, *,
+                          include_diag: bool = True, backend: str = "auto",
+                          row_block: Optional[int] = None,
+                          symmetric: Optional[bool] = None, lengths=None,
+                          lengths_y=None, transforms=None, grid=None,
+                          static_kernel=None, launch=None) -> torch.Tensor:
+    """Streaming ``Σ_{a,b} K[a, b]`` — the Gram-sum without the Gram.
+
+    The workhorse of ``mmd2``/``scoring_rule`` with ``streaming=`` on: the
+    sum is accumulated per row block (asymmetric) or per pair chunk
+    (symmetric), each block under ``torch.utils.checkpoint``, so at most
+    one block of PDE solves is alive at a time in the forward AND the
+    backward (the backward recomputes each block instead of keeping its
+    residuals).  The full (Bx, By) Gram and the pairwise Δ stack never
+    exist.
+
+    Args (beyond :func:`sigkernel_gram`'s):
+      include_diag: symmetric reductions only — ``False`` drops the
+        ``k(x_a, x_a)`` diagonal (the ``Σ − tr`` of the unbiased MMD) at no
+        extra solves (off-diagonal pairs enter with weight 2, the diagonal
+        with weight 0).
+      row_block: at most ``row_block`` Gram rows (or ``row_block · Bx``
+        symmetric pairs) in flight.  Default: ``launch.gram_row_block``,
+        else the largest block that fits the pair-gather budget.
+
+    Returns a 0-d tensor, differentiable with the exact one-pass backward.
+    The feature-map branch of the JAX package and its jaxpr shape guard are
+    not ported; a ``gpu``-marked test holds the peak memory instead.
+    """
+    if not include_diag and not (symmetric or (symmetric is None and Y is None)):
+        raise ValueError("include_diag=False requires the symmetric "
+                         "reduction (Y=None)")
+    (X, Y, lengths, lengths_y, cfg, g, kernel, backend, symmetric,
+     launch) = _resolve_engine(X, Y, symmetric, lengths, lengths_y, transforms,
+                               grid, static_kernel, backend, launch)
+    if row_block is None:
+        row_block = launch.gram_row_block
+    sX = _prepare(X, cfg, kernel, lengths)
+    Bx, L, d = sX.shape
+    if symmetric:
+        rb = row_block if row_block is not None else _auto_row_block(Bx, L, d)
+        return _reduce_symmetric(sX, kernel, backend, rb, g, include_diag, launch)
+    sY = _prepare(Y, cfg, kernel, lengths_y)
+    rb = row_block if row_block is not None else _auto_row_block(sY.shape[0], L, d)
+    return _reduce_rows(sX, sY, kernel, backend, rb, g, launch)
+
+
+def _reduce_symmetric(sX: torch.Tensor, kernel, backend: str, row_block: int, g,
+                      include_diag: bool, launch=None) -> torch.Tensor:
+    """Σ over the symmetric Gram via the upper triangle: off-diagonal pairs
+    weighted 2, the diagonal 1 (or 0).  A Python loop needs no padding
+    pairs: the last chunk is just shorter."""
+    Bx = sX.shape[0]
+    a_np, b_np = np.triu_indices(Bx)
+    w = torch.as_tensor(np.where(a_np == b_np, 1.0 if include_diag else 0.0, 2.0),
+                        dtype=sX.dtype, device=sX.device)
+    a_idx = torch.as_tensor(a_np, device=sX.device)
+    b_idx = torch.as_tensor(b_np, device=sX.device)
+    chunk = max(1, int(row_block)) * Bx
+    dispatch.record_pair_solves(a_np.size)
+
+    def block(sx, a, b, wc):
+        return (wc * _solve_pairs(sx[a], sx[b], kernel, backend, g, launch)).sum()
+
+    if chunk >= a_np.size:
+        return block(sX, a_idx, b_idx, w)
+    return sum(checkpoint(block, sX, a, b, wc, use_reentrant=False)
+               for a, b, wc in zip(a_idx.split(chunk), b_idx.split(chunk), w.split(chunk)))
+
+
+def _reduce_rows(sX: torch.Tensor, sY: torch.Tensor, kernel, backend: str,
+                 row_block: int, g, launch=None) -> torch.Tensor:
+    """Σ over the (Bx, By) Gram, ``row_block`` rows at a time.  The JAX
+    engine pads Bx to the block and masks the padded rows (zero increments
+    give k = 1, not 0); a Python loop has no padded rows to mask."""
+    Bx, By = sX.shape[0], sY.shape[0]
+    rb = max(1, int(row_block))
+    dispatch.record_pair_solves(Bx * By)
+
+    def block(sxb, sy):
+        return _gram_block(sxb, sy, kernel, backend, g, launch).sum()
+
+    if rb >= Bx:
+        return block(sX, sY)
+    return sum(checkpoint(block, sxb, sY, use_reentrant=False) for sxb in sX.split(rb))

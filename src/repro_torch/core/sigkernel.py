@@ -1,4 +1,5 @@
-"""Signature kernels via the Goursat PDE (pySigLib §3), forward only.
+"""Signature kernels via the Goursat PDE (pySigLib §3) and their exact
+gradient (§3.4, Alg 4).
 
 Counterpart of ``repro/core/sigkernel.py``.  The scheme (paper eq. (1)),
 
@@ -19,8 +20,11 @@ Solvers:
 * ``backend="gpu"`` / ``"gpu_fused"`` — the hand-written CUDA kernels in
   :mod:`repro_torch.kernels.sigkernel_pde`.
 
-The exact one-pass backward (Alg 4) is ROADMAP item B2: until it lands
-every entry point raises NotImplementedError for inputs that require grad.
+Every route is differentiable with the exact one-pass backward (Alg 4):
+:func:`solve_goursat_grad` is the row-scan adjoint (the oracle), the
+``antidiag`` backend's backward is the vectorised reverse wavefront
+(``kernel.solve_grad_plain``), and the CUDA routes run the checkpoint mode
+of the forward kernel and the backward kernel (``ops.py``).
 """
 
 from __future__ import annotations
@@ -34,9 +38,9 @@ from . import dispatch
 from . import transforms as tf
 from .config import (_maybe_scale, delta_from_gram, resolve_kernel_configs,
                      resolve_launch)
+from repro_torch.kernels.sigkernel_pde import kernel as pde_kernel
 from repro_torch.kernels.sigkernel_pde import ops as pde_ops
 from repro_torch.kernels.sigkernel_pde import stencil
-from repro_torch.kernels.sigkernel_pde.ops import require_no_grad
 
 
 def delta_matrix(x: torch.Tensor, y: torch.Tensor, *, transforms=None,
@@ -201,25 +205,185 @@ def solve_goursat_antidiag(delta: torch.Tensor, lam1: int = 0, lam2: int = 0,
 
 
 # ---------------------------------------------------------------------------
+# exact backward (Alg 4) — the row-scan reference
+# ---------------------------------------------------------------------------
+
+def _backward_rows(delta: torch.Tensor, grid: torch.Tensor, gbar: torch.Tensor,
+                   lam1: int, lam2: int, scheme: str = "order1") -> torch.Tensor:
+    """Alg 4 for a flat batch: ∂F/∂Δ (B, Lx, Ly) given the forward grids
+    (B, nx+1, ny+1) and the cotangents ḡ (B,).
+
+    Traverses the refined grid bottom-up, one cell at a time, carrying one
+    row of g = ∂F/∂k̂ (two rows for ``order2``, whose stencil reaches two
+    skew steps).  The recursion does not depend on ``interior_dtype``: the
+    rounded forward ``grid`` is all the dΔ terms read, so this is the exact
+    straight-through adjoint of the rounded forward.
+    """
+    B, Lx, Ly = delta.shape
+    nx, ny = Lx << lam1, Ly << lam2
+    scale = 2.0 ** (-(lam1 + lam2))
+    m1, m2 = 1 << lam1, 1 << lam2          # data-gridline periods (stencil.py)
+    order2 = scheme == "order2"
+    dev, dt = delta.device, delta.dtype
+    P = _refine(delta, lam1, lam2)                     # (B, nx, ny)
+    A = stencil.coeff_A(P)
+    A_one = torch.ones(B, dtype=dt, device=dev)        # A(0): p off the grid
+    zero = torch.zeros(B, dtype=dt, device=dev)
+    gbar = gbar.to(dt)
+    t_idx = torch.arange(ny, device=dev)
+
+    # seed row s = nx: g[nx, ny] = ḡ flows leftward along the row,
+    #   g[nx, t] = g[nx, t+1]·A(p[nx-1, t])  [− g[nx, t+2]·C(p[nx-1, t+1])]
+    seed = [None] * (ny + 1)
+    seed[ny] = gbar
+    right, right2 = gbar, zero
+    if order2 and lam1 > 0:
+        # the C writers are cells (nx-1, t+1); row nx-1 is off-gridline
+        # iff λ1 > 0, columns mask per t
+        p_sh = torch.cat([P[:, nx - 1, 1:], zero[:, None]], dim=1)
+        cq_seed = stencil.coeff_C2_at(p_sh, (t_idx + 1) % m2 == 0)
+    for t in range(ny - 1, -1, -1):
+        g = right * A[:, nx - 1, t]
+        if order2 and lam1 > 0:
+            g = g - right2 * cq_seed[:, t]
+        seed[t] = g
+        right2, right = right, g
+    g_below = torch.stack(seed, dim=1)                 # g[s+1, ·]
+    g_below2 = torch.zeros_like(g_below)               # g[s+2, ·]
+
+    ddelta = torch.zeros(B, Lx, Ly, dtype=dt, device=dev)
+    for s in range(nx - 1, -1, -1):
+        p_row = P[:, s]
+        # the A coefficients use Δ of *neighbouring* cells (paper eq.):
+        #   g[s,t] = g[s+1,t]·A(p[s,t-1]) + g[s,t+1]·A(p[s-1,t]) − g[s+1,t+1]·B(p[s,t])
+        # order2 adds  − g[s,t+2]·C(p[s-1,t+1]) − g[s+2,t]·C(p[s+1,t-1])
+        a_left = torch.cat([A_one[:, None], A[:, s, :-1]], dim=1)
+        a_above = A[:, s - 1] if s >= 1 else torch.ones_like(p_row)
+        g_last = g_below[:, ny] * A[:, s, ny - 1]
+        if order2:
+            p_above = P[:, s - 1] if s >= 1 else torch.zeros_like(p_row)
+            p_above_sh = torch.cat([p_above[:, 1:], zero[:, None]], dim=1)
+            p_belowrow = P[:, min(s + 1, nx - 1)]
+            p_below_sh = torch.cat([zero[:, None], p_belowrow[:, :-1]], dim=1)
+            # per-WRITER gridline fallback: the −B writer is cell (s, t),
+            # the g[s, t+2] C writer (s-1, t+1), the g[s+2, t] one (s+1, t-1)
+            bq = stencil.coeff_B2_at(p_row, (s % m1 == 0) | (t_idx % m2 == 0))
+            cq_above = stencil.coeff_C2_at(
+                p_above_sh, ((s - 1) % m1 == 0) | ((t_idx + 1) % m2 == 0))
+            cq_below = stencil.coeff_C2_at(
+                p_below_sh, ((s + 1) % m1 == 0) | ((t_idx - 1) % m2 == 0))
+            # cell (s+1, ny-1) reads k̂[s, ny] as its k_ul (−C) unless it
+            # sits on a gridline (column ny-1 always does when λ2 == 0)
+            if lam2 > 0:
+                edge = torch.tensor((s + 1) % m1 == 0, device=dev)
+                g_last = g_last - g_below2[:, ny] * stencil.coeff_C2_at(
+                    p_belowrow[:, ny - 1], edge)
+        else:
+            bq = stencil.coeff_B1(p_row)
+        row = [None] * ny
+        right, right2 = g_last, zero
+        for t in range(ny - 1, -1, -1):
+            g = (g_below[:, t] * a_left[:, t] + right * a_above[:, t]
+                 - g_below[:, t + 1] * bq[:, t])
+            if order2:
+                g = g - right2 * cq_above[:, t] - g_below2[:, t] * cq_below[:, t]
+            row[t] = g
+            right2, right = right, g
+        g_row = torch.stack(row + [g_last], dim=1)
+        # ∂F/∂Δ of row s: cell (s, t) uses g[s+1, t+1]
+        k_up, k_below = grid[:, s], grid[:, s + 1]
+        if order2:
+            cell_edge = (s % m1 == 0) | (t_idx % m2 == 0)
+            k_dl = torch.cat([torch.ones_like(k_below[:, :1]), k_below[:, :-2]], dim=1)
+            k_ul = grid[:, s - 1, 1:] if s >= 1 else torch.ones_like(p_row)
+            contrib = g_below[:, 1:] * (
+                (k_below[:, :-1] + k_up[:, 1:]) * stencil.coeff_dA(p_row)
+                - k_up[:, :-1] * stencil.coeff_dB2_at(p_row, cell_edge)
+                - (k_dl + k_ul) * stencil.coeff_dC2_at(p_row, cell_edge))
+        else:
+            contrib = g_below[:, 1:] * (
+                (k_below[:, :-1] + k_up[:, 1:]) * stencil.coeff_dA(p_row)
+                - k_up[:, :-1] * stencil.coeff_dB1(p_row))
+        # fold refined t-cells back onto unrefined columns
+        ddelta[:, s >> lam1] += contrib.reshape(B, Ly, m2).sum(-1) * scale
+        g_below2, g_below = g_below, g_row
+    return ddelta
+
+
+def solve_goursat_grad(delta: torch.Tensor, grid: torch.Tensor, gbar: torch.Tensor,
+                       lam1: int = 0, lam2: int = 0, scheme: str = "order1",
+                       interior_dtype: str = "float32") -> torch.Tensor:
+    """Batched exact backward: (..., Lx, Ly), (..., nx+1, ny+1), (...,) ->
+    (..., Lx, Ly).  ``interior_dtype`` only selects the rounded forward
+    ``grid`` the caller passes (the adjoint is straight-through)."""
+    stencil.check_scheme(scheme)
+    stencil.check_interior_dtype(interior_dtype)
+    batch_shape = delta.shape[:-2]
+    Lx, Ly = delta.shape[-2:]
+    flat = delta.reshape(-1, Lx, Ly)
+    out = _backward_rows(flat, grid.reshape(flat.shape[0], *grid.shape[-2:]),
+                         gbar.reshape(-1), lam1, lam2, scheme)
+    return out.reshape(*batch_shape, Lx, Ly)
+
+
+# ---------------------------------------------------------------------------
 # dispatch and the public entry point
 # ---------------------------------------------------------------------------
+
+class _SolveDelta(torch.autograd.Function):
+    """The ``reference`` and ``antidiag`` solves with the exact one-pass
+    backward, under the JAX package's residual policy: ``reference`` keeps
+    its grid, ``antidiag`` keeps Δ only and rebuilds in the backward."""
+
+    @staticmethod
+    def forward(ctx, delta, g, backend, launch):
+        ctx.g, ctx.backend = g, backend
+        if backend == "reference":
+            grid = solve_goursat(delta, g.lam1, g.lam2, return_grid=True,
+                                 scheme=g.scheme, interior_dtype=g.interior_dtype)
+            ctx.save_for_backward(delta, grid)
+            return grid[..., -1, -1].clone()
+        ctx.save_for_backward(delta)
+        return solve_goursat_antidiag(delta, g.lam1, g.lam2,
+                                      getattr(launch, "band_chunk", None),
+                                      g.scheme, g.interior_dtype)
+
+    @staticmethod
+    def backward(ctx, gbar):
+        g = ctx.g
+        if ctx.backend == "reference":
+            delta, grid = ctx.saved_tensors
+            dd = solve_goursat_grad(delta, grid, gbar, g.lam1, g.lam2, g.scheme,
+                                    g.interior_dtype)
+        else:
+            delta, = ctx.saved_tensors
+            dd = _antidiag_grad(delta, gbar, g)
+        return dd, None, None, None
+
+
+def _antidiag_grad(delta: torch.Tensor, gbar: torch.Tensor, g) -> torch.Tensor:
+    """The ``antidiag`` backward: one strip over the whole grid (checkpoint
+    rows all ones), rebuilt and swept back by the vectorised wavefronts."""
+    Lx, Ly = delta.shape[-2:]
+    flat = delta.reshape(-1, Lx, Ly)
+    T = max(2, Lx << g.lam1)
+    rows = 2 if g.scheme == "order2" else 1
+    cps = flat.new_ones(flat.shape[0], rows, (Ly << g.lam2) + T + 1)
+    dd = pde_kernel.solve_grad_plain(flat, cps, gbar.reshape(-1).to(flat.dtype), T,
+                                     g.lam1, g.lam2, g.scheme, g.interior_dtype)
+    return dd.reshape(delta.shape)
+
 
 def _sigkernel_from_delta(delta: torch.Tensor, g, backend: str,
                           launch=None) -> torch.Tensor:
     """Solve batched Goursat problems (..., Lx, Ly) -> (...,) with a
-    resolved backend name ("reference" | "antidiag" | "gpu"), forward only.
-    ``g`` is the :class:`GridConfig`."""
-    require_no_grad(delta)
+    resolved backend name ("reference" | "antidiag" | "gpu"), differentiable
+    in Δ with the exact one-pass backward.  ``g`` is the :class:`GridConfig`."""
     if backend == "gpu":
         return pde_ops.solve(delta, g.lam1, g.lam2, launch, g.scheme, g.interior_dtype)
-    if backend == "antidiag":
-        return solve_goursat_antidiag(delta, g.lam1, g.lam2,
-                                      getattr(launch, "band_chunk", None),
-                                      g.scheme, g.interior_dtype)
-    if backend == "reference":
-        return solve_goursat(delta, g.lam1, g.lam2, scheme=g.scheme,
-                             interior_dtype=g.interior_dtype)
-    raise ValueError(f"no Δ-solver implementation for backend {backend!r}")
+    if backend not in ("antidiag", "reference"):
+        raise ValueError(f"no Δ-solver implementation for backend {backend!r}")
+    return _SolveDelta.apply(delta, g, backend, launch)
 
 
 def sigkernel(x: torch.Tensor, y: torch.Tensor, *, transforms=None, grid=None,
@@ -242,9 +406,8 @@ def sigkernel(x: torch.Tensor, y: torch.Tensor, *, transforms=None, grid=None,
       lengths_x / lengths_y: per-path true point counts for ragged batches;
         k is read at the true ``(len_x, len_y)`` corner.
 
-    Forward only: inputs that require grad raise NotImplementedError.
+    Differentiable in ``x`` and ``y`` with the exact one-pass backward.
     """
-    require_no_grad(x, y)
     cfg, g, kernel = resolve_kernel_configs(transforms, grid, static_kernel)
     launch = resolve_launch(launch)
     if lengths_x is not None:

@@ -1,7 +1,9 @@
-"""Goursat-PDE signature-kernel solver: the forward Hopper kernels
-(``kernel.py``, ``csrc/sigkernel_pde.cu``), their wrappers (``ops.py``),
-the stencils (``stencil.py``) and the oracle (``ref.py``)."""
+"""Goursat-PDE signature-kernel solver: the forward and backward Hopper
+kernels (``kernel.py``, ``csrc/sigkernel_pde.cu``), their wrappers
+(``ops.py``), the stencils (``stencil.py``) and the oracle (``ref.py``)."""
 
-from .ops import choose_T, gram_fused, solve, solve_fused
+from .ops import (choose_T, gram_fused, solve, solve_fused, solve_grad,
+                  solve_with_grid)
 
-__all__ = ["choose_T", "gram_fused", "solve", "solve_fused"]
+__all__ = ["choose_T", "gram_fused", "solve", "solve_fused", "solve_grad",
+           "solve_with_grid"]

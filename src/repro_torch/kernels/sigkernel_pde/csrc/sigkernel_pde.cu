@@ -1,13 +1,20 @@
-// Goursat-PDE signature-kernel forward for Hopper (sm_90a), three entry points.
+// Goursat-PDE signature kernel for Hopper (sm_90a), forward and exact
+// backward, five entry points.
 //
 // Replaces the Pallas TPU kernels of the JAX package:
 //   sigkernel_pde_fwd        <- repro/kernels/sigkernel_pde/kernel.py:fwd_kernel
 //                               (+ _wavefront), save_cps=False mode: Delta
 //                               precomputed in device memory.
+//   sigkernel_pde_fwd_cps    <- the same kernel's save_cps=True mode: it also
+//                               writes each strip's carried row(s) as the
+//                               strip begins (kernel.py:134-137).
 //   sigkernel_pde_fwd_fused  <- kernel.py:fused_fwd_kernel: Delta built in the
 //                               kernel from increments, matched pair lists.
 //   sigkernel_pde_gram_fused <- kernel.py:fused_gram_kernel: Delta built in the
 //                               kernel, one block per (row path, column path).
+//   sigkernel_pde_bwd        <- grad_kernel.py:bwd_kernel: the exact adjoint
+//                               (Alg 4); its design is described above
+//                               goursat_bwd below.
 //
 // Design.  One thread block solves one Goursat problem.  The TPU ran the
 // strip axis of its grid in order on one core and carried the boundary row in
@@ -63,6 +70,7 @@
 namespace {
 
 constexpr int kMaxThreads = 1024;
+constexpr int kBwdMaxThreads = 512;  // the backward's launch bound: 128 registers
 constexpr int kGroup = 8;  // Delta loads issued this many wavefront steps ahead
 
 enum Mode { kDelta = 0, kFusedPairs = 1, kFusedGram = 2 };
@@ -81,6 +89,40 @@ __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b);
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 
+constexpr float kOne = 1.0f, kHalf = 0.5f, kSixth = 1.0f / 6.0f,
+                kTwelfth = 1.0f / 12.0f;
+
+// One forward cell: lane r at wavefront step t computes cell (r, c = t - r)
+// of its strip from the two previous anti-diagonals (diag rotates three
+// buffers of T) and, in lanes 0 and 1, the carried rows; m1, m2 are the
+// masks 2^lam1 - 1, 2^lam2 - 1 of the order-2 data-gridline test.
+template <bool ORDER2, bool BF16>
+__device__ __forceinline__ float fwd_cell(float p, int r, int c, int t, int T, int m1,
+                                          int m2, const float* diag, const float* brow,
+                                          const float* brow2) {
+  const float* prev = diag + ((t + 2) % 3) * T;   // step t-1
+  const float* prev2 = diag + ((t + 1) % 3) * T;  // step t-2
+  const float left = c == 0 ? kOne : prev[r];
+  const float up = r == 0 ? brow[t + 1] : prev[r - 1];
+  const float upleft = c == 0 ? kOne : (r == 0 ? brow[t] : prev2[r - 1]);
+  // A = 1 + p/2 + p²/12 and B1 = 1 − p²/12, in stencil.py's order
+  const float p2 = mul(mul(kTwelfth, p), p);
+  const float A = add(add(kOne, mul(kHalf, p)), p2);
+  const float B1 = sub(kOne, p2);
+  float cur;
+  if (ORDER2) {
+    const bool edge = (r & m1) == 0 || (c & m2) == 0;
+    const float Bq = edge ? B1 : add(sub(kOne, mul(kSixth, p)), p2);
+    const float Cq = edge ? 0.0f : mul(kTwelfth, p);
+    const float k_dl = c <= 1 ? kOne : prev2[r];
+    const float k_ul = r >= 2 ? prev2[r - 2] : (r == 1 ? brow[t] : brow2[t + 1]);
+    cur = sub(sub(mul(add(left, up), A), mul(upleft, Bq)), mul(add(k_dl, k_ul), Cq));
+  } else {
+    cur = sub(mul(add(left, up), A), mul(upleft, B1));
+  }
+  return round_interior<BF16>(cur);
+}
+
 // Shared memory bytes the kernel lays out for one block (kernel.py mirrors
 // it): fused kernels first hold, as float64 at an odd row stride, the
 // strip's R = T >> lam1 rows of dx and a ring of T + kGroup rows of dy; then
@@ -93,11 +135,14 @@ __host__ __device__ inline int64_t smem_bytes(int mode, bool order2, int T, int 
   return n;
 }
 
-template <int MODE, bool ORDER2, bool BF16>
+// CPS (precomputed-Delta mode only): at the start of strip s the carried
+// row(s) brow (, brow2), contiguous in shared memory, are copied to the
+// checkpoint rows cps[prob, s * rows + (0, 1), :] (kernel.py:134-137).
+template <int MODE, bool ORDER2, bool BF16, bool CPS>
 __global__ void __launch_bounds__(kMaxThreads)
 goursat_fwd(const float* __restrict__ a, const float* __restrict__ b,
-            float* __restrict__ out, int n_cols, int Lx, int Ly, int d,
-            int lam1, int lam2) {
+            float* __restrict__ out, float* __restrict__ cps, int n_cols, int Lx,
+            int Ly, int d, int lam1, int lam2) {
   extern __shared__ double smem[];
   const int T = blockDim.x;
   const int r = threadIdx.x;
@@ -136,7 +181,6 @@ goursat_fwd(const float* __restrict__ a, const float* __restrict__ b,
   // lane holding refined row nx-1 in the last strip: its cell (., ny-1) is
   // k[nx, ny], read before any padding row below it
   const int r_out = (Lx << lam1) - 1 - (n_strips - 1) * T;
-  const float one = 1.0f, half = 0.5f, sixth = 1.0f / 6.0f, twelfth = 1.0f / 12.0f;
 
   for (int s = 0; s < n_strips; ++s) {
     const int row = s * R + lrow;
@@ -149,6 +193,12 @@ goursat_fwd(const float* __restrict__ a, const float* __restrict__ b,
       }
     }
     __syncthreads();  // ones / staged rows / previous strip's last step
+    if (CPS) {
+      const int rows = ORDER2 ? 2 : 1;
+      float* dst = cps + (prob * n_strips + s) * rows * (int64_t)W;
+      for (int i = r; i < rows * W; i += T) dst[i] = brow[i];
+      __syncthreads();  // at T = 2, lane 0 writes brow2[1] at step 0
+    }
 
     // pbuf[k]: the unrefined Delta entry of this thread's cell at step t0 + k
     const float* drow =
@@ -214,28 +264,8 @@ goursat_fwd(const float* __restrict__ a, const float* __restrict__ b,
         const int c = t - r;
         float cur = 0.0f;
         if (c >= 0 && c < ny) {
-          const float p = mul(pbuf[k], scale);
-          const float* prev = diag + ((t + 2) % 3) * T;   // step t-1
-          const float* prev2 = diag + ((t + 1) % 3) * T;  // step t-2
-          const float left = c == 0 ? one : prev[r];
-          const float up = r == 0 ? brow[t + 1] : prev[r - 1];
-          const float upleft = c == 0 ? one : (r == 0 ? brow[t] : prev2[r - 1]);
-          // A = 1 + p/2 + p²/12 and B1 = 1 − p²/12, in stencil.py's order
-          const float p2 = mul(mul(twelfth, p), p);
-          const float A = add(add(one, mul(half, p)), p2);
-          const float B1 = sub(one, p2);
-          if (ORDER2) {
-            const bool edge = (r & m1) == 0 || (c & m2) == 0;
-            const float Bq = edge ? B1 : add(sub(one, mul(sixth, p)), p2);
-            const float Cq = edge ? 0.0f : mul(twelfth, p);
-            const float k_dl = c <= 1 ? one : prev2[r];
-            const float k_ul = r >= 2 ? prev2[r - 2] : (r == 1 ? brow[t] : brow2[t + 1]);
-            cur = sub(sub(mul(add(left, up), A), mul(upleft, Bq)),
-                      mul(add(k_dl, k_ul), Cq));
-          } else {
-            cur = sub(mul(add(left, up), A), mul(upleft, B1));
-          }
-          cur = round_interior<BF16>(cur);
+          cur = fwd_cell<ORDER2, BF16>(mul(pbuf[k], scale), r, c, t, T, m1, m2, diag,
+                                       brow, brow2);
           if (s == n_strips - 1 && r == r_out && c == ny - 1) out[prob] = cur;
         }
         if (T == 2) __syncthreads();  // lane 1 writes brow[t], which lane 0 read
@@ -252,21 +282,259 @@ goursat_fwd(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
-template <int MODE, bool ORDER2, bool BF16>
-cudaError_t launch(const float* a, const float* b, float* out, long long n_problems,
-                   int n_cols, int Lx, int Ly, int d, int T, int lam1, int lam2,
-                   long long smem, cudaStream_t stream) {
-  auto kern = goursat_fwd<MODE, ORDER2, BF16>;
+// ---------------------------------------------------------------------------
+// The exact backward (Alg 4), replacing grad_kernel.py:bwd_kernel.
+//
+// One block per problem, T threads, the strips bottom-up in a loop inside
+// the block.  For each strip:
+//   1. Recompute.  The strip's checkpoint row(s) go to shared memory and the
+//      forward wavefront (fwd_cell, with the forward's rounding) reruns.
+//      Every cell's k̂ goes to a per-block workspace in device memory in the
+//      skewed layout ws[t][r] (T floats per step: coalesced writes here and
+//      coalesced reads in step 2).  A strip's k̂ is (ny+T-1)·T floats, MBs at
+//      the main path's T = 512, far above the 227 KB of shared memory.
+//   2. Reverse sweep.  Lane r computes g(r, c) = ∂F/∂k̂[top+r+1, c+1] at step
+//      t = r + c, t from ny+T-2 down to 0.  Every reader of k̂[a, b] is a
+//      writer cell w that adds g(w)·coefficient(p_w); instead of fetching
+//      its neighbours' Delta (the TPU kernel rolls p_r1, p_r1c1, p_r2 across
+//      lanes and reads the strip below), each cell publishes its products
+//      gA = g·A(p), gB = g·B(p) and, for order 2, gC = g·C(p) in three
+//      rotating anti-diagonals in shared memory, and
+//        g(r,c) = gA(r,c+1) + gA(r+1,c) − gB(r+1,c+1) [− gC(r,c+2) − gC(r+2,c)]
+//      in the TPU kernel's order of operations.  Lane 0's products (and lane
+//      1's gC for order 2) are the rows carried up to the strip above (cA,
+//      cB, cC, cC2), overwritten in place: lanes T-1 and T-2 read index i at
+//      least T-2 steps before lane 0 writes it, so only T = 2 needs a second
+//      barrier per step.  The seed ḡ lands where the forward reads k: cell
+//      (nx-1, ny-1), in the lane of the last real row; the strip-padding rows
+//      below it keep g = 0 and write nothing.
+//   3. dΔ.  Each cell's term g·[(k_left + k_up)·A' − k_upleft·B' − (k_dl +
+//      k_ul)·C'] reads k̂ of the two previous skewed rows, staged kGroup+1
+//      rows at a time in shared memory; the next group's rows and Delta
+//      entries are loaded into registers while the current group runs.  The
+//      dyadic fold uses no atomics: a lane sums its 2^lam2 consecutive
+//      columns in a register, and the 2^lam1 lanes of one unrefined row,
+//      which finish the same unrefined column on consecutive steps (highest
+//      lane first), pass the partial sum down through a shared slot (one
+//      ring of 2^lam1 slots per row group); the lowest lane writes dΔ once,
+//      scaled.  The sums run in a fixed order, so the result is
+//      deterministic; only that order differs from the plain version's fold.
+// Bound on an H100: reading Delta and writing dΔ (2·B·Lx·Ly·4 bytes) against
+// ~40 operations per refined cell makes it byte-bound, but like the forward
+// the sweep is latency-bound: 2·(ny+T-1) dependent steps per strip, each
+// ending in a barrier.
+// ---------------------------------------------------------------------------
+
+__host__ __device__ inline int64_t smem_bytes_bwd(bool order2, int T, int ny) {
+  return 4 * ((int64_t)(order2 ? 2 : 1) * (ny + T + 1) + 3LL * T +
+              (order2 ? 4 : 2) * ((int64_t)ny + 2) + (order2 ? 9 : 6) * (int64_t)T + T +
+              (int64_t)(kGroup + 1) * T);
+}
+
+// Loads for the reverse-sweep group that starts at step g0 (steps g0 down to
+// g0-kGroup+1): the ws rows g0-kGroup-1 .. g0-1 those steps read as t-1 and
+// t-2, and this lane's Delta entries at those steps.
+__device__ __forceinline__ void bwd_group_loads(int g0, int r, int T, int ny, int lam2,
+                                                const float* ws, const float* drow,
+                                                float* kreg, float* preg) {
+#pragma unroll
+  for (int q = 0; q <= kGroup; ++q) {
+    const int t = g0 - kGroup - 1 + q;
+    kreg[q] = t >= 0 ? ws[(int64_t)t * T + r] : 0.0f;  // written by this kernel: no __ldg
+  }
+#pragma unroll
+  for (int k = 0; k < kGroup; ++k) {
+    const int c = g0 - k - r;
+    preg[k] = (drow && c >= 0 && c < ny) ? __ldg(drow + (c >> lam2)) : 0.0f;
+  }
+}
+
+template <bool ORDER2, bool BF16>
+__global__ void __launch_bounds__(kBwdMaxThreads)
+goursat_bwd(const float* __restrict__ delta, const float* __restrict__ cps,
+            const float* __restrict__ gbar, float* ws, float* __restrict__ dd, int Lx,
+            int Ly, int lam1, int lam2) {
+  extern __shared__ double smem[];
+  const int T = blockDim.x;
+  const int r = threadIdx.x;
+  const int ny = Ly << lam2;
+  const int W = ny + T + 1;
+  const int R = T >> lam1;
+  const int rows = ORDER2 ? 2 : 1;
+  const int NC = ny + 2;
+  const int n_prod = ORDER2 ? 3 : 2;
+  float* brow = reinterpret_cast<float*>(smem);  // checkpoint rows of the strip
+  float* brow2 = brow + W;
+  float* diag = brow + rows * W;                 // step 1's 3 anti-diagonals
+  float* cA = diag + 3 * T;                      // products carried up from row 0
+  float* cB = cA + NC;                           // of the strip below (and, for
+  float* cC = cB + NC;                           // order 2, gC of its rows 0, 1)
+  float* cC2 = cC + NC;
+  float* pA = cA + (ORDER2 ? 4 : 2) * NC;        // 3 rotating anti-diagonals each
+  float* pB = pA + 3 * T;
+  float* pC = pB + 3 * T;
+  float* fold = pA + 3 * n_prod * T;             // T slots: a ring per row group
+  float* sK = fold + T;                          // kGroup+1 staged rows of ws
+
+  const int64_t prob = blockIdx.x;
+  const float* dprob = delta + prob * (int64_t)Lx * Ly;
+  float* ddprob = dd + prob * (int64_t)Lx * Ly;
+  const int n_strips = (Lx + R - 1) / R;
+  const int steps = ny + T - 1;
+  float* wsb = ws + prob * (int64_t)steps * T;
+  const float* cpsb = cps + prob * (int64_t)n_strips * rows * W;
+  const float scale = ldexpf(1.0f, -(lam1 + lam2));
+  const int m1 = (1 << lam1) - 1;
+  const int m2 = (1 << lam2) - 1;
+  const int lrow = r >> lam1;
+  const int j = r & m1;                          // lane within its row group
+  float* slots = fold + (r - j);
+  const int r_out = (Lx << lam1) - 1 - (n_strips - 1) * T;
+  const float seed = gbar[prob];
+
+  for (int i = r; i < (ORDER2 ? 4 : 2) * NC; i += T) cA[i] = 0.0f;  // nothing below
+
+  for (int s = n_strips - 1; s >= 0; --s) {
+    const int row = s * R + lrow;
+    const float* drow = row < Lx ? dprob + (int64_t)row * Ly : nullptr;
+    const float* src = cpsb + (int64_t)s * rows * W;
+    for (int i = r; i < rows * W; i += T) brow[i] = __ldg(src + i);
+    for (int i = r; i < 3 * n_prod * T; i += T) pA[i] = 0.0f;
+    __syncthreads();
+
+    // ---- 1. recompute the strip into ws -----------------------------------
+    float pbuf[kGroup];
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k) {
+      const int c = k - r;
+      pbuf[k] = (drow && c >= 0 && c < ny) ? __ldg(drow + (c >> lam2)) : 0.0f;
+    }
+    for (int t0 = 0; t0 < steps; t0 += kGroup) {
+      float pnext[kGroup];
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) {
+        const int c = t0 + kGroup + k - r;
+        pnext[k] = (drow && c >= 0 && c < ny) ? __ldg(drow + (c >> lam2)) : 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) {
+        const int t = t0 + k;
+        if (t >= steps) break;  // uniform across the block
+        const int c = t - r;
+        float cur = 0.0f;
+        if (c >= 0 && c < ny)
+          cur = fwd_cell<ORDER2, BF16>(mul(pbuf[k], scale), r, c, t, T, m1, m2, diag, brow,
+                                       brow2);
+        diag[(t % 3) * T + r] = cur;
+        wsb[(int64_t)t * T + r] = cur;
+        __syncthreads();
+      }
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) pbuf[k] = pnext[k];
+    }
+
+    // ---- 2. reverse adjoint sweep, 3. dΔ and the fold ----------------------
+    float kreg[kGroup + 1], preg[kGroup];
+    bwd_group_loads(steps - 1, r, T, ny, lam2, wsb, drow, kreg, preg);
+    float acc = 0.0f;
+    for (int g0 = steps - 1; g0 >= 0; g0 -= kGroup) {
+      float pcur[kGroup];
+#pragma unroll
+      for (int q = 0; q <= kGroup; ++q) sK[q * T + r] = kreg[q];
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) pcur[k] = preg[k];
+      __syncthreads();
+      if (g0 >= kGroup) bwd_group_loads(g0 - kGroup, r, T, ny, lam2, wsb, drow, kreg, preg);
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) {
+        const int t = g0 - k;
+        if (t < 0) break;  // uniform across the block
+        const int c = t - r;
+        const bool active = c >= 0 && c < ny;
+        float gA = 0.0f, gB = 0.0f, gC = 0.0f;
+        if (active) {
+          const float* A1 = pA + ((t + 1) % 3) * T;  // products at step t+1
+          const float* B2 = pB + ((t + 2) % 3) * T;  // and t+2
+          float g = add(A1[r], r + 1 < T ? A1[r + 1] : cA[c]);
+          g = sub(g, r + 1 < T ? B2[r + 1] : cB[c + 1]);
+          if (ORDER2) {
+            const float* C2 = pC + ((t + 2) % 3) * T;
+            g = sub(g, C2[r]);
+            g = sub(g, r + 2 < T ? C2[r + 2] : (r + 2 == T ? cC[c] : cC2[c]));
+          }
+          if (s == n_strips - 1 && r == r_out && c == ny - 1) g = add(g, seed);
+          const float p = mul(pcur[k], scale);
+          const float p2 = mul(mul(kTwelfth, p), p);
+          const float A = add(add(kOne, mul(kHalf, p)), p2);
+          const float B1 = sub(kOne, p2);
+          const float dA = add(kHalf, mul(p, kSixth));
+          const float* K1 = sK + (kGroup - k) * T;  // ws row t-1
+          const float* K2 = K1 - T;                 // ws row t-2
+          const float k_left = c == 0 ? kOne : K1[r];
+          const float k_up = r == 0 ? brow[c + 1] : K1[r - 1];
+          const float k_upleft = c == 0 ? kOne : (r == 0 ? brow[c] : K2[r - 1]);
+          float term;
+          if (ORDER2) {
+            const bool edge = (r & m1) == 0 || (c & m2) == 0;
+            const float Bq = edge ? B1 : add(sub(kOne, mul(kSixth, p)), p2);
+            const float Cq = edge ? 0.0f : mul(kTwelfth, p);
+            const float dB = edge ? mul(p, -kSixth) : sub(mul(p, kSixth), kSixth);
+            const float dC = edge ? 0.0f : kTwelfth;
+            const float k_dl = c <= 1 ? kOne : K2[r];
+            const float k_ul = r >= 2 ? K2[r - 2] : (r == 1 ? brow[c + 1] : brow2[c + 1]);
+            gA = mul(g, A);
+            gB = mul(g, Bq);
+            gC = mul(g, Cq);
+            term = sub(sub(mul(add(k_left, k_up), dA), mul(k_upleft, dB)),
+                       mul(add(k_dl, k_ul), dC));
+          } else {
+            gA = mul(g, A);
+            gB = mul(g, B1);
+            term = sub(mul(add(k_left, k_up), dA), mul(k_upleft, mul(p, -kSixth)));
+          }
+          const float contrib = mul(g, term);
+          acc = (c & m2) == m2 ? contrib : add(acc, contrib);
+          if ((c & m2) == 0) {  // this lane's part of column c >> lam2 is done
+            const int col = c >> lam2;
+            float* slot = slots + (col & m1);
+            const float v = j == m1 ? acc : add(*slot, acc);
+            if (j != 0)
+              *slot = v;
+            else if (row < Lx)
+              ddprob[(int64_t)row * Ly + col] = mul(v, scale);
+          }
+        }
+        if (T == 2) __syncthreads();  // lane 0 writes cB[t] / cC[t], which lane 1 read
+        pA[(t % 3) * T + r] = gA;
+        pB[(t % 3) * T + r] = gB;
+        if (ORDER2) pC[(t % 3) * T + r] = gC;
+        if (r == 0 && active) {
+          cA[c] = gA;
+          cB[c] = gB;
+          if (ORDER2) cC[c] = gC;
+        }
+        if (ORDER2 && r == 1 && active) cC2[c] = gC;
+        __syncthreads();
+      }
+    }
+  }
+}
+
+template <int MODE, bool ORDER2, bool BF16, bool CPS>
+cudaError_t launch(const float* a, const float* b, float* out, float* cps,
+                   long long n_problems, int n_cols, int Lx, int Ly, int d, int T,
+                   int lam1, int lam2, long long smem, cudaStream_t stream) {
+  auto kern = goursat_fwd<MODE, ORDER2, BF16, CPS>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kern<<<(unsigned)n_problems, T, (size_t)smem, stream>>>(a, b, out, n_cols, Lx, Ly,
-                                                          d, lam1, lam2);
+  kern<<<(unsigned)n_problems, T, (size_t)smem, stream>>>(a, b, out, cps, n_cols, Lx,
+                                                          Ly, d, lam1, lam2);
   return cudaGetLastError();
 }
 
-template <int MODE>
-int dispatch(const float* a, const float* b, float* out, long long n_problems,
+template <int MODE, bool CPS = false>
+int dispatch(const float* a, const float* b, float* out, float* cps, long long n_problems,
              int n_cols, int Lx, int Ly, int d, int T, int lam1, int lam2,
              int order2, int bf16, long long smem, void* stream) {
   if (n_problems < 1 || n_problems > 0x7fffffffLL || T < 2 || T > kMaxThreads ||
@@ -277,16 +545,29 @@ int dispatch(const float* a, const float* b, float* out, long long n_problems,
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
   if (order2)
-    err = bf16 ? launch<MODE, true, true>(a, b, out, n_problems, n_cols, Lx, Ly, d, T,
-                                          lam1, lam2, smem, s)
-               : launch<MODE, true, false>(a, b, out, n_problems, n_cols, Lx, Ly, d, T,
-                                           lam1, lam2, smem, s);
+    err = bf16 ? launch<MODE, true, true, CPS>(a, b, out, cps, n_problems, n_cols, Lx, Ly,
+                                               d, T, lam1, lam2, smem, s)
+               : launch<MODE, true, false, CPS>(a, b, out, cps, n_problems, n_cols, Lx,
+                                                Ly, d, T, lam1, lam2, smem, s);
   else
-    err = bf16 ? launch<MODE, false, true>(a, b, out, n_problems, n_cols, Lx, Ly, d, T,
-                                           lam1, lam2, smem, s)
-               : launch<MODE, false, false>(a, b, out, n_problems, n_cols, Lx, Ly, d,
-                                            T, lam1, lam2, smem, s);
+    err = bf16 ? launch<MODE, false, true, CPS>(a, b, out, cps, n_problems, n_cols, Lx,
+                                                Ly, d, T, lam1, lam2, smem, s)
+               : launch<MODE, false, false, CPS>(a, b, out, cps, n_problems, n_cols, Lx,
+                                                 Ly, d, T, lam1, lam2, smem, s);
   return (int)err;
+}
+
+template <bool ORDER2, bool BF16>
+cudaError_t launch_bwd(const float* delta, const float* cps, const float* gbar,
+                       float* ws, float* dd, long long B, int Lx, int Ly, int T,
+                       int lam1, int lam2, long long smem, cudaStream_t stream) {
+  auto kern = goursat_bwd<ORDER2, BF16>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kern<<<(unsigned)B, T, (size_t)smem, stream>>>(delta, cps, gbar, ws, dd, Lx, Ly, lam1,
+                                                 lam2);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -299,15 +580,23 @@ extern "C" {
 int sigkernel_pde_fwd(const float* delta, float* out, long long B, int Lx, int Ly,
                       int T, int lam1, int lam2, int order2, int bf16, long long smem,
                       void* stream) {
-  return dispatch<kDelta>(delta, nullptr, out, B, 1, Lx, Ly, 0, T, lam1, lam2, order2,
-                          bf16, smem, stream);
+  return dispatch<kDelta>(delta, nullptr, out, nullptr, B, 1, Lx, Ly, 0, T, lam1, lam2,
+                          order2, bf16, smem, stream);
+}
+
+// cps: (B, n_strips * rows, ny + T + 1), rows = 1 (order 1) or 2 (order 2).
+int sigkernel_pde_fwd_cps(const float* delta, float* out, float* cps, long long B, int Lx,
+                          int Ly, int T, int lam1, int lam2, int order2, int bf16,
+                          long long smem, void* stream) {
+  return dispatch<kDelta, true>(delta, nullptr, out, cps, B, 1, Lx, Ly, 0, T, lam1, lam2,
+                                order2, bf16, smem, stream);
 }
 
 int sigkernel_pde_fwd_fused(const float* dx, const float* dy, float* out, long long B,
                             int Lx, int Ly, int d, int T, int lam1, int lam2,
                             int order2, int bf16, long long smem, void* stream) {
-  return dispatch<kFusedPairs>(dx, dy, out, B, 1, Lx, Ly, d, T, lam1, lam2, order2,
-                               bf16, smem, stream);
+  return dispatch<kFusedPairs>(dx, dy, out, nullptr, B, 1, Lx, Ly, d, T, lam1, lam2,
+                               order2, bf16, smem, stream);
 }
 
 int sigkernel_pde_gram_fused(const float* dX, const float* dY, float* out,
@@ -315,8 +604,32 @@ int sigkernel_pde_gram_fused(const float* dX, const float* dY, float* out,
                              int lam1, int lam2, int order2, int bf16, long long smem,
                              void* stream) {
   if (By < 1 || By > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  return dispatch<kFusedGram>(dX, dY, out, Bx * By, (int)By, Lx, Ly, d, T, lam1, lam2,
-                              order2, bf16, smem, stream);
+  return dispatch<kFusedGram>(dX, dY, out, nullptr, Bx * By, (int)By, Lx, Ly, d, T, lam1,
+                              lam2, order2, bf16, smem, stream);
+}
+
+// cps as sigkernel_pde_fwd_cps wrote it at the same T; ws: B * (ny+T-1) * T
+// floats of scratch; dd: (B, Lx, Ly), every entry written.
+int sigkernel_pde_bwd(const float* delta, const float* cps, const float* gbar, float* ws,
+                      float* dd, long long B, int Lx, int Ly, int T, int lam1, int lam2,
+                      int order2, int bf16, long long smem, void* stream) {
+  if (B < 1 || B > 0x7fffffffLL || T < 2 || T > kBwdMaxThreads || (T & (T - 1)) ||
+      (T >> lam1) < 1 || Lx < 1 || Ly < 1 ||
+      smem < smem_bytes_bwd(order2 != 0, T, Ly << lam2))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
+  if (order2)
+    err = bf16 ? launch_bwd<true, true>(delta, cps, gbar, ws, dd, B, Lx, Ly, T, lam1,
+                                        lam2, smem, s)
+               : launch_bwd<true, false>(delta, cps, gbar, ws, dd, B, Lx, Ly, T, lam1,
+                                         lam2, smem, s);
+  else
+    err = bf16 ? launch_bwd<false, true>(delta, cps, gbar, ws, dd, B, Lx, Ly, T, lam1,
+                                         lam2, smem, s)
+               : launch_bwd<false, false>(delta, cps, gbar, ws, dd, B, Lx, Ly, T, lam1,
+                                          lam2, smem, s);
+  return (int)err;
 }
 
 const char* sigkernel_pde_error_string(int err) {

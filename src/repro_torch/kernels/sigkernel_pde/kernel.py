@@ -1,5 +1,5 @@
-"""Hopper kernels for the Goursat-PDE signature-kernel forward, and their
-plain PyTorch versions.
+"""Hopper kernels for the Goursat-PDE signature kernel, forward and exact
+backward, and their plain PyTorch versions.
 
 The CUDA C++ lives in ``csrc/sigkernel_pde.cu`` (its header comment gives
 the design, what bounds each kernel on an H100 and what the design does
@@ -7,25 +7,32 @@ about it).  It is compiled at first use with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, keyed by a hash of the source and
 the flags, under ``build/`` beside this module, and loaded with ``ctypes``.
 
-Three launchers, one per replaced Pallas kernel of the JAX package:
+Five launchers, one per replaced Pallas kernel (or kernel mode) of the JAX
+package:
 
 =================  =================================================
 ``fwd``            ``repro/kernels/sigkernel_pde/kernel.py:fwd_kernel``
                    (+ ``_wavefront``), without checkpoint rows
+``fwd_cps``        the same kernel with ``save_cps=True``: k and the
+                   per-strip checkpoint rows the backward starts from
 ``fwd_fused``      ``kernel.py:fused_fwd_kernel``
 ``gram_fused``     ``kernel.py:fused_gram_kernel``
+``bwd``            ``grad_kernel.py:bwd_kernel``: the exact adjoint
+                   (Alg 4), strip by strip from the bottom up
 =================  =================================================
 
-Each launcher takes CUDA float32 tensors only, allocates its output with
-``torch.empty``, launches on the current stream and adds one to its
-``launches`` count.  Beside each is its plain version (``solve_plain``,
-``solve_fused_plain``, ``gram_fused_plain``): the vectorised anti-diagonal
-wavefront of :mod:`repro_torch.core.sigkernel`, with Δ built by ``einsum``
-for the fused pair.  The kernels round every operation as these elementwise
-ops do and take the fused dot product in float64, as
-:func:`stencil.delta_einsum` does, so on the card each kernel matches its
-plain version bit for bit in practice (chip_smoke.py checks it).  The
-wrappers in ``ops.py`` take the plain version for CPU tensors only.
+Each launcher takes CUDA float32 tensors only, allocates its outputs (and
+the backward's workspace) with ``torch.empty``, launches on the current
+stream and adds one to its ``launches`` count.  Beside each is its plain
+version (``solve_plain``, ``solve_with_grid_plain``, ``solve_fused_plain``,
+``gram_fused_plain``, ``solve_grad_plain``): vectorised anti-diagonal
+wavefronts in PyTorch, with Δ built by ``einsum`` for the fused pair.  The
+kernels round every operation as these elementwise ops do and take the
+fused dot product in float64, as :func:`stencil.delta_einsum` does, so on
+the card each forward kernel matches its plain version bit for bit in
+practice, and the backward differs only in the order of the dyadic fold's
+sums (chip_smoke.py checks both).  The wrappers in ``ops.py`` take the
+plain version for CPU tensors only.
 """
 
 from __future__ import annotations
@@ -51,6 +58,9 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SMEM_LIMIT = 232448
 #: threads per block
 MAX_THREADS = 1024
+#: threads per block of the backward kernel (kBwdMaxThreads in the CUDA
+#: source: its launch bound leaves each thread 128 registers)
+BWD_MAX_THREADS = 512
 #: wavefront steps whose Δ entries a thread gathers at once (kGroup in the
 #: CUDA source)
 GROUP = 8
@@ -104,8 +114,13 @@ def library() -> ctypes.CDLL:
                                                     i, i, ll, p]
             lib.sigkernel_pde_gram_fused.argtypes = [p, p, p, ll, ll, i, i, i, i,
                                                      i, i, i, i, ll, p]
+            lib.sigkernel_pde_fwd_cps.argtypes = [p, p, p, ll, i, i, i, i, i, i, i,
+                                                  ll, p]
+            lib.sigkernel_pde_bwd.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, i, i,
+                                              ll, p]
             for fn in (lib.sigkernel_pde_fwd, lib.sigkernel_pde_fwd_fused,
-                       lib.sigkernel_pde_gram_fused):
+                       lib.sigkernel_pde_gram_fused, lib.sigkernel_pde_fwd_cps,
+                       lib.sigkernel_pde_bwd):
                 fn.restype = ctypes.c_int
             lib.sigkernel_pde_error_string.argtypes = [ctypes.c_int]
             lib.sigkernel_pde_error_string.restype = ctypes.c_char_p
@@ -127,12 +142,37 @@ def smem_bytes(fused: bool, scheme: str, T: int, Ly: int, lam1: int, lam2: int,
     return n
 
 
-def check_strip(T: int, lam1: int, scheme: str) -> None:
+def smem_bytes_bwd(scheme: str, T: int, Ly: int, lam1: int, lam2: int) -> int:
+    """Shared memory one block of the backward kernel takes (mirrors
+    ``smem_bytes_bwd`` in the CUDA source): the checkpoint row(s) of length
+    ny+T+1, three forward anti-diagonals, the adjoint product rows carried
+    up from the strip below (2, or 4 for order2, of ny+2), three rotating
+    anti-diagonals of each adjoint product (2 or 3 products), the fold's
+    slots, and GROUP+1 staged rows of the recomputed strip (T each)."""
+    order2 = scheme == "order2"
+    ny = Ly << lam2
+    n = ((2 if order2 else 1) * (ny + T + 1) + 3 * T + (4 if order2 else 2) * (ny + 2)
+         + (9 if order2 else 6) * T + T + (GROUP + 1) * T)
+    return 4 * n
+
+
+def cps_rows(scheme: str) -> int:
+    """Checkpoint rows per strip (brow, plus brow2 for the order-2 stencil)."""
+    return 2 if scheme == "order2" else 1
+
+
+def n_strips(Lx: int, T: int, lam1: int) -> int:
+    """Strips of T refined rows (R = T >> lam1 unrefined rows) covering Lx."""
+    R = T >> lam1
+    return -(-Lx // R)
+
+
+def check_strip(T: int, lam1: int, scheme: str, max_threads: int = MAX_THREADS) -> None:
     """Validate a strip height for the kernels; raise ValueError otherwise."""
-    if T < 2 or T > MAX_THREADS or T & (T - 1) or (T >> lam1) < 1:
+    if T < 2 or T > max_threads or T & (T - 1) or (T >> lam1) < 1:
         raise ValueError(
             f"Goursat strip height T={T} must be a power of two in "
-            f"[max(2, 2**lam1={1 << lam1}), {MAX_THREADS}] (one thread per "
+            f"[max(2, 2**lam1={1 << lam1}), {max_threads}] (one thread per "
             f"refined row) — set LaunchConfig.pde_strip accordingly")
     stencil.check_scheme(scheme)
 
@@ -146,10 +186,6 @@ def _check(t: torch.Tensor, name: str, ndim: int) -> None:
         raise ValueError(f"{name} must have {ndim} dims, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.requires_grad:
-        raise NotImplementedError(
-            f"{name} requires grad: the Goursat kernels are forward only "
-            f"until the exact backward lands (ROADMAP item B2)")
 
 
 def _launch(fn, out: torch.Tensor, *args) -> torch.Tensor:
@@ -161,9 +197,13 @@ def _launch(fn, out: torch.Tensor, *args) -> torch.Tensor:
     return out
 
 
-def _smem_checked(fused, scheme, T, Ly, lam1, lam2, d=0) -> int:
-    check_strip(T, lam1, scheme)
-    smem = smem_bytes(fused, scheme, T, Ly, lam1, lam2, d)
+def _smem_checked(fused, scheme, T, Ly, lam1, lam2, d=0, backward=False) -> int:
+    if backward:
+        check_strip(T, lam1, scheme, BWD_MAX_THREADS)
+        smem = smem_bytes_bwd(scheme, T, Ly, lam1, lam2)
+    else:
+        check_strip(T, lam1, scheme)
+        smem = smem_bytes(fused, scheme, T, Ly, lam1, lam2, d)
     if smem > SMEM_LIMIT:
         raise ValueError(
             f"Goursat kernel needs {smem} bytes of shared memory per block "
@@ -233,7 +273,60 @@ def gram_fused(dX: torch.Tensor, dY: torch.Tensor, T: int, lam1: int, lam2: int,
     return out
 
 
-LAUNCHERS = (fwd, fwd_fused, gram_fused)
+def fwd_cps(delta: torch.Tensor, T: int, lam1: int, lam2: int, scheme: str,
+            interior_dtype: str):
+    """``(k, cps)`` for Δ (B, Lx, Ly) on the card: k̂[nx, ny] and the
+    checkpoint rows (B, n_strips·rows, ny+T+1) at strip height T — for
+    strip s, row s·rows holds k̂[s·T, ·] and (order2) row s·rows+1 holds
+    k̂[s·T−1, ·], each as the carried row stood when the strip began, in
+    the layout of the JAX kernel's ``save_cps=True`` output."""
+    _check(delta, "delta", 3)
+    stencil.check_interior_dtype(interior_dtype)
+    B, Lx, Ly = delta.shape
+    smem = _smem_checked(False, scheme, T, Ly, lam1, lam2)
+    out = torch.empty(B, device=delta.device, dtype=torch.float32)
+    cps = torch.empty(B, n_strips(Lx, T, lam1) * cps_rows(scheme), (Ly << lam2) + T + 1,
+                      device=delta.device, dtype=torch.float32)
+    if B == 0:
+        return out, cps
+    _launch(library().sigkernel_pde_fwd_cps, out, delta.data_ptr(), out.data_ptr(),
+            cps.data_ptr(), B, Lx, Ly, T, lam1, lam2, scheme == "order2",
+            interior_dtype == "bfloat16", smem)
+    fwd_cps.launches += 1
+    return out, cps
+
+
+def bwd(delta: torch.Tensor, cps: torch.Tensor, gbar: torch.Tensor, T: int, lam1: int,
+        lam2: int, scheme: str, interior_dtype: str) -> torch.Tensor:
+    """∂F/∂Δ (B, Lx, Ly) on the card from Δ, the checkpoint rows that
+    :func:`fwd_cps` wrote at the same strip height T, and ḡ = ∂F/∂k (B,).
+    Allocates the recomputed-strip workspace, B·(ny+T−1)·T floats."""
+    _check(delta, "delta", 3)
+    _check(cps, "cps", 3)
+    _check(gbar, "gbar", 1)
+    stencil.check_interior_dtype(interior_dtype)
+    B, Lx, Ly = delta.shape
+    smem = _smem_checked(False, scheme, T, Ly, lam1, lam2, backward=True)
+    ny = Ly << lam2
+    want = (B, n_strips(Lx, T, lam1) * cps_rows(scheme), ny + T + 1)
+    if tuple(cps.shape) != want or tuple(gbar.shape) != (B,) \
+            or cps.device != delta.device or gbar.device != delta.device:
+        raise ValueError(
+            f"cps {tuple(cps.shape)} / gbar {tuple(gbar.shape)} do not match Δ "
+            f"{tuple(delta.shape)} at strip height T={T} (want cps {want}): the "
+            f"backward's strips must line up with the forward's checkpoint rows")
+    out = torch.empty(B, Lx, Ly, device=delta.device, dtype=torch.float32)
+    if B == 0:
+        return out
+    ws = torch.empty(B * (ny + T - 1) * T, device=delta.device, dtype=torch.float32)
+    _launch(library().sigkernel_pde_bwd, out, delta.data_ptr(), cps.data_ptr(),
+            gbar.data_ptr(), ws.data_ptr(), out.data_ptr(), B, Lx, Ly, T, lam1, lam2,
+            scheme == "order2", interior_dtype == "bfloat16", smem)
+    bwd.launches += 1
+    return out
+
+
+LAUNCHERS = (fwd, fwd_cps, fwd_fused, gram_fused, bwd)
 
 
 def reset_launch_counts() -> None:
@@ -275,3 +368,176 @@ def gram_fused_plain(dX: torch.Tensor, dY: torch.Tensor, lam1: int, lam2: int,
     wavefront."""
     return solve_plain(stencil.delta_einsum("aid,bjd->abij", dX, dY), lam1, lam2, scheme,
                        interior_dtype)
+
+
+def _refined_strips(delta: torch.Tensor, T: int, lam1: int, lam2: int) -> torch.Tensor:
+    """Refined Δ (B, n_strips·T, ny), rows past nx zero (the strip padding
+    the kernels do by index arithmetic)."""
+    from repro_torch.core.sigkernel import _refine
+    B, Lx, Ly = delta.shape
+    pad = n_strips(Lx, T, lam1) * (T >> lam1) - Lx
+    if pad:
+        delta = torch.cat([delta, delta.new_zeros(B, pad, Ly)], dim=1)
+    return _refine(delta, lam1, lam2)
+
+
+def _skew(M: torch.Tensor) -> torch.Tensor:
+    """(N, n_lanes, n) -> (n_lanes + n − 1, N, n_lanes) with
+    out[t, :, r] = M[:, r, t − r] (0 off the grid)."""
+    N, nl, n = M.shape
+    lanes = torch.arange(nl, device=M.device)
+    idx = torch.arange(nl + n - 1, device=M.device)[None, :] - lanes[:, None]
+    on = (idx >= 0) & (idx < n)
+    out = torch.gather(M, 2, idx.clamp(0, n - 1).expand(N, nl, nl + n - 1))
+    out = torch.where(on, out, torch.zeros((), dtype=M.dtype, device=M.device))
+    return out.permute(2, 0, 1)
+
+
+def _unskew(D: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of :func:`_skew`: (n_lanes + n − 1, N, n_lanes) -> (N, n_lanes, n)."""
+    nl = D.shape[2]
+    idx = (torch.arange(nl, device=D.device)[:, None]
+           + torch.arange(n, device=D.device)[None, :])
+    return torch.gather(D.permute(1, 2, 0), 2, idx.expand(D.shape[1], nl, n))
+
+
+def _strip_wavefront(P: torch.Tensor, brow: torch.Tensor, brow2, lam1: int, lam2: int,
+                     scheme: str, interior_dtype: str) -> torch.Tensor:
+    """One strip of T refined rows, all N strips at once: refined Δ (N, T,
+    ny) under carried rows brow = k̂[top, ·] and brow2 = k̂[top−1, ·] (N, ≥
+    ny+T) -> k̂[top+1..top+T, 1..ny] (N, T, ny).  The arithmetic of the
+    kernels' wavefront: lane r computes cell (r, t − r) at step t, lane 0
+    reads the carried rows, order2's k_ul reads brow2/brow in lanes 0/1."""
+    N, T, ny = P.shape
+    dev, dt = P.device, P.dtype
+    lanes = torch.arange(T, device=dev)
+    Psk = _skew(P)
+    prev = torch.zeros(N, T, dtype=dt, device=dev)
+    prev2 = torch.zeros(N, T, dtype=dt, device=dev)
+    order2 = scheme == "order2"
+    m1, m2 = 1 << lam1, 1 << lam2
+    diags = []
+    for t in range(ny + T - 1):
+        p = Psk[t]
+        c = t - lanes
+        first = c == 0
+        up = torch.cat([brow[:, t + 1:t + 2], prev[:, :-1]], dim=1)
+        upleft = torch.where(first, 1.0, torch.cat([brow[:, t:t + 1], prev2[:, :-1]], dim=1))
+        left = torch.where(first, 1.0, prev)
+        if order2:
+            edge = (lanes % m1 == 0) | (c % m2 == 0)
+            k_dl = torch.where(c <= 1, 1.0, prev2)
+            k_ul = torch.cat([brow2[:, t + 1:t + 2], brow[:, t:t + 1], prev2[:, :-2]], dim=1)
+            cur = ((left + up) * stencil.coeff_A(p)
+                   - upleft * stencil.coeff_B2_at(p, edge)
+                   - (k_dl + k_ul) * stencil.coeff_C2_at(p, edge))
+        else:
+            cur = (left + up) * stencil.coeff_A(p) - upleft * stencil.coeff_B1(p)
+        cur = stencil.round_interior(cur, interior_dtype)
+        cur = torch.where((c >= 0) & (c < ny), cur, 0.0)
+        prev2, prev = prev, cur
+        diags.append(cur)
+    return _unskew(torch.stack(diags), ny)
+
+
+def solve_with_grid_plain(delta: torch.Tensor, T: int, lam1: int, lam2: int,
+                          scheme: str, interior_dtype: str):
+    """Plain version of :func:`fwd_cps`: the strips swept in order, each by
+    :func:`_strip_wavefront`, carrying brow (and brow2) as the kernel does.
+    Returns ``(k, cps)``; T is any multiple of 2^λ1 that is at least 2."""
+    B, Lx, Ly = delta.shape
+    nx, ny = Lx << lam1, Ly << lam2
+    S = n_strips(Lx, T, lam1)
+    P = _refined_strips(delta, T, lam1, lam2)
+    order2 = scheme == "order2"
+    brow = delta.new_ones(B, ny + T + 1)
+    brow2 = delta.new_ones(B, ny + T + 1) if order2 else None
+    cps = []
+    for s in range(S):
+        cps.extend([brow, brow2] if order2 else [brow])
+        rows = _strip_wavefront(P[:, s * T:(s + 1) * T], brow, brow2, lam1, lam2,
+                                scheme, interior_dtype)
+        if order2:
+            # row T−2 becomes brow2[1..ny]; its write one past the row is
+            # the inactive cell's 0, as in the kernel
+            brow2 = torch.cat([brow2[:, :1], rows[:, T - 2], brow2.new_zeros(B, 1),
+                               brow2[:, ny + 2:]], dim=1)
+        brow = torch.cat([brow[:, :1], rows[:, T - 1], brow[:, ny + 1:]], dim=1)
+    k = rows[:, nx - 1 - (S - 1) * T, ny - 1]
+    return k, torch.stack(cps, dim=1)
+
+
+def solve_grad_plain(delta: torch.Tensor, cps: torch.Tensor, gbar: torch.Tensor, T: int,
+                     lam1: int, lam2: int, scheme: str, interior_dtype: str) -> torch.Tensor:
+    """Plain version of :func:`bwd`: ∂F/∂Δ (B, Lx, Ly).
+
+    1. Every strip's interior is rebuilt from its checkpoint rows, all
+       strips at once (:func:`_strip_wavefront`), with the forward's
+       rounding.
+    2. A reverse anti-diagonal wavefront over the nx real rows computes the
+       adjoint g(r, c) = ∂F/∂k̂[r+1, c+1] from each writer cell's products
+       g·A, g·B and (order2) g·C, in the backward kernel's order of
+       operations, seeded with ḡ at cell (nx−1, ny−1).
+    3. The dΔ terms of every cell, then the dyadic fold onto (Lx, Ly).
+    """
+    B, Lx, Ly = delta.shape
+    nx, ny = Lx << lam1, Ly << lam2
+    S = n_strips(Lx, T, lam1)
+    m1, m2 = 1 << lam1, 1 << lam2
+    order2 = scheme == "order2"
+    dev, dt = delta.device, delta.dtype
+    rows = cps_rows(scheme)
+    P = _refined_strips(delta, T, lam1, lam2)
+    strips = _strip_wavefront(
+        P.reshape(B * S, T, ny), cps[:, 0::rows].reshape(B * S, -1),
+        cps[:, 1::rows].reshape(B * S, -1) if order2 else None,
+        lam1, lam2, scheme, interior_dtype)
+    K = torch.ones(B, nx + 1, ny + 1, dtype=dt, device=dev)
+    K[:, 1:, 1:] = strips.reshape(B, S * T, ny)[:, :nx]
+    P = P[:, :nx]
+
+    # ---- reverse adjoint wavefront ----
+    lanes = torch.arange(nx, device=dev)
+    Psk = _skew(P)
+    z = torch.zeros(B, nx + 2, dtype=dt, device=dev)
+    gA1, gB1, gC1, gB2, gC2 = z, z, z, z, z      # products at steps t+1, t+2
+    n_steps = nx + ny - 1
+    seed = torch.where(lanes == nx - 1, gbar.to(dt)[:, None], 0.0)
+    Gs = [None] * n_steps
+    for t in range(n_steps - 1, -1, -1):
+        p = Psk[t]
+        c = t - lanes
+        g = (gA1[:, :nx] + gA1[:, 1:nx + 1]) - gB2[:, 1:nx + 1]
+        if order2:
+            g = (g - gC2[:, :nx]) - gC2[:, 2:]
+        if t == n_steps - 1:
+            g = g + seed
+        g = torch.where((c >= 0) & (c < ny), g, 0.0)
+        Gs[t] = g
+        if order2:
+            edge = (lanes % m1 == 0) | (c % m2 == 0)
+            bq, cq = stencil.coeff_B2_at(p, edge), stencil.coeff_C2_at(p, edge)
+        else:
+            bq = stencil.coeff_B1(p)
+        pad = torch.zeros(B, 2, dtype=dt, device=dev)
+        gB2, gC2 = gB1, gC1
+        gA1 = torch.cat([g * stencil.coeff_A(p), pad], dim=1)
+        gB1 = torch.cat([g * bq, pad], dim=1)
+        gC1 = torch.cat([g * cq, pad], dim=1) if order2 else z
+    G = _unskew(torch.stack(Gs), ny)                         # (B, nx, ny)
+
+    # ---- dΔ of every cell, then the dyadic fold ----
+    k_left, k_up, k_upleft = K[:, 1:, :-1], K[:, :-1, 1:], K[:, :-1, :-1]
+    if order2:
+        r_idx = torch.arange(nx, device=dev)[:, None]
+        c_idx = torch.arange(ny, device=dev)[None, :]
+        edge = (r_idx % m1 == 0) | (c_idx % m2 == 0)
+        k_dl = torch.cat([torch.ones_like(K[:, 1:, :1]), K[:, 1:, :-2]], dim=2)
+        k_ul = torch.cat([torch.ones_like(K[:, :1, 1:]), K[:, :-2, 1:]], dim=1)
+        contrib = G * ((k_left + k_up) * stencil.coeff_dA(P)
+                       - k_upleft * stencil.coeff_dB2_at(P, edge)
+                       - (k_dl + k_ul) * stencil.coeff_dC2_at(P, edge))
+    else:
+        contrib = G * ((k_left + k_up) * stencil.coeff_dA(P)
+                       - k_upleft * stencil.coeff_dB1(P))
+    return contrib.reshape(B, Lx, m1, Ly, m2).sum((2, 4)) * 2.0 ** (-(lam1 + lam2))

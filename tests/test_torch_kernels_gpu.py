@@ -10,13 +10,17 @@ Tolerances, relative to the largest plain value: float32 1e-4, bf16
 interiors 2e-2.  (The kernels round each operation as the plain versions do
 and form the fused dot products in float64, so in practice they agree
 exactly; the tolerances leave room for a dot product that lands within
-1e-16 of a float32 rounding boundary.)
+1e-16 of a float32 rounding boundary.)  The checkpoint rows must agree
+exactly; the backward kernel, whose dyadic fold sums in another order than
+its plain version, is held to 1e-4 for both interior dtypes (its adjoint
+stays float32 throughout).
 """
 
 import numpy as np
 import pytest
 import torch
 
+import repro_torch as rt
 from repro_torch.core.config import LaunchConfig
 from repro_torch.kernels.sigkernel_pde import kernel, ops
 
@@ -69,6 +73,74 @@ def test_kernel_matches_plain(cuda, which, scheme, idt, lam, strip):
         want = kernel.gram_fused_plain(dx, dy, *lam, scheme, idt)
     assert getattr(kernel, which).launches == before + 1
     _close(got, want, TOL[idt])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strip", [None, 16], ids=["auto_strip", "strip16"])
+@pytest.mark.parametrize("scheme, idt, lam", COMBOS, ids=IDS)
+def test_cps_and_bwd_match_plain(cuda, scheme, idt, lam, strip):
+    """fwd_cps (k and checkpoint rows) and bwd against solve_with_grid_plain
+    and solve_grad_plain; Lx = 44 is no multiple of the strip and nx > ny."""
+    delta = torch.einsum("bid,bjd->bij", _incs(4, 3, 45, 5, cuda), _incs(5, 3, 30, 5, cuda))
+    gbar = _incs(6, 1, 1, 3, cuda).reshape(3)
+    T = ops.choose_T(44, 29, *lam, 3, scheme=scheme, max_t=strip, backward=True)
+    before = (kernel.fwd_cps.launches, kernel.bwd.launches)
+    k, cps = kernel.fwd_cps(delta, T, *lam, scheme, idt)
+    dd = kernel.bwd(delta, cps, gbar, T, *lam, scheme, idt)
+    assert (kernel.fwd_cps.launches, kernel.bwd.launches) == (before[0] + 1, before[1] + 1)
+    k_plain, cps_plain = kernel.solve_with_grid_plain(delta, T, *lam, scheme, idt)
+    _close(k, k_plain, TOL[idt])
+    torch.testing.assert_close(cps, cps_plain, rtol=0, atol=0)
+    _close(dd, kernel.solve_grad_plain(delta, cps_plain, gbar, T, *lam, scheme, idt), 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme", ["order1", "order2"])
+def test_bwd_two_row_strips(cuda, scheme):
+    """T = 2: lane 0 writes the carried products lane 1 reads in the same step."""
+    delta = torch.einsum("bid,bjd->bij", _incs(7, 3, 9, 3, cuda), _incs(8, 3, 12, 3, cuda))
+    gbar = torch.ones(3, device=cuda)
+    k, cps = kernel.fwd_cps(delta, 2, 0, 1, scheme, "float32")
+    dd = kernel.bwd(delta, cps, gbar, 2, 0, 1, scheme, "float32")
+    _, cps_plain = kernel.solve_with_grid_plain(delta, 2, 0, 1, scheme, "float32")
+    torch.testing.assert_close(cps, cps_plain, rtol=0, atol=0)
+    _close(dd, kernel.solve_grad_plain(delta, cps, gbar, 2, 0, 1, scheme, "float32"), 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strip", [2, 8, 64])
+def test_solve_grad_strips_line_up(cuda, strip):
+    """A LaunchConfig.pde_strip cap sets one T for the checkpoint forward and
+    the backward: the card's gradient equals the CPU's plain one."""
+    delta = torch.einsum("bid,bjd->bij", _incs(9, 4, 40, 4, cuda), _incs(10, 4, 33, 4, cuda))
+    launch = LaunchConfig(pde_strip=strip)
+    got = delta.clone().requires_grad_()
+    ops.solve(got, 1, 0, launch, "order2").sum().backward()
+    want = delta.cpu().requires_grad_()
+    ops.solve(want, 1, 0, launch, "order2").sum().backward()
+    _close(got.grad, want.grad.to(cuda), 1e-4)
+
+
+@pytest.mark.gpu
+def test_streaming_mmd2_backward_holds_less_memory(cuda):
+    """mmd2(row_block=...) streams its Gram sums under checkpointing: its
+    backward's peak memory stays below the dense Grams' backward."""
+    X = _incs(11, 48, 64, 3, cuda).cumsum(1)
+    Y = _incs(12, 48, 64, 3, cuda).cumsum(1)
+
+    def peak(**kw):
+        Xg = X.clone().requires_grad_()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        rt.mmd2(Xg, Y, **kw).backward()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base, Xg.grad
+
+    dense, g_dense = peak()
+    streamed, g_stream = peak(row_block=4)
+    _close(g_stream, g_dense, 1e-4)
+    assert streamed < dense, (streamed, dense)
 
 
 @pytest.mark.gpu

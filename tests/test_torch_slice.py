@@ -6,11 +6,14 @@ same numpy inputs as the JAX entry points, with the configs carried across
 by :func:`repro_torch.configs_from_reference`.  Most cases run in float64
 (``jax.enable_x64`` as a context manager, so the flag does not leak into
 other test files), where the two packages do the same arithmetic and agree
-to rtol 1e-10; float32 cases hold to 5e-5.  The guard tests pin the slice's
-contract: no JAX in the port, the CUDA backends refuse CPU tensors,
-gradients are not ported yet, and CPU calls never count a kernel launch.
+to rtol 1e-10; float32 cases hold to 5e-5.  The guard tests pin the port's
+contract: no JAX in the port or in chip_smoke.py, the CUDA backends refuse
+CPU tensors, and CPU calls (gradients included) never count a kernel
+launch.  The gradients themselves are held against JAX in
+``test_torch_grad.py`` and ``test_torch_reduce.py``.
 """
 
+import ast
 import dataclasses
 import importlib
 import os
@@ -190,12 +193,19 @@ def test_sigkernel_module_matches_jax(name):
 
 def test_port_imports_no_jax():
     prog = ("import sys, repro_torch, repro_torch.api, repro_torch.core, "
-            "repro_torch.kernels.sigkernel_pde.ref; "
+            "repro_torch.kernels.sigkernel_pde.ref, chip_smoke; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
     done = subprocess.run([sys.executable, "-c", prog], capture_output=True, text=True,
-                          cwd=ROOT, env={**os.environ, "PYTHONPATH": "src"}, timeout=300)
+                          cwd=ROOT, env={**os.environ, "PYTHONPATH": f"src{os.pathsep}."},
+                          timeout=300)
     assert done.returncode == 0, done.stdout + done.stderr
+    # chip_smoke.py imports the port inside main(): none of its imports,
+    # wherever they stand, may name JAX or the JAX package
+    tree = ast.parse(open(os.path.join(ROOT, "chip_smoke.py")).read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+    assert not [m for m in names if m.split(".")[0] in ("jax", "repro")], names
 
 
 @pytest.mark.parametrize("backend", ["gpu", "gpu_fused"])
@@ -224,25 +234,6 @@ def test_gpu_fused_refuses_the_rbf_lift():
         rt.sigkernel_gram(x, x, backend="gpu_fused", static_kernel=rt.RBF(1.0))
 
 
-def test_requires_grad_raises_not_implemented():
-    x = torch.from_numpy(paths(19, 2, 5)).requires_grad_()
-    y = torch.from_numpy(paths(20, 2, 5))
-    calls = [lambda: rt.sigkernel(x, y), lambda: rt.sigkernel_gram(x),
-             lambda: rt.mmd2(x, y), lambda: ops.solve(x[..., :4]),
-             lambda: ops.solve_fused(x, y), lambda: ops.gram_fused(x, y)]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="B2"):
-            call()
-
-
-def test_streaming_losses_raise_not_implemented():
-    X = torch.from_numpy(paths(21, 3, 5))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        rt.mmd2(X, X, streaming=True)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        rt.scoring_rule(X, X[0], streaming=True)
-
-
 def test_cpu_calls_launch_no_kernel():
     kernel.reset_launch_counts()
     X, Y = torch.from_numpy(paths(22, 3, 8)), torch.from_numpy(paths(23, 2, 8))
@@ -251,7 +242,11 @@ def test_cpu_calls_launch_no_kernel():
     rt.sigkernel_gram(X)
     rt.mmd2(X, Y)
     ops.solve_fused(X, X)
-    assert kernel.launch_counts() == {"fwd": 0, "fwd_fused": 0, "gram_fused": 0}
+    Xg = X.clone().requires_grad_()
+    rt.mmd2(Xg, Y, row_block=1).backward()
+    ops.gram_fused(Xg, Y).sum().backward()
+    assert kernel.launch_counts() == {"fwd": 0, "fwd_cps": 0, "fwd_fused": 0,
+                                      "gram_fused": 0, "bwd": 0}
 
 
 def test_sigkernel_module_defaults_to_the_card():
