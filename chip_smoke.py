@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's signature-kernel path, forward and gradient, on
-one CUDA card.
+"""Drive the PyTorch port's signature and signature-kernel paths, forward and
+gradient, on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing runs without CUDA):
 
 1. build the Goursat kernels (``src/repro_torch/kernels/sigkernel_pde/csrc``)
-   with nvcc and print the compiler's register / shared-memory report;
+   and the Horner kernel (``src/repro_torch/kernels/signature/csrc``) with
+   nvcc, both at once, and print the compilers' register / shared-memory
+   reports;
 2. drive the forward path through the public entry points at the paper's
    Table 2 "full" sizes, with every launch count set to 0 just before and
    read just after: ``sigkernel`` on (128, 1024, 32) paths (auto -> "gpu",
@@ -22,11 +24,26 @@ Phases (any failure exits non-zero; nothing runs without CUDA):
    input against the CPU reference gradient, and a trainer: five Adam steps
    on an ``nn.Parameter`` of (64, 256, 8) paths under the biased MMD² to
    fixed targets (ms/step; the loss must fall);
-4. hold each kernel against its plain PyTorch version on the card at
-   B = 8, L = 128, d = 8 for every scheme, interior dtype and refinement in
-   the sweep, plus strips that do not divide Lx, an nx > ny case and T = 2
-   (the checkpoint rows exactly, the backward to 1e-4);
-5. time each kernel and its plain version at the main path's shapes
+4. drive the signature path at the paper's Table 1 / Table 3 "full" sizes
+   (B, L, d, N) = (128, 256, 4, 6), (128, 512, 8, 5), (128, 1024, 16, 4),
+   the Horner count set to 0 just before and read just after:
+   ``signature`` (auto -> "gpu") and ``Signature``, ``logsignature`` in its
+   modes and ``LogSignature`` on each shape, two transform pipelines,
+   ragged ``lengths=``, and ``stream=True`` on the first shape; checks:
+   Chen's identity across a split, the kernel against the direct algorithm
+   (Alg 1) on the card, and a small input against the CPU reference;
+5. the signature gradient: ``torch.autograd.grad`` of ``signature(...)
+   .sum()`` and ``logsignature(...).sum()`` at the three shapes, with time
+   and peak memory; the §2.4 backward must keep a bounded number of
+   (B, sig_dim) buffers, the same at L = 512 and L = 1024;
+6. hold each kernel against its plain PyTorch version on the card: the
+   Goursat kernels at B = 8, L = 128, d = 8 for every scheme, interior dtype
+   and refinement in the sweep, plus strips that do not divide Lx, an nx >
+   ny case and T = 2 (the checkpoint rows exactly, the backward to 1e-4);
+   the Horner kernel over d in {1, 2, 3, 4, 8, 16} and N in 2..6 where it
+   fits, at L = 2 and at a length that no length block divides, an odd
+   batch, a bf16 input and two launch settings, all exactly;
+7. time each kernel and its plain version at the main paths' shapes
    (CUDA events, median), compute the bound (bytes / 3.35 TB/s vs
    operations / 67 TFLOP/s FP32, H100 SXM data sheet), sweep the forward
    kernels' strip height, and print one JSON line per kernel, the
@@ -40,6 +57,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -69,6 +87,16 @@ REPLACES = {
 #: the kernels each driven path must launch
 FORWARD_PATH = ("fwd", "fwd_fused", "gram_fused")
 GRADIENT_PATH = ("fwd_cps", "bwd", "fwd_fused", "gram_fused")
+
+SIG_SOURCE = "src/repro_torch/kernels/signature/csrc/signature.cu"
+SIG_REPLACES = "src/repro/kernels/signature/kernel.py:48"
+#: the paper's Table 1 / Table 3 "full" cells, (B, L, d, N)
+#: (src/repro/bench/workloads.py:110-114, :475-479)
+SIG_SHAPES = ((128, 256, 4, 6), (128, 512, 8, 5), (128, 1024, 16, 4))
+#: the §2.4 backward's peak above its increments and gradients, in
+#: (B, sig_dim) float32 buffers: O(1) in L (10-11.5 measured on an H100 at
+#: the three shapes)
+SIG_BWD_MAX_BUFFERS = 16
 
 
 class SmokeFailure(RuntimeError):
@@ -118,6 +146,29 @@ def grads(fn, *inputs):
     return torch.autograd.grad(fn(*leaves), leaves)
 
 
+def build_all(modules) -> dict:
+    """Build every kernel library at once (one nvcc each); raise the first
+    failure.  Returns {module: library path}."""
+    done, errors = {}, []
+
+    def run(mod):
+        try:
+            done[mod] = mod.build()
+        except Exception as e:  # re-raised below, after every build ends
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(m,)) for m in modules]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    for mod in modules:
+        mod.library()
+    return done
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -136,26 +187,37 @@ def main() -> int:
     try:
         import repro_torch as rt
         from repro_torch.kernels.sigkernel_pde import kernel, ops
+        from repro_torch.kernels.signature import kernel as sig_kernel
+        from repro_torch.kernels.signature import ops as sig_ops
+        from repro_torch.kernels.signature import ref as sig_ref
         from repro_torch.core.sigkernel import delta_matrix
+        from repro_torch.core import tensoralg as ta
         from repro_torch.core import transforms as tf
     except ImportError as e:
         print(f"chip_smoke: the repo's src/repro_torch is missing ({e})",
               file=sys.stderr)
         return 1
     dev = torch.device("cuda")
+
+    def reset_all():
+        """Every kernel's launch count to 0, just before a driven path."""
+        kernel.reset_launch_counts()
+        sig_kernel.reset_launch_counts()
+
     card = card_line()
     name, power = [s.strip() for s in card.split(",", 1)]
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # ---- 1. build ----------------------------------------------------------
     t = time.time()
-    lib_path = kernel.build()
-    kernel.library()
-    print(f"build: {time.time() - t:.1f} s -> {os.path.relpath(lib_path, ROOT)}")
-    log = (lib_path.parent / "nvcc.log").read_text()
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print("  ptxas:", line.strip())
+    libs = build_all((kernel, sig_kernel))
+    print(f"build: {time.time() - t:.1f} s (both at once)")
+    for lib_path in libs.values():
+        print(f"  -> {os.path.relpath(lib_path, ROOT)}")
+        log = (lib_path.parent / "nvcc.log").read_text()
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print("  ptxas:", line.strip())
 
     # ---- 2. the main path at full width ------------------------------------
     rng = np.random.default_rng(0)
@@ -164,7 +226,7 @@ def main() -> int:
     X = torch.from_numpy(random_paths(rng, 128, 256, 8)).to(dev)
     Y = torch.from_numpy(random_paths(rng, 128, 256, 8)).to(dev)
 
-    kernel.reset_launch_counts()
+    reset_all()
     t_path = time.time()
     steps = []
 
@@ -221,7 +283,7 @@ def main() -> int:
           "card": name, "power_limit": power})
 
     # ---- 3. the gradient path at full width, and a trainer -------------------
-    kernel.reset_launch_counts()
+    reset_all()
     t_path = time.time()
     gsteps = []
 
@@ -280,7 +342,126 @@ def main() -> int:
           "trainer_ms_per_step": step_ms, "trainer_ms_per_step_median":
           float(np.median(step_ms)), "card": name, "power_limit": power})
 
-    # ---- 4. kernels against their plain versions ---------------------------
+    # ---- 4. the signature path at full width -------------------------------
+    sig_x = {(d_, N_): torch.from_numpy(random_paths(rng, B_, L_, d_)).to(dev)
+             for B_, L_, d_, N_ in SIG_SHAPES}
+    x85 = sig_x[(8, 5)]
+    ragged = torch.from_numpy(rng.integers(2, x85.shape[1] + 1, size=x85.shape[0]))
+    pipelines = {
+        "time_aug+basepoint, N=6": (rt.TransformPipeline(time_aug=True, basepoint=True), 6),
+        "time_aug+lead_lag, N=4": (rt.TransformPipeline(time_aug=True, lead_lag=True), 4),
+    }
+    reset_all()
+    t_path = time.time()
+    ssteps = []
+
+    def sstep(what, fn, launches=True):
+        before = sig_kernel.horner.launches
+        out = fn()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), f"{what}: non-finite values")
+        if launches:
+            check(sig_kernel.horner.launches > before, f"{what}: horner did not launch")
+        ssteps.append({"call": what, "launches": sig_kernel.horner.launches - before,
+                       "shape": list(out.shape)})
+        return out
+
+    sigs = {}
+    for B_, L_, d_, N_ in SIG_SHAPES:
+        xs_ = sig_x[(d_, N_)]
+        at = f"on ({B_}, {L_}, {d_})"
+        sigs[(d_, N_)] = sstep(f"signature(x, {N_}) {at}", lambda: rt.signature(xs_, N_))
+        S_mod = sstep(f"Signature({N_})(x) {at}", lambda: rt.Signature(N_)(xs_))
+        check(torch.equal(S_mod, sigs[(d_, N_)]), f"Signature({N_}) disagrees with signature")
+        # the brackets basis is a dense numpy inverse of logsig_dim² (the JAX
+        # package's table): 17,816² at d = 16, N = 4 costs minutes of host time
+        for mode in (("lyndon", "brackets", "expand") if d_ < 16 else ("lyndon", "expand")):
+            sstep(f"logsignature(x, {N_}, mode={mode!r}) {at}",
+                  lambda: rt.logsignature(xs_, N_, mode=mode))
+        sstep(f"LogSignature({N_})(x) {at}", lambda: rt.LogSignature(N_)(xs_))
+    x46 = sig_x[(4, 6)]
+    for what, (pipe, N_) in pipelines.items():
+        sstep(f"signature(x, {N_}, transforms={what}) on {tuple(x46.shape)}",
+              lambda: rt.signature(x46, N_, transforms=pipe))
+    s_ragged = sstep(f"signature(x, 5, lengths=...) on {tuple(x85.shape)}",
+                     lambda: rt.signature(x85, 5, lengths=ragged))
+    s_stream = sstep(f"signature(x, 6, stream=True) on {tuple(x46.shape)}",
+                     lambda: rt.signature(x46, 6, stream=True), launches=False)
+    halves = {}
+    for B_, L_, d_, N_ in SIG_SHAPES:
+        m_ = L_ // 2
+        xs_ = sig_x[(d_, N_)]
+        halves[(d_, N_)] = (
+            sstep(f"signature(x[:, :{m_}], {N_})", lambda: rt.signature(xs_[:, :m_], N_)),
+            sstep(f"signature(x[:, {m_ - 1}:], {N_})",
+                  lambda: rt.signature(xs_[:, m_ - 1:], N_)))
+    spath_s = time.time() - t_path
+    scounts = sig_kernel.launch_counts()
+    check(scounts["horner"] > 0, "signature path never launched horner")
+
+    sig_rel = {}
+    for B_, L_, d_, N_ in SIG_SHAPES:
+        xs_, S_ = sig_x[(d_, N_)], sigs[(d_, N_)]
+        combined = rt.signature_combine(*halves[(d_, N_)], d_, N_)
+        sig_rel[f"combine d={d_} N={N_}"] = rel_err(combined, S_)
+        # Alg 1 on the card, on 8 of the paths
+        z8 = tf.pipeline_increments(xs_[:8], rt.TransformPipeline())
+        sig_rel[f"direct d={d_} N={N_}"] = rel_err(S_[:8], sig_ref.signature_from_increments(
+            z8, N_))
+    sig_rel["stream last prefix"] = rel_err(s_stream[:, -1], sigs[(4, 6)])
+    sig_rel["ragged vs reference"] = rel_err(
+        s_ragged, rt.signature(x85, 5, lengths=ragged, backend="reference"))
+    xs_small = x46[:4, :20, :3].cpu()
+    for mode in ("lyndon", "brackets"):
+        sig_rel[f"small logsignature {mode} card vs cpu"] = rel_err(
+            rt.logsignature(xs_small.to(dev), 4, mode=mode).cpu(),
+            rt.logsignature(xs_small, 4, mode=mode))
+    sig_rel["small signature card vs cpu"] = rel_err(
+        rt.signature(xs_small.to(dev), 5).cpu(), rt.signature(xs_small, 5))
+    for what, err in sig_rel.items():
+        check(err <= 1e-4, f"signature path: {what} rel err {err:.3g} > 1e-4")
+    emit({"signature_path": ssteps, "launches": scounts, "seconds": round(spath_s, 3),
+          "rel_err": sig_rel, "card": name, "power_limit": power})
+
+    # ---- 5. the signature gradient -----------------------------------------
+    sig_x[(8, 5, 1024)] = torch.from_numpy(random_paths(rng, 128, 1024, 8)).to(dev)
+    sgrads, bufs = [], {}
+    for key, N_ in (((4, 6), 6), ((8, 5), 5), ((16, 4), 4), ((8, 5, 1024), 5)):
+        xs_ = sig_x[key]
+        B_, L_, d_ = xs_.shape
+        sd = ta.sig_dim(d_, N_)
+        for what, fn in (("signature", rt.signature), ("logsignature", rt.logsignature)):
+            if len(key) == 3 and what == "logsignature":
+                continue
+            leaf = xs_.clone().requires_grad_()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.time()
+            (g,) = torch.autograd.grad(fn(leaf, N_).sum(), leaf)
+            torch.cuda.synchronize()
+            secs = time.time() - t0
+            check(bool(torch.isfinite(g).all()), f"grad {what}: non-finite")
+            # above the increments, their gradient and the path's gradient
+            extra = torch.cuda.max_memory_allocated() - base - 3 * xs_.numel() * 4
+            bufs[(what, B_, L_, d_, N_)] = extra / (B_ * sd * 4)
+            sgrads.append({"call": f"grad {what}(x, {N_}).sum()", "shape": [B_, L_, d_],
+                           "seconds": round(secs, 3), "peak_extra_bytes": extra,
+                           "peak_extra_sig_buffers": round(bufs[(what, B_, L_, d_, N_)], 3)})
+    for k, v in bufs.items():
+        check(v <= SIG_BWD_MAX_BUFFERS,
+              f"grad {k}: backward peak {v:.1f} (B, sig_dim) buffers > {SIG_BWD_MAX_BUFFERS}")
+    grow = (bufs[("signature", *sig_x[(8, 5, 1024)].shape, 5)]
+            / bufs[("signature", *sig_x[(8, 5)].shape, 5)])
+    check(grow < 1.5, f"signature backward memory grows with L: x{grow:.2f} from 512 to 1024")
+    g_small = grads(lambda a: rt.logsignature(a, 4, mode="brackets").sum(), xs_small.to(dev))
+    g_small_ref = grads(lambda a: rt.logsignature(a, 4, mode="brackets").sum(), xs_small)
+    g_small_err = rel_err(g_small[0].cpu(), g_small_ref[0])
+    check(g_small_err <= 1e-4, f"small logsignature gradient: card vs cpu {g_small_err:.3g}")
+    emit({"signature_gradient": sgrads, "memory_growth_512_to_1024": grow,
+          "small_grad_card_vs_cpu_rel": g_small_err, "card": name, "power_limit": power})
+
+    # ---- 6. kernels against their plain versions ---------------------------
     cases = []
     for scheme in ("order1", "order2"):
         for idt in ("float32", "bfloat16"):
@@ -332,7 +513,34 @@ def main() -> int:
     emit({"kernel_vs_plain": {"cases": len(cases) * len(runs), "worst_rel_err": worst,
                               "rtol": {**RTOL, "fwd_cps_rows": 0.0, "bwd": 1e-4}}})
 
-    # ---- 5. timing at the main path's shapes -------------------------------
+    # the Horner kernel, exactly: d, N where levels 1..N-1 fit one block;
+    # L = 2 (one increment) and 69 increments (no length block divides it),
+    # odd batches, two launch settings, a bf16 input
+    hcases = [(d_, N_) for d_ in (1, 2, 3, 4, 8, 16) for N_ in range(2, 7)
+              if sig_kernel.smem_bytes(d_, N_, 1) <= sig_kernel.SMEM_LIMIT]
+    other = rt.LaunchConfig(sig_lb=8, sig_bt=64)
+    n_h = 0
+    for d_, N_ in hcases:
+        for B_, L_ in ((3, 2), (5, 70)):
+            z_ = torch.from_numpy((rng.normal(size=(B_, L_ - 1, d_)) / np.sqrt(L_))
+                                  .astype(np.float32)).to(dev)
+            got = sig_ops.signature_from_increments(z_, N_)
+            again = sig_ops.signature_from_increments(z_, N_, other)
+            want = sig_kernel.horner_plain(z_, N_)
+            torch.cuda.synchronize()
+            tag = f"horner d={d_} N={N_} B={B_} L={L_}"
+            check(torch.equal(got, want),
+                  f"{tag}: differs from plain by {float((got - want).abs().max()):.3g}")
+            check(torch.equal(got, again), f"{tag}: launch settings change the result")
+            n_h += 1
+    zb = torch.from_numpy(rng.normal(size=(5, 69, 4)) / 8).to(dev, torch.bfloat16)
+    got = sig_ops.signature_from_increments(zb, 4)
+    check(got.dtype == torch.bfloat16 and torch.equal(
+        got, sig_kernel.horner_plain(zb.float(), 4).to(torch.bfloat16)), "horner bf16 input")
+    emit({"horner_vs_plain": {"cases": n_h + 1, "shapes_dN": hcases, "equal": True,
+                              "launch_settings": ["default", "sig_lb=8, sig_bt=64"]}})
+
+    # ---- 7. timing at the main paths' shapes ------------------------------
     identity = rt.TransformPipeline()
     delta = delta_matrix(x, y)                                     # B1 input
     dx, dy = tf.pipeline_increments(x, identity), tf.pipeline_increments(y, identity)
@@ -409,6 +617,37 @@ def main() -> int:
         emit({"timing": kname, "strip_T": T, "bytes": nbytes, "flops": nflops,
               "bytes_ms": t_bytes, "ops_ms": t_ops, "strip_sweep_ms": sweep,
               **row, "card": name, "power_limit": power})
+
+    # the Horner kernel at the signature path's three shapes; the kernels
+    # line takes the largest, (128, 1024, 16, 4)
+    for B_, L_, d_, N_ in SIG_SHAPES:
+        z_ = tf.pipeline_increments(sig_x[(d_, N_)], identity).contiguous()
+        S_, th_ = sig_ops.choose_lb(L_ - 1, d_, N_), sig_ops.choose_threads(d_, N_)
+        ms = time_ms(lambda: sig_kernel.horner(z_, N_, S_, th_), 5)
+        plain_ms = time_ms(lambda: sig_kernel.horner_plain(z_, N_), 2)
+        got = sig_kernel.horner(z_, N_, S_, th_)
+        want = sig_kernel.horner_plain(z_, N_)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"horner at {(B_, L_, d_, N_)} differs from plain")
+        nbytes = (z_.numel() + got.numel()) * 4
+        nflops = B_ * (L_ - 1) * sig_kernel.horner_flops(d_, N_)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nflops / FP32_FLOPS_PER_S * 1e3
+        lb_sweep = {S2: round(time_ms(lambda: sig_kernel.horner(z_, N_, S2, th_), 3), 4)
+                    for S2 in sorted({1, 4, 16, S_})
+                    if sig_kernel.smem_bytes(d_, N_, S2) <= sig_kernel.SMEM_LIMIT}
+        row = {"name": "horner", "route": "cuda", "source": SIG_SOURCE,
+               "replaces": SIG_REPLACES, "launches": scounts["horner"],
+               "max_abs_err": float((got - want).abs().max()), "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": None}
+        if (d_, N_) == SIG_SHAPES[-1][2:]:
+            rows.append(row)
+        emit({"timing": "horner", "shape": [B_, L_, d_, N_], "length_block": S_,
+              "threads": th_, "bytes": nbytes, "flops": nflops, "bytes_ms": t_bytes,
+              "ops_ms": t_ops, "length_block_sweep_ms": lb_sweep, **row, "card": name,
+              "power_limit": power})
 
     emit({"kernels": rows})
     print(card)

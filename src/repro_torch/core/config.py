@@ -9,10 +9,10 @@ as pytrees; here they are plain frozen dataclasses:
 ``GridConfig(lam1, lam2, scheme, interior_dtype)``
     Dyadic refinement of the Goursat grid, the cell-update stencil and the
     interior precision.
-``LaunchConfig(pde_strip, gram_row_block, band_chunk)``
-    Launch parameters: the strip height cap of the CUDA kernels, the Gram
-    row block, the anti-diagonal solver's batch chunk.  They never change
-    the mathematics.
+``LaunchConfig(pde_strip, sig_bt, sig_lb, gram_row_block, band_chunk)``
+    Launch parameters: the strip height cap of the Goursat kernels, the
+    threads and length block of the Horner kernel, the Gram row block, the
+    anti-diagonal solver's batch chunk.  They never change the mathematics.
 ``Linear(scale)`` / ``RBF(sigma)``
     The static-kernel lift.  ``Linear`` builds Δ from increments with one
     matmul (and is what the fused kernels take); ``RBF`` goes through the
@@ -121,6 +121,15 @@ class LaunchConfig:
       pde_strip: cap on the CUDA kernels' strip height T (threads per
         block); a power of two.  Default: :func:`repro_torch.kernels.
         sigkernel_pde.ops.choose_T` picks it from the shape.
+      sig_bt: cap on the threads per block of the Horner kernel; a power of
+        two.  The TPU kernel's batch tile (paths on the lanes of one
+        program) has no counterpart on the card, where one block runs one
+        path; the block's threads are its lanes.  Default:
+        :func:`repro_torch.kernels.signature.ops.choose_threads`.
+      sig_lb: cap on the Horner kernel's length block, the increments one
+        block stages in shared memory at a time (the TPU kernel's length
+        block); a power of two.  Default: the most that fit, up to 64
+        (:func:`repro_torch.kernels.signature.ops.choose_lb`).
       gram_row_block: Gram rows in flight at once when the caller passes no
         ``row_block=``.
       band_chunk: at most this many Goursat problems per anti-diagonal
@@ -128,10 +137,12 @@ class LaunchConfig:
     """
 
     pde_strip: Optional[int] = None
+    sig_bt: Optional[int] = None
+    sig_lb: Optional[int] = None
     gram_row_block: Optional[int] = None
     band_chunk: Optional[int] = None
 
-    _POW2_FIELDS = ("pde_strip",)
+    _POW2_FIELDS = ("pde_strip", "sig_bt", "sig_lb")
 
     def __post_init__(self):
         for f in dataclasses.fields(self):

@@ -1,24 +1,30 @@
-"""Solver-backend registry and dispatch for the signature-kernel ops.
+"""Backend registry and dispatch for the signature and signature-kernel ops.
 
-Counterpart of ``repro/core/dispatch.py`` (the parts the forward path
-needs).  Registered backends:
+Counterpart of ``repro/core/dispatch.py`` (the parts the ported paths
+need).  Registered backends:
 
 ``"reference"``
-    Plain PyTorch row-major scan (oracle-grade, serial).  Any device.
+    Plain PyTorch: the Horner scan for ``signature``/``logsignature``, the
+    row-major Goursat scan (oracle-grade, serial) for the kernel ops.  Any
+    device.
 ``"antidiag"``
-    Plain PyTorch vectorised anti-diagonal wavefront.  Any device.
+    Plain PyTorch vectorised anti-diagonal wavefront (kernel ops only).
+    Any device.
 ``"gpu"``
-    The hand-written CUDA Goursat kernel over a precomputed Δ (the
-    counterpart of ``"pallas"``).  CUDA tensors only.
+    The hand-written CUDA kernels (the counterpart of ``"pallas"``): the
+    Horner kernel for ``signature``/``logsignature``, the Goursat kernel
+    over a precomputed Δ for the kernel ops.  CUDA tensors only.
 ``"gpu_fused"``
     The CUDA kernels that build Δ from increments inside the kernel (the
     counterpart of ``"pallas_fused"``); linear lift only.  CUDA tensors
     only.
 ``"auto"``
-    CUDA tensors: ``"gpu"`` for ``sigkernel``; ``"gpu_fused"`` for Grams
+    CUDA tensors: ``"gpu"`` for ``signature``, ``logsignature`` and
+    ``sigkernel``; ``"gpu_fused"`` for Grams
     with the linear lift, ``"gpu"`` for other lifts (the TPU rule of the
-    JAX package).  CPU tensors: ``"antidiag"`` from
-    ``_ANTIDIAG_MIN_CELLS`` refined cells, ``"reference"`` below.
+    JAX package).  CPU tensors: ``"reference"`` for the signature ops; for
+    the kernel ops ``"antidiag"`` from ``_ANTIDIAG_MIN_CELLS`` refined
+    cells, ``"reference"`` below.
 
 There is no autotune cache and no approximate backend in this slice.
 """
@@ -34,7 +40,9 @@ import torch
 from repro_torch.kernels.sigkernel_pde.stencil import SCHEMES
 
 #: ops a backend can serve
-OPS = ("sigkernel", "gram")
+OPS = ("signature", "logsignature", "sigkernel", "gram")
+#: the signature-kernel ops (the Goursat solvers)
+PDE_OPS = ("sigkernel", "gram")
 
 #: below this many refined PDE cells the serial reference scan is used on
 #: the CPU (the wavefront's skew overhead dominates tiny grids)
@@ -80,9 +88,9 @@ def backends_for(op: str) -> Tuple[str, ...]:
 
 
 register(BackendSpec("reference", frozenset(OPS), needs_cuda=False))
-register(BackendSpec("antidiag", frozenset(OPS), needs_cuda=False))
+register(BackendSpec("antidiag", frozenset(PDE_OPS), needs_cuda=False))
 register(BackendSpec("gpu", frozenset(OPS), needs_cuda=True))
-register(BackendSpec("gpu_fused", frozenset(OPS), needs_cuda=True))
+register(BackendSpec("gpu_fused", frozenset(PDE_OPS), needs_cuda=True))
 
 
 def check_scheme(backend: str, scheme: str, *, op: str) -> str:

@@ -4,8 +4,8 @@ backward, and their plain PyTorch versions.
 The CUDA C++ lives in ``csrc/sigkernel_pde.cu`` (its header comment gives
 the design, what bounds each kernel on an H100 and what the design does
 about it).  It is compiled at first use with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, keyed by a hash of the source and
-the flags, under ``build/`` beside this module, and loaded with ``ctypes``.
+shared library with a plain C interface under ``build/`` beside this module
+(:mod:`repro_torch.kernels._build`), and loaded with ``ctypes``.
 
 Five launchers, one per replaced Pallas kernel (or kernel mode) of the JAX
 package:
@@ -38,21 +38,15 @@ plain version for CPU tensors only.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 
 import torch
 
 from . import stencil
+from .. import _build
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "sigkernel_pde.cu"
-_BUILD_DIR = Path(__file__).resolve().parent / "build"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: shared memory one block may use on an H100 (opt-in, 227 KB)
 SMEM_LIMIT = 232448
@@ -69,37 +63,15 @@ _lib = None
 _lib_lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(found):
-        raise RuntimeError(
-            "nvcc not found (PATH or /usr/local/cuda/bin): the Goursat kernels "
-            "are built from csrc/sigkernel_pde.cu at first use")
-    return found
-
-
 def library_path() -> Path:
     """Where the built library lives: keyed by the source and the flags."""
-    key = hashlib.sha256(_SRC.read_bytes() + " ".join(_NVCC_FLAGS).encode())
-    return _BUILD_DIR / key.hexdigest()[:16] / "libsigkernel_pde.so"
+    return _build.library_path(_SRC, "sigkernel_pde")
 
 
 def build() -> Path:
     """Compile the kernels unless this source was already built; return the
-    library path.  The compiler's output (``-Xptxas -v``: registers, shared
-    memory and spills per kernel) is kept in ``nvcc.log`` beside it."""
-    path = library_path()
-    if path.exists():
-        return path
-    path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-    done = subprocess.run(cmd, capture_output=True, text=True)
-    (path.parent / "nvcc.log").write_text(done.stdout + done.stderr)
-    if done.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({done.returncode}):\n{done.stderr}")
-    os.replace(tmp, path)
-    return path
+    library path (``nvcc.log`` beside it keeps the ptxas report)."""
+    return _build.build(_SRC, "sigkernel_pde")
 
 
 def library() -> ctypes.CDLL:

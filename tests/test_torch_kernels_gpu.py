@@ -1,7 +1,8 @@
 """Each hand-written CUDA kernel against its plain PyTorch version, on the card.
 
-The Goursat kernels (``repro_torch/kernels/sigkernel_pde/csrc``) have no CPU
-mode: these tests need a CUDA card and skip without one.  The file imports
+The Goursat kernels (``repro_torch/kernels/sigkernel_pde/csrc``) and the
+Horner kernel (``repro_torch/kernels/signature/csrc``) have no CPU mode:
+these tests need a CUDA card and skip without one.  The file imports
 no JAX, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
@@ -13,7 +14,9 @@ exactly; the tolerances leave room for a dot product that lands within
 1e-16 of a float32 rounding boundary.)  The checkpoint rows must agree
 exactly; the backward kernel, whose dyadic fold sums in another order than
 its plain version, is held to 1e-4 for both interior dtypes (its adjoint
-stays float32 throughout).
+stays float32 throughout).  The Horner kernel rounds every operation as its
+plain version does and divides truly, so it must match it exactly, across
+launch settings too.
 """
 
 import numpy as np
@@ -22,7 +25,11 @@ import torch
 
 import repro_torch as rt
 from repro_torch.core.config import LaunchConfig
+from repro_torch.core.tensoralg import sig_dim
 from repro_torch.kernels.sigkernel_pde import kernel, ops
+from repro_torch.kernels.signature import kernel as sig_kernel
+from repro_torch.kernels.signature import ops as sig_ops
+from repro_torch.kernels.signature import ref as sig_ref
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 COMBOS = [(scheme, idt, lam) for scheme in ("order1", "order2")
@@ -163,3 +170,106 @@ def test_launcher_checks_its_inputs(cuda):
         kernel.fwd(delta, 3, 0, 0, "order1", "float32")
     with pytest.raises(ValueError, match="CUDA"):
         kernel.fwd(delta.cpu(), 8, 0, 0, "order1", "float32")
+
+
+# ---------------------------------------------------------------------------
+# the Horner kernel (B5)
+# ---------------------------------------------------------------------------
+
+#: (d, N) of the sweep: d in {1, 2, 3, 4, 8, 16}, N in 1..6, where levels
+#: 1..N-1 and one staged step fit one block
+HORNER_SHAPES = [(d, N) for d in (1, 2, 3, 4, 8, 16) for N in range(1, 7)
+                 if sig_kernel.smem_bytes(d, N, 1) <= sig_kernel.SMEM_LIMIT]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d, N", HORNER_SHAPES, ids=[f"d{d}-N{N}" for d, N in HORNER_SHAPES])
+def test_horner_matches_plain_exactly(cuda, d, N):
+    """B = 3 paths of 12 increments; length blocks of 5 leave a partial one."""
+    z = _incs(20, 3, 13, d, cuda)
+    before = sig_kernel.horner.launches
+    got = sig_ops.signature_from_increments(z, N)
+    assert sig_kernel.horner.launches == before + 1
+    want = sig_kernel.horner_plain(z, N)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), float((got - want).abs().max())
+    short = sig_ops.signature_from_increments(z, N, LaunchConfig(sig_lb=4, sig_bt=32))
+    assert torch.equal(short, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B, L", [(1, 2), (5, 2), (7, 70), (129, 9)])
+def test_horner_ragged_edges(cuda, B, L):
+    """L = 2 (one increment), L - 1 not a multiple of the length block, an
+    odd batch; zero increments appended change no bit."""
+    z = _incs(21, B, L, 3, cuda)
+    got = sig_ops.signature_from_increments(z, 4, LaunchConfig(sig_lb=16))
+    torch.cuda.synchronize()
+    assert torch.equal(got, sig_kernel.horner_plain(z, 4))
+    padded = torch.cat([z, torch.zeros(B, 5, 3, device=cuda)], dim=1)
+    assert torch.equal(sig_ops.signature_from_increments(padded, 4), got)
+
+
+@pytest.mark.gpu
+def test_horner_bf16_and_oracle(cuda):
+    z = _incs(22, 4, 20, 3, cuda)
+    zb = z.to(torch.bfloat16)
+    got = sig_ops.signature_from_increments(zb, 4)
+    assert got.dtype == torch.bfloat16
+    want = sig_kernel.horner_plain(zb.float(), 4)
+    assert torch.equal(got, want.to(torch.bfloat16))
+    _close(sig_ops.signature_from_increments(z, 4), sig_ref.signature_from_increments(z, 4),
+           1e-5)
+
+
+@pytest.mark.gpu
+def test_signature_card_matches_cpu(cuda):
+    x = _incs(23, 3, 30, 2, cuda).cumsum(1)
+    lengths = torch.tensor([30, 4, 17])
+    tf = rt.TransformPipeline(time_aug=True, lead_lag=True)
+    for mode in ("lyndon", "brackets", "expand"):
+        got = rt.logsignature(x, 3, mode=mode, transforms=tf, lengths=lengths)
+        want = rt.logsignature(x.cpu(), 3, mode=mode, transforms=tf, lengths=lengths)
+        _close(got.cpu(), want, 1e-5)
+    xg = x.clone().requires_grad_()
+    rt.signature(xg, 4, transforms=tf).sum().backward()
+    xc = x.cpu().requires_grad_()
+    rt.signature(xc, 4, transforms=tf).sum().backward()
+    _close(xg.grad.cpu(), xc.grad, 1e-4)
+
+
+@pytest.mark.gpu
+def test_signature_backward_memory_is_flat_in_length(cuda):
+    """The §2.4 backward keeps O(1) signatures in L: above the increments and
+    their gradient, its peak stays at a few (B, sig_dim) buffers, the same
+    for a path twice as long."""
+    B, d, N = 16, 4, 4
+    sd = sig_dim(d, N)
+
+    def extra(L):
+        z = _incs(24, B, L, d, cuda).requires_grad_()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        sig_ops.signature_from_increments(z, N).sum().backward()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base - 2 * z.numel() * 4
+
+    short, long_ = extra(200), extra(400)
+    assert long_ < 1.25 * short + (1 << 20), (short, long_)
+    assert long_ < 64 * B * sd * 4, (long_, B * sd * 4)
+
+
+@pytest.mark.gpu
+def test_horner_launcher_checks_its_inputs(cuda):
+    z = torch.zeros(2, 5, 3, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        sig_kernel.horner(z.double(), 3, 4, 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        sig_kernel.horner(z.transpose(1, 2), 3, 4, 32)
+    with pytest.raises(ValueError, match="threads"):
+        sig_kernel.horner(z, 3, 4, 48)
+    with pytest.raises(ValueError, match="CUDA"):
+        sig_kernel.horner(z.cpu(), 3, 4, 32)
+    with pytest.raises(ValueError, match="stream=True"):
+        rt.signature(z, 3, stream=True, backend="gpu")

@@ -192,8 +192,11 @@ def test_sigkernel_module_matches_jax(name):
 # ---------------------------------------------------------------------------
 
 def test_port_imports_no_jax():
-    prog = ("import sys, repro_torch, repro_torch.api, repro_torch.core, "
-            "repro_torch.kernels.sigkernel_pde.ref, chip_smoke; "
+    # every module of the port (the signature modules included) and the script
+    prog = ("import importlib, pkgutil, sys, repro_torch, chip_smoke; "
+            "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "
+            "'repro_torch.')]; [importlib.import_module(n) for n in names]; "
+            "assert 'repro_torch.kernels.signature.ref' in names, names; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
     done = subprocess.run([sys.executable, "-c", prog], capture_output=True, text=True,
