@@ -28,10 +28,12 @@ Phases (any failure exits non-zero; nothing runs without CUDA):
    (B, L, d, N) = (128, 256, 4, 6), (128, 512, 8, 5), (128, 1024, 16, 4),
    the Horner count set to 0 just before and read just after:
    ``signature`` (auto -> "gpu") and ``Signature``, ``logsignature`` in its
-   modes and ``LogSignature`` on each shape, two transform pipelines,
-   ragged ``lengths=``, and ``stream=True`` on the first shape; checks:
-   Chen's identity across a split, the kernel against the direct algorithm
-   (Alg 1) on the card, and a small input against the CPU reference;
+   modes and ``LogSignature`` on each shape, two transform pipelines at the
+   paper's depth 6 (time-aug + lead-lag makes d' = 9), ragged ``lengths=``,
+   and ``stream=True`` on the first shape, with the Horner launches counted
+   per kernel shape; checks: Chen's identity across a split, the kernel
+   against the direct algorithm (Alg 1) on the card, and a small input
+   against the CPU reference;
 5. the signature gradient: ``torch.autograd.grad`` of ``signature(...)
    .sum()`` and ``logsignature(...).sum()`` at the three shapes, with time
    and peak memory; the §2.4 backward must keep a bounded number of
@@ -40,13 +42,15 @@ Phases (any failure exits non-zero; nothing runs without CUDA):
    Goursat kernels at B = 8, L = 128, d = 8 for every scheme, interior dtype
    and refinement in the sweep, plus strips that do not divide Lx, an nx >
    ny case and T = 2 (the checkpoint rows exactly, the backward to 1e-4);
-   the Horner kernel over d in {1, 2, 3, 4, 8, 16} and N in 2..6 where it
-   fits, at L = 2 and at a length that no length block divides, an odd
-   batch, a bf16 input and two launch settings, all exactly;
+   the Horner kernel over d in {1, 2, 3, 4, 8, 9, 16} and N in 2..6, at
+   L = 2 and at a length that no length block divides (but (16, 6): L = 2
+   only), an odd batch, a bf16 input and two launch settings, all exactly;
 7. time each kernel and its plain version at the main paths' shapes
    (CUDA events, median), compute the bound (bytes / 3.35 TB/s vs
    operations / 67 TFLOP/s FP32, H100 SXM data sheet), sweep the forward
-   kernels' strip height, and print one JSON line per kernel, the
+   kernels' strip height, the backward's with its checkpoint forward, and
+   the Horner kernel's length block and prefix length (also at the two
+   pipelines' kernel shapes), and print one JSON line per kernel, the
    ``kernels`` line, the card's name and power limit, and the final ``ok``
    line.
 """
@@ -349,25 +353,31 @@ def main() -> int:
     ragged = torch.from_numpy(rng.integers(2, x85.shape[1] + 1, size=x85.shape[0]))
     pipelines = {
         "time_aug+basepoint, N=6": (rt.TransformPipeline(time_aug=True, basepoint=True), 6),
-        "time_aug+lead_lag, N=4": (rt.TransformPipeline(time_aug=True, lead_lag=True), 4),
+        "time_aug+lead_lag, N=6": (rt.TransformPipeline(time_aug=True, lead_lag=True), 6),
     }
     reset_all()
     t_path = time.time()
     ssteps = []
 
-    def sstep(what, fn, launches=True):
+    by_shape = {}
+
+    def sstep(what, fn, launches=True, kernel_dN=None):
+        """kernel_dN: the (d, N) the kernel sees, where transforms change d."""
         before = sig_kernel.horner.launches
         out = fn()
         torch.cuda.synchronize()
         check(bool(torch.isfinite(out).all()), f"{what}: non-finite values")
         if launches:
             check(sig_kernel.horner.launches > before, f"{what}: horner did not launch")
-        ssteps.append({"call": what, "launches": sig_kernel.horner.launches - before,
-                       "shape": list(out.shape)})
+        n = sig_kernel.horner.launches - before
+        key = "d={}, N={}".format(*(kernel_dN or dN))
+        by_shape[key] = by_shape.get(key, 0) + n
+        ssteps.append({"call": what, "launches": n, "shape": list(out.shape)})
         return out
 
     sigs = {}
     for B_, L_, d_, N_ in SIG_SHAPES:
+        dN = (d_, N_)
         xs_ = sig_x[(d_, N_)]
         at = f"on ({B_}, {L_}, {d_})"
         sigs[(d_, N_)] = sstep(f"signature(x, {N_}) {at}", lambda: rt.signature(xs_, N_))
@@ -382,13 +392,17 @@ def main() -> int:
     x46 = sig_x[(4, 6)]
     for what, (pipe, N_) in pipelines.items():
         sstep(f"signature(x, {N_}, transforms={what}) on {tuple(x46.shape)}",
-              lambda: rt.signature(x46, N_, transforms=pipe))
+              lambda: rt.signature(x46, N_, transforms=pipe),
+              kernel_dN=(pipe.transformed_dim(4), N_))
+    dN = (8, 5)
     s_ragged = sstep(f"signature(x, 5, lengths=...) on {tuple(x85.shape)}",
                      lambda: rt.signature(x85, 5, lengths=ragged))
+    dN = (4, 6)
     s_stream = sstep(f"signature(x, 6, stream=True) on {tuple(x46.shape)}",
                      lambda: rt.signature(x46, 6, stream=True), launches=False)
     halves = {}
     for B_, L_, d_, N_ in SIG_SHAPES:
+        dN = (d_, N_)
         m_ = L_ // 2
         xs_ = sig_x[(d_, N_)]
         halves[(d_, N_)] = (
@@ -420,8 +434,9 @@ def main() -> int:
         rt.signature(xs_small.to(dev), 5).cpu(), rt.signature(xs_small, 5))
     for what, err in sig_rel.items():
         check(err <= 1e-4, f"signature path: {what} rel err {err:.3g} > 1e-4")
-    emit({"signature_path": ssteps, "launches": scounts, "seconds": round(spath_s, 3),
-          "rel_err": sig_rel, "card": name, "power_limit": power})
+    emit({"signature_path": ssteps, "launches": scounts, "horner_launches_by_shape": by_shape,
+          "seconds": round(spath_s, 3), "rel_err": sig_rel, "card": name,
+          "power_limit": power})
 
     # ---- 5. the signature gradient -----------------------------------------
     sig_x[(8, 5, 1024)] = torch.from_numpy(random_paths(rng, 128, 1024, 8)).to(dev)
@@ -513,15 +528,14 @@ def main() -> int:
     emit({"kernel_vs_plain": {"cases": len(cases) * len(runs), "worst_rel_err": worst,
                               "rtol": {**RTOL, "fwd_cps_rows": 0.0, "bwd": 1e-4}}})
 
-    # the Horner kernel, exactly: d, N where levels 1..N-1 fit one block;
-    # L = 2 (one increment) and 69 increments (no length block divides it),
-    # odd batches, two launch settings, a bf16 input
-    hcases = [(d_, N_) for d_ in (1, 2, 3, 4, 8, 16) for N_ in range(2, 7)
-              if sig_kernel.smem_bytes(d_, N_, 1) <= sig_kernel.SMEM_LIMIT]
+    # the Horner kernel, exactly: L = 2 (one increment) and 69 increments
+    # (no length block divides it; not at d = 16, N = 6, 17.9 M entries a
+    # path), odd batches, two launch settings, a bf16 input
+    hcases = [(d_, N_) for d_ in (1, 2, 3, 4, 8, 9, 16) for N_ in range(2, 7)]
     other = rt.LaunchConfig(sig_lb=8, sig_bt=64)
     n_h = 0
     for d_, N_ in hcases:
-        for B_, L_ in ((3, 2), (5, 70)):
+        for B_, L_ in ((3, 2), (5, 70))[:1 if (d_, N_) == (16, 6) else 2]:
             z_ = torch.from_numpy((rng.normal(size=(B_, L_ - 1, d_)) / np.sqrt(L_))
                                   .astype(np.float32)).to(dev)
             got = sig_ops.signature_from_increments(z_, N_)
@@ -606,6 +620,14 @@ def main() -> int:
                      if kernel.smem_bytes(fused, "order1", Ts, Ly if kname != "gram_fused"
                                           else Lgy, 0, 0, d if kname == "fwd_fused" else dg)
                      <= kernel.SMEM_LIMIT}
+        if kname == "bwd":  # the backward with the checkpoint forward it lines up with
+            for Ts in (64, 128, 256, 512):
+                cps_T = kernel.fwd_cps(delta, Ts, 0, 0, "order1", "float32")[1]
+                sweep[Ts] = {
+                    "fwd_cps": round(time_ms(lambda: launchers["fwd_cps"](Ts), 3), 4),
+                    "bwd": round(time_ms(lambda: kernel.bwd(delta, cps_T, gbar, Ts, 0, 0,
+                                                            "order1", "float32"), 3), 4)}
+                del cps_T
         path_counts = counts if kname in FORWARD_PATH else gcounts
         row = {"name": kname, "route": "cuda", "source": SOURCE,
                "replaces": REPLACES[kname], "launches": path_counts[kname],
@@ -618,14 +640,22 @@ def main() -> int:
               "bytes_ms": t_bytes, "ops_ms": t_ops, "strip_sweep_ms": sweep,
               **row, "card": name, "power_limit": power})
 
-    # the Horner kernel at the signature path's three shapes; the kernels
-    # line takes the largest, (128, 1024, 16, 4)
-    for B_, L_, d_, N_ in SIG_SHAPES:
-        z_ = tf.pipeline_increments(sig_x[(d_, N_)], identity).contiguous()
-        S_, th_ = sig_ops.choose_lb(L_ - 1, d_, N_), sig_ops.choose_threads(d_, N_)
-        ms = time_ms(lambda: sig_kernel.horner(z_, N_, S_, th_), 5)
+    # the Horner kernel at the signature path's three shapes (the kernels
+    # line takes the largest, (128, 1024, 16, 4)) and at the two pipelines'
+    # kernel shapes: time-aug + basepoint (d' = 5) and + lead-lag (d' = 9)
+    pipe_shapes = {}
+    for what, (pipe, N_) in pipelines.items():
+        zp_ = tf.pipeline_increments(x46, pipe).contiguous()
+        pipe_shapes[(zp_.shape[0], zp_.shape[1] + 1, zp_.shape[2], N_)] = zp_
+    for B_, L_, d_, N_ in (*SIG_SHAPES, *pipe_shapes):
+        z_ = pipe_shapes.get((B_, L_, d_, N_))
+        if z_ is None:
+            z_ = tf.pipeline_increments(sig_x[(d_, N_)], identity).contiguous()
+        geo = sig_ops.geometry(B_, L_ - 1, d_, N_)
+        p_, jw_, cw_, S_, th_ = geo
+        ms = time_ms(lambda: sig_kernel.horner(z_, N_, *geo), 5)
         plain_ms = time_ms(lambda: sig_kernel.horner_plain(z_, N_), 2)
-        got = sig_kernel.horner(z_, N_, S_, th_)
+        got = sig_kernel.horner(z_, N_, *geo)
         want = sig_kernel.horner_plain(z_, N_)
         torch.cuda.synchronize()
         check(torch.equal(got, want), f"horner at {(B_, L_, d_, N_)} differs from plain")
@@ -633,9 +663,20 @@ def main() -> int:
         nflops = B_ * (L_ - 1) * sig_kernel.horner_flops(d_, N_)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nflops / FP32_FLOPS_PER_S * 1e3
-        lb_sweep = {S2: round(time_ms(lambda: sig_kernel.horner(z_, N_, S2, th_), 3), 4)
-                    for S2 in sorted({1, 4, 16, S_})
-                    if sig_kernel.smem_bytes(d_, N_, S2) <= sig_kernel.SMEM_LIMIT}
+        lb_sweep = {S2: round(time_ms(lambda: sig_kernel.horner(z_, N_, p_, jw_, cw_, S2,
+                                                               th_), 3), 4)
+                    for S2 in sorted({1, 4, 8, 16, 32, S_})
+                    if sig_kernel.smem_bytes(d_, N_, p_, cw_, S2, th_) <= sig_kernel.SMEM_LIMIT}
+        # the prefix length and the rows' chunk width around the default
+        split_sweep = {}
+        for p2 in range(max(0, p_ - 1), min(N_ - 1, p_ + 1) + 1):
+            for cw2 in (1, 2, 4):
+                th2 = sig_kernel.threads_needed(d_, N_, p2, d_, cw2)
+                if th2 > sig_kernel.MAX_THREADS or sig_kernel.smem_bytes(
+                        d_, N_, p2, cw2, S_, th2) > sig_kernel.SMEM_LIMIT:
+                    continue
+                split_sweep[f"p={p2} cw={cw2}"] = round(time_ms(
+                    lambda: sig_kernel.horner(z_, N_, p2, d_, cw2, S_, th2), 3), 4)
         row = {"name": "horner", "route": "cuda", "source": SIG_SOURCE,
                "replaces": SIG_REPLACES, "launches": scounts["horner"],
                "max_abs_err": float((got - want).abs().max()), "ms": ms,
@@ -644,10 +685,13 @@ def main() -> int:
                "library_ms": None}
         if (d_, N_) == SIG_SHAPES[-1][2:]:
             rows.append(row)
-        emit({"timing": "horner", "shape": [B_, L_, d_, N_], "length_block": S_,
-              "threads": th_, "bytes": nbytes, "flops": nflops, "bytes_ms": t_bytes,
-              "ops_ms": t_ops, "length_block_sweep_ms": lb_sweep, **row, "card": name,
-              "power_limit": power})
+        emit({"timing": "horner", "shape": [B_, L_, d_, N_], "prefix_p": p_,
+              "columns_jw": jw_, "chunk_cw": cw_, "length_block": S_, "threads": th_,
+              "blocks": B_ * d_ ** p_ * -(-d_ // jw_), "bytes": nbytes, "flops": nflops,
+              "bytes_ms": t_bytes, "ops_ms": t_ops, "length_block_sweep_ms": lb_sweep,
+              "prefix_chunk_sweep_ms": split_sweep,
+              "launches_at_this_shape": by_shape.get(f"d={d_}, N={N_}", 0), **row,
+              "card": name, "power_limit": power})
 
     emit({"kernels": rows})
     print(card)

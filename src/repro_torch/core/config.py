@@ -124,12 +124,13 @@ class LaunchConfig:
       sig_bt: cap on the threads per block of the Horner kernel; a power of
         two.  The TPU kernel's batch tile (paths on the lanes of one
         program) has no counterpart on the card, where one block runs one
-        path; the block's threads are its lanes.  Default:
-        :func:`repro_torch.kernels.signature.ops.choose_threads`.
+        slice of one path (its entries with a given prefix of first
+        indices); a lower cap cuts the signature into more, smaller slices.
+        Default: :func:`repro_torch.kernels.signature.ops.geometry`.
       sig_lb: cap on the Horner kernel's length block, the increments one
         block stages in shared memory at a time (the TPU kernel's length
-        block); a power of two.  Default: the most that fit, up to 64
-        (:func:`repro_torch.kernels.signature.ops.choose_lb`).
+        block); a power of two.  Default: the most that fit 48 KB, up to 32
+        (:func:`repro_torch.kernels.signature.ops.geometry`).
       gram_row_block: Gram rows in flight at once when the caller passes no
         ``row_block=``.
       band_chunk: at most this many Goursat problems per anti-diagonal

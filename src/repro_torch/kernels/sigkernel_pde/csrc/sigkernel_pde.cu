@@ -290,9 +290,10 @@ goursat_fwd(const float* __restrict__ a, const float* __restrict__ b,
 //   1. Recompute.  The strip's checkpoint row(s) go to shared memory and the
 //      forward wavefront (fwd_cell, with the forward's rounding) reruns.
 //      Every cell's k̂ goes to a per-block workspace in device memory in the
-//      skewed layout ws[t][r] (T floats per step: coalesced writes here and
-//      coalesced reads in step 2).  A strip's k̂ is (ny+T-1)·T floats, MBs at
-//      the main path's T = 512, far above the 227 KB of shared memory.
+//      skewed layout ws[t][r] (a row of TS = max(T, 4) floats per step, so
+//      every row starts on 16 bytes: coalesced writes here, bulk copies in
+//      step 2).  A strip's k̂ is (ny+T-1)·TS floats, MBs at the main path's
+//      T = 512, far above the 227 KB of shared memory.
 //   2. Reverse sweep.  Lane r computes g(r, c) = ∂F/∂k̂[top+r+1, c+1] at step
 //      t = r + c, t from ny+T-2 down to 0.  Every reader of k̂[a, b] is a
 //      writer cell w that adds g(w)·coefficient(p_w); instead of fetching
@@ -309,44 +310,116 @@ goursat_fwd(const float* __restrict__ a, const float* __restrict__ b,
 //      (nx-1, ny-1), in the lane of the last real row; the strip-padding rows
 //      below it keep g = 0 and write nothing.
 //   3. dΔ.  Each cell's term g·[(k_left + k_up)·A' − k_upleft·B' − (k_dl +
-//      k_ul)·C'] reads k̂ of the two previous skewed rows, staged kGroup+1
-//      rows at a time in shared memory; the next group's rows and Delta
-//      entries are loaded into registers while the current group runs.  The
-//      dyadic fold uses no atomics: a lane sums its 2^lam2 consecutive
-//      columns in a register, and the 2^lam1 lanes of one unrefined row,
-//      which finish the same unrefined column on consecutive steps (highest
-//      lane first), pass the partial sum down through a shared slot (one
-//      ring of 2^lam1 slots per row group); the lowest lane writes dΔ once,
-//      scaled.  The sums run in a fixed order, so the result is
-//      deterministic; only that order differs from the plain version's fold.
+//      k_ul)·C'] reads k̂ of the two previous skewed rows.  The kGroup+1 ws
+//      rows a group of kGroup steps reads are one contiguous span: one thread
+//      brings it into shared memory with a bulk copy (cp.async.bulk, the
+//      TMA's 1-D form) that completes on an mbarrier, double-buffered, so the
+//      next group's rows arrive while this group runs and no thread stages
+//      them; the lane's Delta entries of the next group are loaded into
+//      registers likewise.  The dyadic fold uses no atomics: a lane sums its
+//      2^lam2 consecutive columns in a register, and the 2^lam1 lanes of one
+//      unrefined row, which finish the same unrefined column on consecutive
+//      steps (highest lane first), pass the partial sum down through a shared
+//      slot (one ring of 2^lam1 slots per row group); the lowest lane has the
+//      finished entry, scaled.  The sums run in a fixed order, so the result
+//      is deterministic; only that order differs from the plain version's
+//      fold.
+//   4. The dΔ store.  A lane finishes one entry of its own row per step, so
+//      storing it at once makes every warp store touch 32 rows: 32 sectors
+//      carrying 4 useful bytes each, which cost more than the whole sweep
+//      (an ablation of the store, PERF.md §5).  Instead each finished entry
+//      goes to a tile in shared memory, [lane][step] for kFlush steps at a
+//      stride of kFlush+1 (no bank conflicts on either side), two tiles
+//      alternating: while the lanes fill one, every thread writes one entry
+//      of the other per step, a warp covering 32 consecutive entries of
+//      kFlush-column runs of its rows, so each store is whole sectors of a
+//      row; the last two tiles of a strip are written out after its sweep.
 // Bound on an H100: reading Delta and writing dΔ (2·B·Lx·Ly·4 bytes) against
 // ~40 operations per refined cell makes it byte-bound, but like the forward
 // the sweep is latency-bound: 2·(ny+T-1) dependent steps per strip, each
 // ending in a barrier.
 // ---------------------------------------------------------------------------
 
+constexpr int kFlush = 16;  // steps per dΔ tile
+
+// ws row stride: a multiple of 4 floats, so bulk copies start on 16 bytes
+__host__ __device__ inline int ws_stride(int T) { return T < 4 ? 4 : T; }
+
 __host__ __device__ inline int64_t smem_bytes_bwd(bool order2, int T, int ny) {
-  return 4 * ((int64_t)(order2 ? 2 : 1) * (ny + T + 1) + 3LL * T +
-              (order2 ? 4 : 2) * ((int64_t)ny + 2) + (order2 ? 9 : 6) * (int64_t)T + T +
-              (int64_t)(kGroup + 1) * T);
+  const int64_t TS = ws_stride(T);
+  return 16 + 4 * (2 * (int64_t)(kGroup + 1) * TS + 2LL * T * (kFlush + 1) +
+                   (int64_t)(order2 ? 2 : 1) * (ny + T + 1) + 3LL * T +
+                   (order2 ? 4 : 2) * ((int64_t)ny + 2) + (order2 ? 9 : 6) * (int64_t)T + T);
 }
 
-// Loads for the reverse-sweep group that starts at step g0 (steps g0 down to
-// g0-kGroup+1): the ws rows g0-kGroup-1 .. g0-1 those steps read as t-1 and
-// t-2, and this lane's Delta entries at those steps.
-__device__ __forceinline__ void bwd_group_loads(int g0, int r, int T, int ny, int lam2,
-                                                const float* ws, const float* drow,
-                                                float* kreg, float* preg) {
-#pragma unroll
-  for (int q = 0; q <= kGroup; ++q) {
-    const int t = g0 - kGroup - 1 + q;
-    kreg[q] = t >= 0 ? ws[(int64_t)t * T + r] : 0.0f;  // written by this kernel: no __ldg
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// Copy `bytes` (a multiple of 16, both ends 16-byte aligned) from global to
+// shared memory; the copy completes the barrier's current phase.  Zero bytes
+// only arrive.
+__device__ __forceinline__ void bulk_load(float* dst, const float* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  if (bytes == 0) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
+    return;
   }
-#pragma unroll
-  for (int k = 0; k < kGroup; ++k) {
-    const int c = g0 - k - r;
-    preg[k] = (drow && c >= 0 && c < ny) ? __ldg(drow + (c >> lam2)) : 0.0f;
-  }
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Generic-proxy writes of this thread (the ws rows) before later bulk copies
+// (the async proxy) read them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async;" ::: "memory");
+}
+
+// The ws rows group `gi` of the reverse sweep reads (steps g0-kGroup-1 ..
+// g0-1 as t-1 and t-2, g0 = steps-1-gi·kGroup) into its buffer; rows before
+// step 0 are never read and are not copied.
+__device__ __forceinline__ void bwd_group_copy(int gi, int steps, int TS, const float* wsb,
+                                               float* buf, uint64_t* bar) {
+  const int lo = steps - 1 - gi * kGroup - kGroup - 1;
+  const int q0 = lo < 0 ? -lo : 0;
+  const int n = q0 > kGroup + 1 ? 0 : kGroup + 1 - q0;
+  bulk_load(buf + q0 * TS, wsb + (int64_t)(lo + q0) * TS, (uint32_t)(n * TS * 4), bar);
+}
+
+// Write entry e (0 <= e < T·kFlush) of the dΔ tile of reverse steps
+// u = h·kFlush .. h·kFlush+kFlush-1 (u = steps-1-t) to dd, if a lane
+// finished an entry there: lane rr = e / kFlush at step u = h·kFlush + e % kFlush.
+__device__ __forceinline__ void bwd_flush(int h, int e, const float* tile, int FS, int T,
+                                          int steps, int ny, int m1, int m2, int lam1,
+                                          int lam2, int row0, int Lx, int Ly, float* ddprob) {
+  const int rr = e / kFlush, kk = e % kFlush;
+  const int t = steps - 1 - (h * kFlush + kk);
+  const int c = t - rr;
+  if (h < 0 || t < 0 || c < 0 || c >= ny || (rr & m1) || (c & m2)) return;
+  const int row = row0 + (rr >> lam1);
+  if (row < Lx) ddprob[(int64_t)row * Ly + (c >> lam2)] = tile[(h & 1) * T * FS + rr * FS + kk];
 }
 
 template <bool ORDER2, bool BF16>
@@ -363,7 +436,13 @@ goursat_bwd(const float* __restrict__ delta, const float* __restrict__ cps,
   const int rows = ORDER2 ? 2 : 1;
   const int NC = ny + 2;
   const int n_prod = ORDER2 ? 3 : 2;
-  float* brow = reinterpret_cast<float*>(smem);  // checkpoint rows of the strip
+  const int TS = ws_stride(T);
+  const int KS = (kGroup + 1) * TS;              // one staged group of ws rows
+  const int FS = kFlush + 1;                     // dΔ tile row stride
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);      // 2 mbarriers, one per sK
+  float* sK = reinterpret_cast<float*>(smem + 2);         // 2 x kGroup+1 ws rows
+  float* tile = sK + 2 * KS;                     // 2 dΔ tiles of T x kFlush
+  float* brow = tile + 2 * T * FS;               // checkpoint rows of the strip
   float* brow2 = brow + W;
   float* diag = brow + rows * W;                 // step 1's 3 anti-diagonals
   float* cA = diag + 3 * T;                      // products carried up from row 0
@@ -374,14 +453,14 @@ goursat_bwd(const float* __restrict__ delta, const float* __restrict__ cps,
   float* pB = pA + 3 * T;
   float* pC = pB + 3 * T;
   float* fold = pA + 3 * n_prod * T;             // T slots: a ring per row group
-  float* sK = fold + T;                          // kGroup+1 staged rows of ws
 
   const int64_t prob = blockIdx.x;
   const float* dprob = delta + prob * (int64_t)Lx * Ly;
   float* ddprob = dd + prob * (int64_t)Lx * Ly;
   const int n_strips = (Lx + R - 1) / R;
   const int steps = ny + T - 1;
-  float* wsb = ws + prob * (int64_t)steps * T;
+  const int n_groups = (steps + kGroup - 1) / kGroup;
+  float* wsb = ws + prob * (int64_t)steps * TS;
   const float* cpsb = cps + prob * (int64_t)n_strips * rows * W;
   const float scale = ldexpf(1.0f, -(lam1 + lam2));
   const int m1 = (1 << lam1) - 1;
@@ -391,7 +470,12 @@ goursat_bwd(const float* __restrict__ delta, const float* __restrict__ cps,
   float* slots = fold + (r - j);
   const int r_out = (Lx << lam1) - 1 - (n_strips - 1) * T;
   const float seed = gbar[prob];
+  uint32_t phase = 0;                            // bit b: parity bar[b] completes next
 
+  if (r == 0) {
+    mbar_init(&bar[0]);
+    mbar_init(&bar[1]);
+  }
   for (int i = r; i < (ORDER2 ? 4 : 2) * NC; i += T) cA[i] = 0.0f;  // nothing below
 
   for (int s = n_strips - 1; s >= 0; --s) {
@@ -426,50 +510,81 @@ goursat_bwd(const float* __restrict__ delta, const float* __restrict__ cps,
           cur = fwd_cell<ORDER2, BF16>(mul(pbuf[k], scale), r, c, t, T, m1, m2, diag, brow,
                                        brow2);
         diag[(t % 3) * T + r] = cur;
-        wsb[(int64_t)t * T + r] = cur;
+        wsb[(int64_t)t * TS + r] = cur;
         __syncthreads();
       }
 #pragma unroll
       for (int k = 0; k < kGroup; ++k) pbuf[k] = pnext[k];
     }
+    fence_proxy_async();
+    __syncthreads();
 
-    // ---- 2. reverse adjoint sweep, 3. dΔ and the fold ----------------------
-    float kreg[kGroup + 1], preg[kGroup];
-    bwd_group_loads(steps - 1, r, T, ny, lam2, wsb, drow, kreg, preg);
+    // ---- 2. reverse adjoint sweep, 3. dΔ and the fold, 4. the dΔ store ------
+    if (r == 0) {
+      bwd_group_copy(0, steps, TS, wsb, sK, &bar[0]);
+      if (n_groups > 1) bwd_group_copy(1, steps, TS, wsb, sK + KS, &bar[1]);
+    }
+    float preg[kGroup];
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k) {
+      const int c = steps - 1 - k - r;
+      preg[k] = (drow && c >= 0 && c < ny) ? __ldg(drow + (c >> lam2)) : 0.0f;
+    }
     float acc = 0.0f;
-    for (int g0 = steps - 1; g0 >= 0; g0 -= kGroup) {
+    // the step at which this lane's cell (nx-1, ny-1) adds the seed ḡ
+    const int t_seed = s == n_strips - 1 && r == r_out ? ny - 1 + r : -1;
+    for (int gi = 0; gi < n_groups; ++gi) {
+      const int g0 = steps - 1 - gi * kGroup;
+      const int b = gi & 1;
+      const int m0 = g0 % 3;  // anti-diagonal slot of step g0
+      // group gi-1, which read the other buffer, ended with a barrier
+      if (r == 0 && gi >= 1 && gi + 1 < n_groups)
+        bwd_group_copy(gi + 1, steps, TS, wsb, sK + (b ^ 1) * KS, &bar[b ^ 1]);
       float pcur[kGroup];
 #pragma unroll
-      for (int q = 0; q <= kGroup; ++q) sK[q * T + r] = kreg[q];
-#pragma unroll
-      for (int k = 0; k < kGroup; ++k) pcur[k] = preg[k];
-      __syncthreads();
-      if (g0 >= kGroup) bwd_group_loads(g0 - kGroup, r, T, ny, lam2, wsb, drow, kreg, preg);
+      for (int k = 0; k < kGroup; ++k) {
+        pcur[k] = preg[k];
+        const int c = g0 - kGroup - k - r;
+        preg[k] = (drow && c >= 0 && c < ny) ? __ldg(drow + (c >> lam2)) : 0.0f;
+      }
+      mbar_wait(&bar[b], (phase >> b) & 1u);
+      phase ^= 1u << b;
+      const float* Kg = sK + b * KS;
 #pragma unroll
       for (int k = 0; k < kGroup; ++k) {
         const int t = g0 - k;
         if (t < 0) break;  // uniform across the block
+        const int u = gi * kGroup + k;           // reverse step: steps-1-t
+        // slots of steps t, t+1, t+2 in the rotating anti-diagonals
+        int s_t = m0 + (3 - k % 3) % 3, s_1 = s_t + 1, s_2 = s_t + 2;
+        s_t -= s_t >= 3 ? 3 : 0;
+        s_1 -= s_1 >= 3 ? 3 : 0;
+        s_2 -= s_2 >= 6 ? 6 : (s_2 >= 3 ? 3 : 0);
+        const int h = u / kFlush;
+        // one entry of the previous tile to dd (its lanes are done with it)
+        bwd_flush(h - 1, (u % kFlush) * T + r, tile, FS, T, steps, ny, m1, m2, lam1, lam2,
+                  s * R, Lx, Ly, ddprob);
         const int c = t - r;
         const bool active = c >= 0 && c < ny;
         float gA = 0.0f, gB = 0.0f, gC = 0.0f;
         if (active) {
-          const float* A1 = pA + ((t + 1) % 3) * T;  // products at step t+1
-          const float* B2 = pB + ((t + 2) % 3) * T;  // and t+2
+          const float* A1 = pA + s_1 * T;  // products at step t+1
+          const float* B2 = pB + s_2 * T;  // and t+2
           float g = add(A1[r], r + 1 < T ? A1[r + 1] : cA[c]);
           g = sub(g, r + 1 < T ? B2[r + 1] : cB[c + 1]);
           if (ORDER2) {
-            const float* C2 = pC + ((t + 2) % 3) * T;
+            const float* C2 = pC + s_2 * T;
             g = sub(g, C2[r]);
             g = sub(g, r + 2 < T ? C2[r + 2] : (r + 2 == T ? cC[c] : cC2[c]));
           }
-          if (s == n_strips - 1 && r == r_out && c == ny - 1) g = add(g, seed);
+          if (t == t_seed) g = add(g, seed);
           const float p = mul(pcur[k], scale);
           const float p2 = mul(mul(kTwelfth, p), p);
           const float A = add(add(kOne, mul(kHalf, p)), p2);
           const float B1 = sub(kOne, p2);
           const float dA = add(kHalf, mul(p, kSixth));
-          const float* K1 = sK + (kGroup - k) * T;  // ws row t-1
-          const float* K2 = K1 - T;                 // ws row t-2
+          const float* K1 = Kg + (kGroup - k) * TS;  // ws row t-1
+          const float* K2 = K1 - TS;                 // ws row t-2
           const float k_left = c == 0 ? kOne : K1[r];
           const float k_up = r == 0 ? brow[c + 1] : K1[r - 1];
           const float k_upleft = c == 0 ? kOne : (r == 0 ? brow[c] : K2[r - 1]);
@@ -500,14 +615,14 @@ goursat_bwd(const float* __restrict__ delta, const float* __restrict__ cps,
             const float v = j == m1 ? acc : add(*slot, acc);
             if (j != 0)
               *slot = v;
-            else if (row < Lx)
-              ddprob[(int64_t)row * Ly + col] = mul(v, scale);
+            else
+              tile[(h & 1) * T * FS + r * FS + u % kFlush] = mul(v, scale);
           }
         }
         if (T == 2) __syncthreads();  // lane 0 writes cB[t] / cC[t], which lane 1 read
-        pA[(t % 3) * T + r] = gA;
-        pB[(t % 3) * T + r] = gB;
-        if (ORDER2) pC[(t % 3) * T + r] = gC;
+        pA[s_t * T + r] = gA;
+        pB[s_t * T + r] = gB;
+        if (ORDER2) pC[s_t * T + r] = gC;
         if (r == 0 && active) {
           cA[c] = gA;
           cB[c] = gB;
@@ -517,6 +632,13 @@ goursat_bwd(const float* __restrict__ delta, const float* __restrict__ cps,
         __syncthreads();
       }
     }
+    // the strip's last two tiles (the earlier one again: it may be partly
+    // written out only)
+    const int h_last = (steps - 1) / kFlush;
+    for (int h = h_last - 1; h <= h_last; ++h)
+      for (int q = 0; q < kFlush; ++q)
+        bwd_flush(h, q * T + r, tile, FS, T, steps, ny, m1, m2, lam1, lam2, s * R, Lx, Ly,
+                  ddprob);
   }
 }
 
@@ -608,8 +730,9 @@ int sigkernel_pde_gram_fused(const float* dX, const float* dY, float* out,
                               lam2, order2, bf16, smem, stream);
 }
 
-// cps as sigkernel_pde_fwd_cps wrote it at the same T; ws: B * (ny+T-1) * T
-// floats of scratch; dd: (B, Lx, Ly), every entry written.
+// cps as sigkernel_pde_fwd_cps wrote it at the same T; ws: B * (ny+T-1) *
+// max(T, 4) floats of scratch, 16-byte aligned; dd: (B, Lx, Ly), every entry
+// written.
 int sigkernel_pde_bwd(const float* delta, const float* cps, const float* gbar, float* ws,
                       float* dd, long long B, int Lx, int Ly, int T, int lam1, int lam2,
                       int order2, int bf16, long long smem, void* stream) {

@@ -58,6 +58,9 @@ BWD_MAX_THREADS = 512
 #: wavefront steps whose Δ entries a thread gathers at once (kGroup in the
 #: CUDA source)
 GROUP = 8
+#: reverse steps per dΔ tile of the backward kernel (kFlush in the CUDA
+#: source)
+FLUSH = 16
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -114,18 +117,27 @@ def smem_bytes(fused: bool, scheme: str, T: int, Ly: int, lam1: int, lam2: int,
     return n
 
 
+def ws_stride(T: int) -> int:
+    """Floats per workspace row of the backward kernel (``ws_stride`` in the
+    CUDA source): T, at least 4, so that every row starts on 16 bytes for
+    the bulk copies."""
+    return max(T, 4)
+
+
 def smem_bytes_bwd(scheme: str, T: int, Ly: int, lam1: int, lam2: int) -> int:
     """Shared memory one block of the backward kernel takes (mirrors
-    ``smem_bytes_bwd`` in the CUDA source): the checkpoint row(s) of length
-    ny+T+1, three forward anti-diagonals, the adjoint product rows carried
-    up from the strip below (2, or 4 for order2, of ny+2), three rotating
-    anti-diagonals of each adjoint product (2 or 3 products), the fold's
-    slots, and GROUP+1 staged rows of the recomputed strip (T each)."""
+    ``smem_bytes_bwd`` in the CUDA source): two mbarriers, two staged groups
+    of GROUP+1 workspace rows, two dΔ tiles of T x FLUSH (at a stride of
+    FLUSH+1), the checkpoint row(s) of length ny+T+1, three forward
+    anti-diagonals, the adjoint product rows carried up from the strip below
+    (2, or 4 for order2, of ny+2), three rotating anti-diagonals of each
+    adjoint product (2 or 3 products) and the fold's slots."""
     order2 = scheme == "order2"
     ny = Ly << lam2
-    n = ((2 if order2 else 1) * (ny + T + 1) + 3 * T + (4 if order2 else 2) * (ny + 2)
-         + (9 if order2 else 6) * T + T + (GROUP + 1) * T)
-    return 4 * n
+    n = (2 * (GROUP + 1) * ws_stride(T) + 2 * T * (FLUSH + 1)
+         + (2 if order2 else 1) * (ny + T + 1) + 3 * T + (4 if order2 else 2) * (ny + 2)
+         + (9 if order2 else 6) * T + T)
+    return 16 + 4 * n
 
 
 def cps_rows(scheme: str) -> int:
@@ -272,7 +284,7 @@ def bwd(delta: torch.Tensor, cps: torch.Tensor, gbar: torch.Tensor, T: int, lam1
         lam2: int, scheme: str, interior_dtype: str) -> torch.Tensor:
     """∂F/∂Δ (B, Lx, Ly) on the card from Δ, the checkpoint rows that
     :func:`fwd_cps` wrote at the same strip height T, and ḡ = ∂F/∂k (B,).
-    Allocates the recomputed-strip workspace, B·(ny+T−1)·T floats."""
+    Allocates the recomputed-strip workspace, B·(ny+T−1)·max(T, 4) floats."""
     _check(delta, "delta", 3)
     _check(cps, "cps", 3)
     _check(gbar, "gbar", 1)
@@ -290,7 +302,8 @@ def bwd(delta: torch.Tensor, cps: torch.Tensor, gbar: torch.Tensor, T: int, lam1
     out = torch.empty(B, Lx, Ly, device=delta.device, dtype=torch.float32)
     if B == 0:
         return out
-    ws = torch.empty(B * (ny + T - 1) * T, device=delta.device, dtype=torch.float32)
+    ws = torch.empty(B * (ny + T - 1) * ws_stride(T), device=delta.device,
+                     dtype=torch.float32)
     _launch(library().sigkernel_pde_bwd, out, delta.data_ptr(), cps.data_ptr(),
             gbar.data_ptr(), ws.data_ptr(), out.data_ptr(), B, Lx, Ly, T, lam1, lam2,
             scheme == "order2", interior_dtype == "bfloat16", smem)

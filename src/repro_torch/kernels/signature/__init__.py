@@ -2,8 +2,8 @@
 (``kernel.py``, ``csrc/signature.cu``), its wrapper (``ops.py``) and the
 direct-algorithm oracle (``ref.py``)."""
 
-from .ops import (choose_lb, choose_threads, logsignature_from_increments,
+from .ops import (geometry, logsignature_from_increments,
                   signature_from_increments)
 
-__all__ = ["choose_lb", "choose_threads", "logsignature_from_increments",
+__all__ = ["geometry", "logsignature_from_increments",
            "signature_from_increments"]

@@ -176,17 +176,17 @@ def test_launcher_checks_its_inputs(cuda):
 # the Horner kernel (B5)
 # ---------------------------------------------------------------------------
 
-#: (d, N) of the sweep: d in {1, 2, 3, 4, 8, 16}, N in 1..6, where levels
-#: 1..N-1 and one staged step fit one block
-HORNER_SHAPES = [(d, N) for d in (1, 2, 3, 4, 8, 16) for N in range(1, 7)
-                 if sig_kernel.smem_bytes(d, N, 1) <= sig_kernel.SMEM_LIMIT]
+#: (d, N) of the sweep: d in {1, 2, 3, 4, 8, 9, 16}, N in 1..6 (d = 9 is
+#: time-aug + lead-lag of 4 channels)
+HORNER_SHAPES = [(d, N) for d in (1, 2, 3, 4, 8, 9, 16) for N in range(1, 7)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("d, N", HORNER_SHAPES, ids=[f"d{d}-N{N}" for d, N in HORNER_SHAPES])
 def test_horner_matches_plain_exactly(cuda, d, N):
-    """B = 3 paths of 12 increments; length blocks of 5 leave a partial one."""
-    z = _incs(20, 3, 13, d, cuda)
+    """B = 3 paths of 12 increments (one at d = 16, N = 6, whose signature
+    has 17.9 M entries); length blocks of 4 leave a partial one."""
+    z = _incs(20, 3, 2 if (d, N) == (16, 6) else 13, d, cuda)
     before = sig_kernel.horner.launches
     got = sig_ops.signature_from_increments(z, N)
     assert sig_kernel.horner.launches == before + 1
@@ -239,6 +239,22 @@ def test_signature_card_matches_cpu(cuda):
 
 
 @pytest.mark.gpu
+def test_paper_depth_lead_lag_signature_on_the_card(cuda):
+    """Time-aug + lead-lag of 4 channels (d' = 9) at the paper's depth 6 and
+    d = 16 at depth 5 go through the kernel with the default backend and
+    equal the CPU's plain scan."""
+    tf = rt.TransformPipeline(time_aug=True, lead_lag=True)
+    for x, N, kw in ((_incs(25, 4, 40, 4, cuda).cumsum(1), 6, {"transforms": tf}),
+                     (_incs(26, 2, 9, 16, cuda).cumsum(1), 5, {})):
+        before = sig_kernel.horner.launches
+        got = rt.signature(x, N, **kw)
+        assert sig_kernel.horner.launches == before + 1
+        want = rt.signature(x.cpu(), N, **kw)
+        _close(got.cpu(), want, 1e-5)
+        _close(rt.logsignature(x, N, **kw).cpu(), rt.logsignature(x.cpu(), N, **kw), 1e-5)
+
+
+@pytest.mark.gpu
 def test_signature_backward_memory_is_flat_in_length(cuda):
     """The §2.4 backward keeps O(1) signatures in L: above the increments and
     their gradient, its peak stays at a few (B, sig_dim) buffers, the same
@@ -264,12 +280,14 @@ def test_signature_backward_memory_is_flat_in_length(cuda):
 def test_horner_launcher_checks_its_inputs(cuda):
     z = torch.zeros(2, 5, 3, device=cuda)
     with pytest.raises(TypeError, match="float32"):
-        sig_kernel.horner(z.double(), 3, 4, 32)
+        sig_kernel.horner(z.double(), 3, 1, 3, 1, 4, 32)
     with pytest.raises(ValueError, match="contiguous"):
-        sig_kernel.horner(z.transpose(1, 2), 3, 4, 32)
+        sig_kernel.horner(z.transpose(1, 2), 3, 1, 3, 1, 4, 32)
     with pytest.raises(ValueError, match="threads"):
-        sig_kernel.horner(z, 3, 4, 48)
+        sig_kernel.horner(z, 3, 1, 3, 1, 4, 48)
+    with pytest.raises(ValueError, match="geometry"):
+        sig_kernel.horner(z, 3, 3, 3, 1, 4, 32)
     with pytest.raises(ValueError, match="CUDA"):
-        sig_kernel.horner(z.cpu(), 3, 4, 32)
+        sig_kernel.horner(z.cpu(), 3, 1, 3, 1, 4, 32)
     with pytest.raises(ValueError, match="stream=True"):
         rt.signature(z, 3, stream=True, backend="gpu")

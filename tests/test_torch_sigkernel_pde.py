@@ -161,6 +161,23 @@ def test_choose_T_fits_one_block(Lx, Ly, lam1, lam2, n, d, scheme):
     assert T <= max(2, 1 << lam1, 1 << (Lx << lam1).bit_length())
 
 
+@pytest.mark.parametrize("Lx, Ly, lam1, lam2, scheme", [
+    (1023, 1023, 0, 0, "order1"), (1023, 1023, 0, 0, "order2"), (127, 127, 2, 0, "order2"),
+    (4000, 4000, 0, 0, "order1"), (5, 3, 1, 1, "order2")])
+def test_backward_strip_fits_one_block(Lx, Ly, lam1, lam2, scheme):
+    """The one strip height of the checkpoint forward and the backward:
+    both kernels' shared memory fits (the backward's two staged workspace
+    groups and two dΔ tiles included), and every workspace row starts on
+    16 bytes, as the backward's bulk copies need."""
+    T = ops.choose_T(Lx, Ly, lam1, lam2, 128, scheme=scheme, backward=True)
+    kernel.check_strip(T, lam1, scheme, kernel.BWD_MAX_THREADS)
+    assert kernel.smem_bytes_bwd(scheme, T, Ly, lam1, lam2) <= kernel.SMEM_LIMIT
+    assert kernel.smem_bytes(False, scheme, T, Ly, lam1, lam2) <= kernel.SMEM_LIMIT
+    assert kernel.ws_stride(T) >= T and kernel.ws_stride(T) % 4 == 0
+    if (Lx, Ly) == (1023, 1023):
+        assert T == 512  # the gradient path's strip
+
+
 def test_choose_T_respects_the_launch_cap():
     assert ops.choose_T(1023, 1023, 0, 0, 8, max_t=64) == 64
     assert ops.choose_T(1023, 1023, 0, 0, 8, max_t=1) == 2

@@ -311,18 +311,49 @@ def test_cpu_signatures_launch_no_kernel():
 
 
 def test_launch_geometry_fits_the_card():
-    for d, N, L in [(4, 6, 256), (8, 5, 512), (16, 4, 1024)]:
-        S = ops.choose_lb(L - 1, d, N)
-        assert S >= 8 and kernel.smem_bytes(d, N, S) <= kernel.SMEM_LIMIT
-        assert ops.choose_threads(d, N) == 1024
-        assert ops.choose_lb(L - 1, d, N, max_lb=4) == 4
-    assert ops.choose_lb(1, 3, 3) == 1
-    assert ops.choose_threads(2, 2) == 32
-    with pytest.raises(ValueError, match="lower the depth"):
-        ops.choose_lb(10, 16, 5)
+    """At the paper's Table 1 cells the split launch fills the card with
+    blocks whose top-level slice fits their threads' registers, whose step
+    takes about one row item a thread, and whose staging fits shared
+    memory; caps move only the geometry."""
+    for (d, N, L), (p, blocks) in zip([(4, 6, 256), (8, 5, 512), (16, 4, 1024)],
+                                      [(1, 512), (1, 1024), (1, 2048)]):
+        geo = ops.geometry(128, L - 1, d, N)
+        assert geo[:2] == (p, d) and 128 * d ** p == blocks
+        p, jw, cw, S, threads = geo
+        assert S >= 8 and kernel.smem_bytes(d, N, p, cw, S, threads) <= 48 * 1024
+        tiles = d * -(-kernel.top_rows(d, N, p) // kernel.TOP)
+        items = kernel.row_items(d, N, p, cw)
+        assert threads == kernel.threads_needed(d, N, p, jw, cw) == \
+            -(-max(items, tiles) // 32) * 32 <= kernel.MAX_THREADS
+        assert ops.geometry(128, L - 1, d, N, max_lb=4)[3] == 4
+        small = ops.geometry(128, L - 1, d, N, max_threads=32)
+        assert small[4] == 32 and small[0] > p
+    assert ops.geometry(1, 1, 3, 3)[3] == 1
+    assert ops.geometry(4, 9, 2, 2)[4] == 32
+    # (16, 5) and lead-lag + time-aug at N = 6 (d' = 9) fit: a longer prefix
+    assert ops.geometry(128, 255, 16, 5)[0] == 2
+    assert ops.geometry(128, 255, 9, 6)[0] >= 2
     # per path and step, Horner's operations at the paper's Table 1 widths
     assert [kernel.horner_flops(d, N) for d, N in [(4, 6), (8, 5), (16, 4)]] == \
         [14580, 85624, 149152]
+
+
+@pytest.mark.parametrize("B", [1, 128])
+def test_launch_geometry_takes_every_width_and_depth(B):
+    """No (d, N) with d <= 16, N <= 6 is refused, with or without caps, and
+    each geometry is one the kernel takes (its host-side checks)."""
+    for d in range(1, 17):
+        for N in range(1, 7):
+            for caps in ((None, None), (32, 1), (64, 4)):
+                p, jw, cw, S, threads = ops.geometry(B, 100, d, N, *caps)
+                assert 0 <= p <= max(N - 1, 0) and 1 <= jw <= d and S >= 1
+                assert cw in (1, 2, 4) and threads % 32 == 0
+                assert kernel.threads_needed(d, N, p, jw, cw) <= threads <= \
+                    (caps[0] or kernel.MAX_THREADS)
+                assert kernel.smem_bytes(d, N, p, cw, S, threads) <= kernel.SMEM_LIMIT
+                assert B * d ** p * -(-d // jw) <= 2 ** 31 - 1
+    # past 512 channels the top level's columns are cut into chunks
+    assert ops.geometry(1, 3, 1100, 2)[:2] == (1, 512)
 
 
 def test_launch_config_carries_the_horner_knobs():
