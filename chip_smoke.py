@@ -16,14 +16,16 @@ Phases (any failure exits non-zero; nothing runs without CUDA):
    and "gpu_fused"), ``SigKernel().gram(X, Y)``, the symmetric
    ``gram(X)``, ``mmd2`` and the RBF-lift Gram on (128, 256, 8) paths;
    results must be finite, the routes must agree, and every kernel of the
-   path must have launched;
+   path must have launched; the Goursat launches are also counted by shape
+   (problems, Lx, Ly, d) and strip height;
 3. drive the gradient path the same way, counts reset just before it:
    ``torch.autograd.grad`` of ``sigkernel(x, y).sum()`` on (128, 1024, 32)
    through auto ("gpu") and "gpu_fused", of ``SigKernel().mmd2(X, Y)`` and
    of the streaming ``mmd2(X, Y, row_block=16)`` on (128, 256, 8), a small
    input against the CPU reference gradient, and a trainer: five Adam steps
    on an ``nn.Parameter`` of (64, 256, 8) paths under the biased MMD² to
-   fixed targets (ms/step; the loss must fall);
+   fixed targets (ms/step; the loss must fall); launches counted by shape
+   as on the forward path;
 4. drive the signature path at the paper's Table 1 / Table 3 "full" sizes
    (B, L, d, N) = (128, 256, 4, 6), (128, 512, 8, 5), (128, 1024, 16, 4),
    the Horner count set to 0 just before and read just after:
@@ -50,7 +52,10 @@ Phases (any failure exits non-zero; nothing runs without CUDA):
    operations / 67 TFLOP/s FP32, H100 SXM data sheet), sweep the forward
    kernels' strip height, the backward's with its checkpoint forward, and
    the Horner kernel's length block and prefix length (also at the two
-   pipelines' kernel shapes), and print one JSON line per kernel, the
+   pipelines' kernel shapes), time every Goursat kernel at every shape it
+   launched at on the forward and gradient paths against its bound (B4 and
+   B3 also against their plain versions, rel <= 1e-4, with a strip sweep),
+   and print one JSON line per kernel, the
    ``kernels`` line, the card's name and power limit, and the final ``ok``
    line.
 """
@@ -148,6 +153,13 @@ def grads(fn, *inputs):
     import torch
     leaves = [t.detach().clone().requires_grad_() for t in inputs]
     return torch.autograd.grad(fn(*leaves), leaves)
+
+
+def shape_rows(shapes) -> list:
+    """kernel.launch_shapes() as JSON rows, most launches first."""
+    return [{"kernel": k, "problems": list(P) if isinstance(P, tuple) else P, "Lx": Lx,
+             "Ly": Ly, "d": d, "T": T, "launches": n}
+            for (k, P, Lx, Ly, d, T), n in sorted(shapes.items(), key=lambda kv: -kv[1])]
 
 
 def build_all(modules) -> dict:
@@ -261,6 +273,7 @@ def main() -> int:
                  lambda: rbf.gram(X, Y, row_block=16), kernel.fwd)
     path_s = time.time() - t_path
     counts = kernel.launch_counts()
+    shapes_fwd = kernel.launch_shapes()
     for kname in FORWARD_PATH:
         check(counts[kname] > 0, f"forward path never launched {kname}")
 
@@ -281,7 +294,8 @@ def main() -> int:
     small = rt.sigkernel(xs.to(dev), ys.to(dev)).cpu()
     check(rel_err(small, rt.sigkernel(xs, ys, backend="reference")) <= 1e-4,
           "small input: card and CPU reference disagree")
-    emit({"main_path": steps, "launches": counts, "seconds": round(path_s, 3),
+    emit({"main_path": steps, "launches": counts,
+          "launches_by_shape": shape_rows(shapes_fwd), "seconds": round(path_s, 3),
           "sigkernel_gpu_vs_fused_rel": rel_err(k_fused, k_gpu),
           "gram_fused_vs_gpu_rel": rel_err(K, K_gpu), "mmd2": float(m),
           "card": name, "power_limit": power})
@@ -328,6 +342,7 @@ def main() -> int:
         losses.append(float(rt.mmd2(gen, target, unbiased=False)))
     gpath_s = time.time() - t_path
     gcounts = kernel.launch_counts()
+    shapes_grad = kernel.launch_shapes()
     for kname in GRADIENT_PATH:
         check(gcounts[kname] > 0, f"gradient path never launched {kname}")
 
@@ -341,7 +356,8 @@ def main() -> int:
         check(err <= 1e-4, f"gradients: {what} rel err {err:.3g} > 1e-4")
     check(all(np.isfinite(losses)), f"trainer: non-finite loss {losses}")
     check(losses[-1] < losses[0], f"trainer: the loss did not fall {losses}")
-    emit({"gradient_path": gsteps, "launches": gcounts, "seconds": round(gpath_s, 3),
+    emit({"gradient_path": gsteps, "launches": gcounts,
+          "launches_by_shape": shape_rows(shapes_grad), "seconds": round(gpath_s, 3),
           "grad_rel_err": grad_rel, "trainer_losses": losses,
           "trainer_ms_per_step": step_ms, "trainer_ms_per_step_median":
           float(np.median(step_ms)), "card": name, "power_limit": power})
@@ -590,6 +606,7 @@ def main() -> int:
         "fwd_fused": lambda T: kernel.fwd_fused(dx, dy, T, 0, 0, "order1", "float32"),
         "gram_fused": lambda T: kernel.gram_fused(dX, dY, T, 0, 0, "order1", "float32"),
     }
+    launchers_fused = {"fwd_fused": kernel.fwd_fused, "gram_fused": kernel.gram_fused}
     plains = {
         "fwd": lambda: kernel.solve_plain(delta, 0, 0, "order1", "float32"),
         "fwd_cps": lambda: kernel.solve_with_grid_plain(delta, T_grad, 0, 0, "order1",
@@ -617,8 +634,9 @@ def main() -> int:
             fused = kname != "fwd"
             sweep = {Ts: round(time_ms(lambda: launchers[kname](Ts), 3), 4)
                      for Ts in (32, 64, 128, 256, 512, 1024)
-                     if kernel.smem_bytes(fused, "order1", Ts, Ly if kname != "gram_fused"
-                                          else Lgy, 0, 0, d if kname == "fwd_fused" else dg)
+                     if Ts <= (kernel.FUSED_MAX_THREADS if fused else kernel.MAX_THREADS)
+                     and kernel.smem_bytes(fused, "order1", Ts, Ly if kname != "gram_fused"
+                                           else Lgy, 0, 0, d if kname == "fwd_fused" else dg)
                      <= kernel.SMEM_LIMIT}
         if kname == "bwd":  # the backward with the checkpoint forward it lines up with
             for Ts in (64, 128, 256, 512):
@@ -639,6 +657,69 @@ def main() -> int:
         emit({"timing": kname, "strip_T": T, "bytes": nbytes, "flops": nflops,
               "bytes_ms": t_bytes, "ops_ms": t_ops, "strip_sweep_ms": sweep,
               **row, "card": name, "power_limit": power})
+
+    # every Goursat kernel at every shape it launched at on the forward and
+    # gradient paths (GridConfig() defaults: order 1, float32 interiors,
+    # lam = 0): time and bound, the per-shape gaps of PERF.md's ranking; B4
+    # and B3 also against their plain versions and with a strip sweep
+    path_shapes = {}
+    for path, log in (("forward", shapes_fwd), ("gradient", shapes_grad)):
+        for key, n in log.items():
+            path_shapes.setdefault(key, {})[path] = n
+    for (kname, P, Lx_, Ly_, d_, T_), by_path in sorted(path_shapes.items(), key=str):
+        gram = kname == "gram_fused"
+        fused = kname in ("fwd_fused", "gram_fused")
+        Bx_, By_ = P if gram else (P, P)
+        row = {"timing_by_shape": kname, "problems": list(P) if gram else P, "Lx": Lx_,
+               "Ly": Ly_, "d": d_, "T": T_, "launches": by_path}
+        if fused:
+            a_ = torch.from_numpy(np.diff(random_paths(rng, Bx_, Lx_ + 1, d_), axis=1)).to(dev)
+            b_ = torch.from_numpy(np.diff(random_paths(rng, By_, Ly_ + 1, d_), axis=1)).to(dev)
+            a_, b_ = a_.contiguous(), b_.contiguous()
+            run = lambda: launchers_fused[kname](a_, b_, T_, 0, 0, "order1", "float32")
+            plain = {"fwd_fused": kernel.solve_fused_plain,
+                     "gram_fused": kernel.gram_fused_plain}[kname]
+            plain_ms = time_ms(lambda: plain(a_, b_, 0, 0, "order1", "float32"), 2)
+            got, want = run(), plain(a_, b_, 0, 0, "order1", "float32")
+            torch.cuda.synchronize()
+            err = rel_err(got, want)
+            check(err <= RTOL["float32"],
+                  f"{kname} at {(P, Lx_, Ly_, d_)} T={T_}: rel err {err:.3g}")
+            n_prob = Bx_ * By_ if gram else P
+            nbytes = (a_.numel() + b_.numel() + n_prob) * 4
+            nflops = n_prob * (2 * d_ + CELL_FLOPS) * Lx_ * Ly_
+            row["strip_sweep_ms"] = {
+                Ts: round(time_ms(lambda: launchers_fused[kname](a_, b_, Ts, 0, 0, "order1",
+                                                                 "float32"), 3), 4)
+                for Ts in (32, 64, 128, 256, 512) if Ts <= kernel.FUSED_MAX_THREADS
+                and kernel.smem_bytes(True, "order1", Ts, Ly_, 0, 0, d_) <= kernel.SMEM_LIMIT}
+            row.update(plain_ms=plain_ms, max_abs_err=float((got - want).abs().max()),
+                       rel_err=err)
+            del got, want
+        else:
+            dl_ = delta_matrix(torch.from_numpy(random_paths(rng, P, Lx_ + 1, 8)).to(dev),
+                               torch.from_numpy(random_paths(rng, P, Ly_ + 1, 8)).to(dev))
+            dl_ = dl_.contiguous()
+            if kname == "fwd":
+                run = lambda: kernel.fwd(dl_, T_, 0, 0, "order1", "float32")
+                extra, cell = 0, CELL_FLOPS
+            else:
+                cps_ = kernel.fwd_cps(dl_, T_, 0, 0, "order1", "float32")[1]
+                g_ = torch.ones(P, device=dev)
+                run = {"fwd_cps": lambda: kernel.fwd_cps(dl_, T_, 0, 0, "order1", "float32"),
+                       "bwd": lambda: kernel.bwd(dl_, cps_, g_, T_, 0, 0, "order1",
+                                                 "float32")}[kname]
+                extra = cps_.numel() + (dl_.numel() if kname == "bwd" else 0)
+                cell = BWD_CELL_FLOPS if kname == "bwd" else CELL_FLOPS
+            nbytes = (dl_.numel() + extra + P) * 4
+            nflops = P * Lx_ * Ly_ * cell
+        row["ms"] = time_ms(run, 5)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nflops / FP32_FLOPS_PER_S * 1e3
+        row.update(bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations", card=name,
+                   power_limit=power)
+        emit(row)
+        torch.cuda.empty_cache()
 
     # the Horner kernel at the signature path's three shapes (the kernels
     # line takes the largest, (128, 1024, 16, 4)) and at the two pipelines'

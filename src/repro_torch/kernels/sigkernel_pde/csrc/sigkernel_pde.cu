@@ -40,8 +40,9 @@
 //
 // Arithmetic.  Every stencil operation rounds on its own (__fmul_rn and
 // friends, never contracted into an FMA) in the order of stencil.py, and the
-// fused kernels accumulate the dot product <dx[row], dy[col]> in float64 and
-// round it once, which is what the plain version's float64 einsum gives.  So
+// fused kernels accumulate the dot product <dx[row], dy[col]> in float64 (the
+// float32 products are exact there) and round it once, which is what the
+// plain version's float64 einsum gives.  So
 // each kernel computes every cell bit for bit like its plain PyTorch version
 // (bar a dot product within 1e-16 of a float32 rounding boundary), including
 // the bf16 interiors, where one flipped rounding would otherwise spread.
@@ -52,16 +53,13 @@
 // load at one step touches 32 rows: loads are issued kGroup steps ahead into
 // registers, each 32-byte sector read is fully used over those steps, and the
 // refined repeats (2^lam2 columns) reuse one load.  The fused kernels read
-// only the increments and are bound by operations: this first design
-// recomputes the d-long dot product once per refined cell, with the strip's
-// dx rows staged in shared memory as float64 at an odd row stride (no bank
-// conflicts) and dy rows passing through a float64 ring in shared memory as
-// the wavefront moves right; each thread forms the dot products of its next
-// kGroup cells together.  Tensor cores are not used yet.  The wavefront
-// itself is latency-bound: ny+T-1 dependent steps per strip, each a barrier
-// plus a short chain of dependent operations, so few large problems (one
-// block per SM) want tall strips and many small problems want short
-// strips; ops.py's choose_T picks T accordingly.
+// only the increments and are bound by operations; they build each strip's
+// Delta as tile products on the FP64 tensor cores (described above
+// goursat_fwd_fused below).  The wavefront itself is latency-bound: ny+T-1
+// dependent steps per strip, each a barrier plus a short chain of dependent
+// operations, so few large problems (one block per SM) want tall strips and
+// many small problems want short strips; ops.py's choose_T picks T
+// accordingly.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -123,53 +121,72 @@ __device__ __forceinline__ float fwd_cell(float p, int r, int c, int t, int T, i
   return round_interior<BF16>(cur);
 }
 
+// The fused kernels' Delta band (see goursat_fwd_fused): kBand wavefront
+// steps per band, built from 16 x 8 tiles of unrefined entries out of dx and
+// dy rows staged in shared memory as Stage (float32: half the bytes of
+// float64, and as fast, PERF.md §5; widened exactly at the operand load).
+constexpr int kBand = 32;
+using Stage = float;
+
+struct BandGeometry {
+  int RP;  // staged dx rows: R = T >> lam1 rounded up to whole 16-row blocks
+  int S;   // row stride of the staged dx rows and the dy ring: d padded to a
+           // multiple of 8 (the MMA's k), plus 4 (no bank conflicts)
+  int NT;  // 8-column tiles per 16-row block and band
+  int WB;  // unrefined columns a band row holds
+  int BS;  // band row stride (odd)
+  int NR;  // dy ring rows: the columns two consecutive bands read
+  int NY;  // dy rows a band adds to the ring, at most
+};
+
+__host__ __device__ inline BandGeometry band_geometry(int T, int lam1, int lam2, int d) {
+  const int m = 1 << lam1;
+  BandGeometry g;
+  g.RP = ((T >> lam1) + 15) / 16 * 16;
+  g.S = (d + 7) / 8 * 8 + 4;
+  g.NT = ((((kBand + 16 * m - 2) >> lam2) + 2) + 7) / 8;
+  g.WB = ((kBand + m - 2) >> lam2) + 2;
+  g.BS = g.WB | 1;
+  g.NR = ((kBand + (g.RP - 16) * m) >> lam2) + 8 * g.NT + 1;
+  g.NY = (kBand >> lam2) + 1;
+  return g;
+}
+
 // Shared memory bytes the kernel lays out for one block (kernel.py mirrors
-// it): fused kernels first hold, as float64 at an odd row stride, the
-// strip's R = T >> lam1 rows of dx and a ring of T + kGroup rows of dy; then
-// every kernel holds the carried row(s) of ny+T+1 floats and three
-// anti-diagonals of T floats.
+// it): fused kernels first hold, as Stage, the strip's dx rows (RP x S) and
+// the dy ring (NR x S), then as float32 two bands (R x BS each) and a band's
+// new dy rows (NY x d) on their way in; then every kernel holds the carried
+// row(s) of ny+T+1 floats and three anti-diagonals of T floats.
 __host__ __device__ inline int64_t smem_bytes(int mode, bool order2, int T, int ny,
-                                              int lam1, int d) {
+                                              int lam1, int lam2, int d) {
   int64_t n = 4 * ((order2 ? 2 : 1) * ((int64_t)ny + T + 1) + 3 * (int64_t)T);
-  if (mode != kDelta) n += 8 * (int64_t)((T >> lam1) + T + kGroup) * (d | 1);
+  if (mode != kDelta) {
+    const BandGeometry g = band_geometry(T, lam1, lam2, d);
+    n += (int64_t)sizeof(Stage) * (g.RP + g.NR) * g.S +
+         4 * (2LL * (T >> lam1) * g.BS + (int64_t)g.NY * d);
+  }
   return n;
 }
 
-// CPS (precomputed-Delta mode only): at the start of strip s the carried
-// row(s) brow (, brow2), contiguous in shared memory, are copied to the
-// checkpoint rows cps[prob, s * rows + (0, 1), :] (kernel.py:134-137).
-template <int MODE, bool ORDER2, bool BF16, bool CPS>
+// CPS: at the start of strip s the carried row(s) brow (, brow2), contiguous
+// in shared memory, are copied to the checkpoint rows
+// cps[prob, s * rows + (0, 1), :] (kernel.py:134-137).
+template <bool ORDER2, bool BF16, bool CPS>
 __global__ void __launch_bounds__(kMaxThreads)
-goursat_fwd(const float* __restrict__ a, const float* __restrict__ b,
-            float* __restrict__ out, float* __restrict__ cps, int n_cols, int Lx,
-            int Ly, int d, int lam1, int lam2) {
+goursat_fwd(const float* __restrict__ delta_all, float* __restrict__ out,
+            float* __restrict__ cps, int Lx, int Ly, int lam1, int lam2) {
   extern __shared__ double smem[];
   const int T = blockDim.x;
   const int r = threadIdx.x;
   const int ny = Ly << lam2;
   const int W = ny + T + 1;
   const int R = T >> lam1;                     // unrefined rows per strip
-  const int ds = d | 1;                        // odd stride: no bank conflicts
-  const int NR = T + kGroup;                   // dy ring rows
-  double* sdx = smem;                          // fused: the strip's dx rows
-  double* sdy = smem + R * ds;                 // fused: dy row `col` at col % NR
-  float* brow =
-      reinterpret_cast<float*>(smem + (MODE == kDelta ? 0 : (int64_t)(R + NR) * ds));
+  float* brow = reinterpret_cast<float*>(smem);
   float* brow2 = brow + W;                     // k[strip_top - 1, c] (order 2)
   float* diag = brow + (ORDER2 ? 2 : 1) * W;   // 3 rotating anti-diagonals
 
   const int64_t prob = blockIdx.x;
-  const float* delta = nullptr;
-  const float* dx = nullptr;
-  const float* dy = nullptr;
-  if (MODE == kDelta) {
-    delta = a + prob * (int64_t)Lx * Ly;
-  } else {
-    const int64_t ia = MODE == kFusedGram ? prob / n_cols : prob;
-    const int64_t ib = MODE == kFusedGram ? prob % n_cols : prob;
-    dx = a + ia * (int64_t)Lx * d;
-    dy = b + ib * (int64_t)Ly * d;
-  }
+  const float* delta = delta_all + prob * (int64_t)Lx * Ly;
   for (int i = r; i < (ORDER2 ? 2 : 1) * W; i += T) brow[i] = 1.0f;
 
   const float scale = ldexpf(1.0f, -(lam1 + lam2));  // exact power of two
@@ -185,14 +202,7 @@ goursat_fwd(const float* __restrict__ a, const float* __restrict__ b,
   for (int s = 0; s < n_strips; ++s) {
     const int row = s * R + lrow;
     const bool row_ok = row < Lx;          // rows past Lx: zero padding
-    if (MODE != kDelta) {
-      for (int i = r; i < R * d; i += T) {
-        const int rr = i / d, k = i - rr * d;
-        const int gr = s * R + rr;
-        sdx[rr * ds + k] = gr < Lx ? (double)dx[(int64_t)gr * d + k] : 0.0;
-      }
-    }
-    __syncthreads();  // ones / staged rows / previous strip's last step
+    __syncthreads();  // ones / previous strip's last step
     if (CPS) {
       const int rows = ORDER2 ? 2 : 1;
       float* dst = cps + (prob * n_strips + s) * rows * (int64_t)W;
@@ -201,61 +211,20 @@ goursat_fwd(const float* __restrict__ a, const float* __restrict__ b,
     }
 
     // pbuf[k]: the unrefined Delta entry of this thread's cell at step t0 + k
-    const float* drow =
-        (MODE == kDelta && row_ok) ? delta + (int64_t)row * Ly : nullptr;
+    const float* drow = row_ok ? delta + (int64_t)row * Ly : nullptr;
     float pbuf[kGroup];
-    if (MODE == kDelta) {
 #pragma unroll
-      for (int k = 0; k < kGroup; ++k) {
-        const int c = k - r;
-        pbuf[k] = (drow && c >= 0 && c < ny) ? __ldg(drow + (c >> lam2)) : 0.0f;
-      }
+    for (int k = 0; k < kGroup; ++k) {
+      const int c = k - r;
+      pbuf[k] = (drow && c >= 0 && c < ny) ? __ldg(drow + (c >> lam2)) : 0.0f;
     }
-    int loaded = -1;  // fused: highest dy row (unrefined column) in the ring
 
     for (int t0 = 0; t0 < steps; t0 += kGroup) {
       float pnext[kGroup];
-      if (MODE == kDelta) {
 #pragma unroll
-        for (int k = 0; k < kGroup; ++k) {
-          const int c = t0 + kGroup + k - r;
-          pnext[k] = (drow && c >= 0 && c < ny) ? __ldg(drow + (c >> lam2)) : 0.0f;
-        }
-      } else {
-        // Bring the group's new dy rows into the ring (coalesced), then form
-        // this thread's kGroup dot products <dx[row], dy[col]> at once: dx[q]
-        // is read once for all of them, lanes read dy rows at an odd stride.
-        // Slots overwritten here held columns below (t0 - T + 1) >> lam2,
-        // which no lane needs any more.
-        const int hi = min((t0 + kGroup - 1) >> lam2, Ly - 1);
-        if (hi > loaded) {  // uniform across the block
-          for (int i = r; i < (hi - loaded) * d; i += T) {
-            const int col = loaded + 1 + i / d, q = i - (col - loaded - 1) * d;
-            sdy[(col % NR) * ds + q] = (double)__ldg(dy + (int64_t)col * d + q);
-          }
-          loaded = hi;
-          __syncthreads();
-        }
-        int slot[kGroup];
-        double acc[kGroup];
-#pragma unroll
-        for (int k = 0; k < kGroup; ++k) {
-          const int c = min(max(t0 + k - r, 0), ny - 1);
-          slot[k] = ((c >> lam2) % NR) * ds;
-          acc[k] = 0.0;
-        }
-        const double* xr = sdx + lrow * ds;
-        for (int q = 0; q < d; ++q) {
-          const double xq = xr[q];
-#pragma unroll
-          for (int k = 0; k < kGroup; ++k) acc[k] = fma(xq, sdy[slot[k] + q], acc[k]);
-        }
-#pragma unroll
-        for (int k = 0; k < kGroup; ++k) {
-          const int c = t0 + k - r;
-          // one rounding: the correctly rounded dot product
-          pbuf[k] = (row_ok && c >= 0 && c < ny) ? (float)acc[k] : 0.0f;
-        }
+      for (int k = 0; k < kGroup; ++k) {
+        const int c = t0 + kGroup + k - r;
+        pnext[k] = (drow && c >= 0 && c < ny) ? __ldg(drow + (c >> lam2)) : 0.0f;
       }
 #pragma unroll
       for (int k = 0; k < kGroup; ++k) {
@@ -274,10 +243,287 @@ goursat_fwd(const float* __restrict__ a, const float* __restrict__ b,
         if (ORDER2 && r == T - 2 && t >= T - 2) brow2[t - T + 3] = cur;
         __syncthreads();
       }
-      if (MODE == kDelta) {
 #pragma unroll
-        for (int k = 0; k < kGroup; ++k) pbuf[k] = pnext[k];
+      for (int k = 0; k < kGroup; ++k) pbuf[k] = pnext[k];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The fused-Delta forwards, replacing kernel.py:fused_fwd_kernel (matched
+// pairs) and fused_gram_kernel (one block per (row path, column path)).
+//
+// The wavefront, its carried rows, its three rotating anti-diagonals and its
+// one barrier per step are goursat_fwd's.  What differs is where a lane's
+// Delta entry comes from.  The TPU kernel builds a strip's Delta block as one
+// (R, d) x (d, Ly) product on its MXU (kernel.py:104-105, :337-338); here
+// each band of kBand wavefront steps is built as 16 x 8 tile products on the
+// FP64 tensor cores (mma.sync m16n8k8, float64 in and out: the float32
+// increments widen exactly, the products are exact and the sum rounds once
+// to float32), by warps of their own, one band ahead of the wavefront:
+//   * Over steps t0 .. t0+kBand-1 the lanes of unrefined row i (refined rows
+//     i*m .. i*m+m-1, m = 2^lam1) read unrefined columns jlo(i) .. jhi(i),
+//     jlo(i) = (t0 - i*m - m + 1) >> lam2, jhi(i) = (t0 + kBand - 1 - i*m)
+//     >> lam2: a parallelogram.  Rows are cut into blocks of 16; block i0
+//     .. i0+15 needs columns jlo(i0+15) .. jhi(i0), NT tiles of 8 (at lam = 0
+//     and kBand = 32, 6 tiles for 16 x 32 needed entries: 1.5x the work, at
+//     full FP64 tensor rate, where the 8 x 8 x 4 shape runs at half rate).
+//     Tiles with no column in 0 .. Ly-1 are skipped.
+//   * Tile entry (i, j) lands in band[i][j - jlo(i)] (odd row stride BS, so
+//     the lanes' reads at one step fall on distinct banks); a lane reads
+//     band[i][(c >> lam2) - jlo(i)] for its refined cell (r, c): refinement
+//     stays index arithmetic, the band holds unrefined entries.
+//   * Roles.  The block has max(T, 32) wavefront threads (whole warps; lanes
+//     at or past T only reach the barriers) and band_warps(T) producer warps
+//     after them, which never join the per-step barrier (named barrier
+//     kSteps, the wavefront threads only).  Two bands alternate; per band n
+//     the producers wait until the wavefront has left its buffer (barrier
+//     kEmpty + n % 2), build it and arrive on kFull + n % 2, where the
+//     wavefront waits before the band's first step (a barrier per parity, so
+//     an arrival never meets the previous use of its barrier still open);
+//     kProducers orders the producers among themselves.
+//   * A producer warp takes whole row blocks: the block's tiles are
+//     independent MMA chains sharing one A fragment, issued back to back
+//     with no branch between them (two at a time: the tile count is a
+//     template parameter).
+//   * dx rows are staged once per strip (RP x S, zero past R, past Lx and in
+//     the k padding), dy rows pass through a ring (row j at slot j % NR)
+//     holding two bands' columns: band n+1's new rows are copied in with
+//     cp.async into a staging row block while band n is built, and moved
+//     into the ring by the producer that copied them.  Columns
+//     outside 0 .. Ly-1 enter the tiles as zeros and are never read by a
+//     lane.
+//   * Designs measured on the way (PERF.md §5): tiles issued between the
+//     wavefront's per-step barriers (a whole tile, or a few k steps, a warp
+//     and step) put their latency on the barrier chain; bands built by all
+//     warps between bands add the tensor time to the wavefront's; producers
+//     that branch before every MMA, or read their operands from device
+//     memory, cannot build a band in the time its steps take; 8 x 8 x 4
+//     tiles run at half the FP64 tensor rate, and 16-step bands hand over
+//     twice as often.  With few problems (one block an SM) the producers
+//     hide the band: B4 at (128, 1023, 32) runs at 1.2x the wavefront alone.
+//     With many small problems the kernel is held by its blocks an SM and
+//     the wavefront's own latency; at d = 8 it is level with the first
+//     design's per-lane float64 FMAs.
+// ---------------------------------------------------------------------------
+
+// Producer warps of a fused block at strip height T: max(T, 32) + 32 *
+// band_warps(T) threads stay within kFusedThreads for T <= kFusedMaxT.
+__host__ __device__ inline int band_warps(int T) { return T >= 256 ? 16 : (T >= 128 ? 4 : 2); }
+constexpr int kFusedMaxT = 512;
+constexpr int kFusedThreads = 1024;
+// named barriers of the fused kernels (0 is __syncthreads)
+constexpr int kSteps = 1, kFull = 2, kEmpty = 4, kProducers = 6;
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+               ::"r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// Named barriers: `n` threads (a multiple of 32) wait, or only arrive.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// D = A B + D for one 16 x 8 x 8 tile in float64; with g = lane / 4 and
+// q = lane % 4: a = A[g, q], A[g+8, q], A[g, q+4], A[g+8, q+4]; b = B[q, g],
+// B[q+4, g]; c = D[g, 2q], D[g, 2q+1], D[g+8, 2q], D[g+8, 2q+1].
+__device__ __forceinline__ void dmma_16x8x8(double (&c)[4], const double (&a)[4],
+                                            const double (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+// The highest dy row the band starting at step t0 reads.
+__device__ __forceinline__ int band_last_col(int t0, int m, int lam2, int NT) {
+  return ((t0 - 16 * m + 1) >> lam2) + 8 * NT - 1;
+}
+
+// Tiles u0 .. u0+NTC-1 of the row block whose rows start at i0, for the band
+// starting at step t0, into band (the calling warp, whole).  j0 is the
+// block's first column.
+template <int NTC>
+__device__ __forceinline__ void build_tiles(float* band, const Stage* sdx, const Stage* ring,
+                                            const BandGeometry& gm, int i0, int j0, int u0,
+                                            int t0, int R, int m, int lam2, int Ly,
+                                            int kc_n) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const int jb = j0 + 8 * u0 + g;            // this lane's B column of the first tile
+  int slot = jb % gm.NR;
+  slot += slot < 0 ? gm.NR : 0;
+  const Stage* xa = sdx + (i0 + g) * gm.S + q;  // rows g and g+8 of A
+  const Stage* yb[NTC];
+  bool ok[NTC];
+#pragma unroll
+  for (int u = 0; u < NTC; ++u) {
+    int sl = slot + 8 * u;
+    sl -= sl >= gm.NR ? gm.NR : 0;
+    ok[u] = jb + 8 * u >= 0 && jb + 8 * u < Ly;
+    yb[u] = ring + sl * gm.S + q;
+  }
+  double c[NTC][4];
+#pragma unroll
+  for (int u = 0; u < NTC; ++u) c[u][0] = c[u][1] = c[u][2] = c[u][3] = 0.0;
+  for (int kc = 0; kc < kc_n; ++kc) {
+    const int k = 8 * kc;
+    const double x[4] = {xa[k], xa[8 * gm.S + k], xa[k + 4], xa[8 * gm.S + k + 4]};
+#pragma unroll
+    for (int u = 0; u < NTC; ++u) {
+      const double y[2] = {ok[u] ? (double)yb[u][k] : 0.0, ok[u] ? (double)yb[u][k + 4] : 0.0};
+      dmma_16x8x8(c[u], x, y);
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {              // D rows g and g+8
+    const int i = i0 + g + 8 * h;
+    if (i < R) {
+      const int q0 = j0 + 8 * u0 + 2 * q - ((t0 - i * m - m + 1) >> lam2);  // D column 2q
+      float* row = band + i * gm.BS;
+#pragma unroll
+      for (int u = 0; u < NTC; ++u) {
+        const int qq = q0 + 8 * u;
+        // one rounding: the correctly rounded dot product
+        if (qq >= 0 && qq < gm.WB) row[qq] = (float)c[u][2 * h];
+        if (qq + 1 >= 0 && qq + 1 < gm.WB) row[qq + 1] = (float)c[u][2 * h + 1];
       }
+    }
+  }
+}
+
+// A producer warp's row blocks (pw, pw + n_pw, ...) of the band starting at
+// step t0; tiles whose columns all fall outside 0 .. Ly-1 are skipped.
+__device__ __forceinline__ void build_band(float* band, const Stage* sdx, const Stage* ring,
+                                           const BandGeometry& gm, int pw, int n_pw, int t0,
+                                           int R, int m, int lam2, int Ly, int kc_n) {
+  for (int i0 = 16 * pw; i0 < R; i0 += 16 * n_pw) {
+    const int j0 = (t0 - (i0 + 16) * m + 1) >> lam2;  // jlo(i0 + 15)
+    const int u_lo = j0 + 7 < 0 ? min(gm.NT, (-j0) / 8) : 0;
+    const int u_hi = j0 >= Ly ? 0 : min(gm.NT, (Ly - 1 - j0) / 8 + 1);
+    for (int u0 = u_lo; u0 < u_hi; u0 += 2) {
+      if (u_hi - u0 >= 2)  // uniform per warp
+        build_tiles<2>(band, sdx, ring, gm, i0, j0, u0, t0, R, m, lam2, Ly, kc_n);
+      else
+        build_tiles<1>(band, sdx, ring, gm, i0, j0, u0, t0, R, m, lam2, Ly, kc_n);
+    }
+  }
+}
+
+template <int MODE, bool ORDER2, bool BF16>
+__global__ void __launch_bounds__(kFusedThreads)
+goursat_fwd_fused(const float* __restrict__ a, const float* __restrict__ b,
+                  float* __restrict__ out, int n_cols, int Lx, int Ly, int d, int T,
+                  int lam1, int lam2) {
+  extern __shared__ double smem[];
+  const int r = threadIdx.x;
+  const int nc = T < 32 ? 32 : T;              // wavefront threads
+  const int np = blockDim.x - nc;              // producer threads
+  const int both = nc + np;
+  const int ny = Ly << lam2;
+  const int W = ny + T + 1;
+  const int R = T >> lam1;                     // unrefined rows per strip
+  const int m = 1 << lam1;
+  const BandGeometry gm = band_geometry(T, lam1, lam2, d);
+  Stage* sdx = reinterpret_cast<Stage*>(smem);  // the strip's dx rows
+  Stage* ring = sdx + gm.RP * gm.S;            // dy row j at slot j % NR
+  float* band = reinterpret_cast<float*>(ring + gm.NR * gm.S);  // 2 x R x BS
+  float* ynew = band + 2 * R * gm.BS;          // a band's new dy rows
+  float* brow = ynew + gm.NY * d;
+  float* brow2 = brow + W;                     // k[strip_top - 1, c] (order 2)
+  float* diag = brow + (ORDER2 ? 2 : 1) * W;   // 3 rotating anti-diagonals
+
+  const int64_t prob = blockIdx.x;
+  const int64_t ia = MODE == kFusedGram ? prob / n_cols : prob;
+  const int64_t ib = MODE == kFusedGram ? prob % n_cols : prob;
+  const float* dx = a + ia * (int64_t)Lx * d;
+  const float* dy = b + ib * (int64_t)Ly * d;
+  const int n_strips = (Lx + R - 1) / R;
+  const int steps = ny + T - 1;
+  const int all_bands = n_strips * ((steps + kBand - 1) / kBand);
+
+  if (r >= nc) {  // ---- producers: the bands ----------------------------------
+    const int pr = r - nc;
+    const int kc_n = (d + 7) / 8;              // k steps of each tile product
+    for (int i = pr; i < gm.NR * gm.S; i += np) ring[i] = Stage(0);  // k padding
+    for (int s = 0, n = 0; s < n_strips; ++s) {
+      bar_sync(kProducers, np);  // k padding / the strip before is built
+      for (int i = pr; i < gm.RP * gm.S; i += np) {
+        const int rr = i / gm.S, k = i - rr * gm.S;
+        const int gr = s * R + rr;
+        sdx[i] = rr < R && gr < Lx && k < d ? (Stage)__ldg(dx + (int64_t)gr * d + k) : Stage(0);
+      }
+      int loaded = min(band_last_col(0, m, lam2, gm.NT), Ly - 1);  // band 0's rows
+      for (int i = pr; i < (loaded + 1) * d; i += np) {
+        const int j = i / d;
+        ring[(j % gm.NR) * gm.S + i - j * d] = (Stage)__ldg(dy + i);
+      }
+      bar_sync(kProducers, np);
+      for (int t0 = 0; t0 < steps; t0 += kBand, ++n) {
+        if (n >= 2) bar_sync(kEmpty + (n & 1), both);  // the wavefront left band n-2
+        const int hi = t0 + kBand < steps
+                           ? min(band_last_col(t0 + kBand, m, lam2, gm.NT), Ly - 1) : loaded;
+        const int n_new = (hi - loaded) * d;   // band n+1's new rows, on their way in
+        for (int i = pr; i < n_new; i += np)
+          cp_async4(ynew + i, dy + (int64_t)(loaded + 1) * d + i);
+        build_band(band + (n & 1) * R * gm.BS, sdx, ring, gm, pr >> 5, np >> 5, t0, R, m,
+                   lam2, Ly, kc_n);
+        cp_async_wait_all();
+        for (int i = pr; i < n_new; i += np) {  // the rows this thread copied
+          const int j = loaded + 1 + i / d;
+          ring[(j % gm.NR) * gm.S + i % d] = (Stage)ynew[i];
+        }
+        loaded = hi;
+        __threadfence_block();
+        bar_sync(kProducers, np);  // band n written, band n+1's rows in the ring
+        bar_arrive(kFull + (n & 1), both);
+      }
+    }
+    return;
+  }
+
+  // ---- the wavefront ----------------------------------------------------------
+  for (int i = r; i < (ORDER2 ? 2 : 1) * W; i += nc) brow[i] = 1.0f;
+  bar_sync(kSteps, nc);
+  const float scale = ldexpf(1.0f, -(lam1 + lam2));  // exact power of two
+  const int m1 = m - 1;
+  const int m2 = (1 << lam2) - 1;
+  const int lrow = r >> lam1;              // this thread's unrefined row in the strip
+  const int r_out = (Lx << lam1) - 1 - (n_strips - 1) * T;
+  for (int s = 0, n = 0; s < n_strips; ++s) {
+    const bool row_ok = r < T && s * R + lrow < Lx;  // rows past Lx: zero padding
+    for (int t0 = 0; t0 < steps; t0 += kBand, ++n) {
+      bar_sync(kFull + (n & 1), both);  // band n is built
+      const float* brow_band = band + (n & 1) * R * gm.BS + lrow * gm.BS;
+      const int jlo = (t0 - lrow * m - m + 1) >> lam2;  // band column 0 of this row
+      for (int k = 0; k < kBand; ++k) {
+        const int t = t0 + k;
+        if (t >= steps) break;  // uniform across the block
+        const int c = t - r;
+        float cur = 0.0f;
+        if (r < T && c >= 0 && c < ny) {
+          const float p = row_ok ? brow_band[(c >> lam2) - jlo] : 0.0f;
+          cur = fwd_cell<ORDER2, BF16>(mul(p, scale), r, c, t, T, m1, m2, diag, brow,
+                                       brow2);
+          if (s == n_strips - 1 && r == r_out && c == ny - 1) out[prob] = cur;
+        }
+        if (T == 2) bar_sync(kSteps, nc);  // lane 1 writes brow[t], which lane 0 read
+        if (r < T) {
+          diag[(t % 3) * T + r] = cur;
+          if (r == T - 1 && t >= T - 1) brow[t - T + 2] = cur;
+          if (ORDER2 && r == T - 2 && t >= T - 2) brow2[t - T + 3] = cur;
+        }
+        bar_sync(kSteps, nc);
+      }
+      if (n + 2 < all_bands) bar_arrive(kEmpty + (n & 1), both);  // its buffer is free
     }
   }
 }
@@ -646,12 +892,23 @@ template <int MODE, bool ORDER2, bool BF16, bool CPS>
 cudaError_t launch(const float* a, const float* b, float* out, float* cps,
                    long long n_problems, int n_cols, int Lx, int Ly, int d, int T,
                    int lam1, int lam2, long long smem, cudaStream_t stream) {
-  auto kern = goursat_fwd<MODE, ORDER2, BF16, CPS>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kern<<<(unsigned)n_problems, T, (size_t)smem, stream>>>(a, b, out, cps, n_cols, Lx,
-                                                          Ly, d, lam1, lam2);
+  if constexpr (MODE == kDelta) {
+    auto kern = goursat_fwd<ORDER2, BF16, CPS>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kern<<<(unsigned)n_problems, T, (size_t)smem, stream>>>(a, out, cps, Lx, Ly, lam1,
+                                                            lam2);
+  } else {
+    auto kern = goursat_fwd_fused<MODE, ORDER2, BF16>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    // whole warps: strips of fewer than 32 rows get a wavefront warp of 32
+    const int threads = (T < 32 ? 32 : T) + 32 * band_warps(T);
+    kern<<<(unsigned)n_problems, threads, (size_t)smem, stream>>>(a, b, out, n_cols, Lx, Ly,
+                                                                 d, T, lam1, lam2);
+  }
   return cudaGetLastError();
 }
 
@@ -659,10 +916,10 @@ template <int MODE, bool CPS = false>
 int dispatch(const float* a, const float* b, float* out, float* cps, long long n_problems,
              int n_cols, int Lx, int Ly, int d, int T, int lam1, int lam2,
              int order2, int bf16, long long smem, void* stream) {
-  if (n_problems < 1 || n_problems > 0x7fffffffLL || T < 2 || T > kMaxThreads ||
-      (T & (T - 1)) || (T >> lam1) < 1 || Lx < 1 || Ly < 1 ||
-      (MODE != kDelta && d < 1) ||
-      smem < smem_bytes(MODE, order2 != 0, T, Ly << lam2, lam1, d))
+  if (n_problems < 1 || n_problems > 0x7fffffffLL || T < 2 ||
+      T > (MODE == kDelta ? kMaxThreads : kFusedMaxT) || (T & (T - 1)) ||
+      (T >> lam1) < 1 || Lx < 1 || Ly < 1 || (MODE != kDelta && d < 1) ||
+      smem < smem_bytes(MODE, order2 != 0, T, Ly << lam2, lam1, lam2, d))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
@@ -753,6 +1010,13 @@ int sigkernel_pde_bwd(const float* delta, const float* cps, const float* gbar, f
                : launch_bwd<false, false>(delta, cps, gbar, ws, dd, B, Lx, Ly, T, lam1,
                                           lam2, smem, s);
   return (int)err;
+}
+
+// Shared memory bytes a forward launch needs (mode 0: precomputed Delta, 1:
+// fused pairs, 2: fused Gram), as dispatch checks them.
+long long sigkernel_pde_smem_bytes(int mode, int order2, int T, int Ly, int lam1, int lam2,
+                                   int d) {
+  return smem_bytes(mode, order2 != 0, T, Ly << lam2, lam1, lam2, d);
 }
 
 const char* sigkernel_pde_error_string(int err) {

@@ -23,10 +23,13 @@ package:
 
 Each launcher takes CUDA float32 tensors only, allocates its outputs (and
 the backward's workspace) with ``torch.empty``, launches on the current
-stream and adds one to its ``launches`` count.  Beside each is its plain
-version (``solve_plain``, ``solve_with_grid_plain``, ``solve_fused_plain``,
+stream and adds one to its ``launches`` count (and to :func:`launch_shapes`,
+by problem shape and strip height).  Beside each is its plain version
+(``solve_plain``, ``solve_with_grid_plain``, ``solve_fused_plain``,
 ``gram_fused_plain``, ``solve_grad_plain``): vectorised anti-diagonal
-wavefronts in PyTorch, with Δ built by ``einsum`` for the fused pair.  The
+wavefronts in PyTorch, with Δ built by ``einsum`` for the fused pair.
+``fused_band_plain`` mirrors how the fused kernels build Δ: band by band,
+as 16 x 8 tiles, through the same staged rows, ring and skewed band.  The
 kernels round every operation as these elementwise ops do and take the
 fused dot product in float64, as :func:`stencil.delta_einsum` does, so on
 the card each forward kernel matches its plain version bit for bit in
@@ -39,7 +42,9 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from collections import Counter
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -52,18 +57,24 @@ _SRC = Path(__file__).resolve().parent / "csrc" / "sigkernel_pde.cu"
 SMEM_LIMIT = 232448
 #: threads per block
 MAX_THREADS = 1024
+#: strip height of the fused kernels (kFusedMaxT in the CUDA source: their
+#: blocks add producer warps to the T wavefront threads)
+FUSED_MAX_THREADS = 512
 #: threads per block of the backward kernel (kBwdMaxThreads in the CUDA
 #: source: its launch bound leaves each thread 128 registers)
 BWD_MAX_THREADS = 512
 #: wavefront steps whose Δ entries a thread gathers at once (kGroup in the
 #: CUDA source)
 GROUP = 8
+#: wavefront steps per Δ band of the fused kernels (kBand in the CUDA source)
+BAND = 32
 #: reverse steps per dΔ tile of the backward kernel (kFlush in the CUDA
 #: source)
 FLUSH = 16
 
 _lib = None
 _lib_lock = threading.Lock()
+_SHAPES: Counter = Counter()
 
 
 def library_path() -> Path:
@@ -97,23 +108,52 @@ def library() -> ctypes.CDLL:
                        lib.sigkernel_pde_gram_fused, lib.sigkernel_pde_fwd_cps,
                        lib.sigkernel_pde_bwd):
                 fn.restype = ctypes.c_int
+            lib.sigkernel_pde_smem_bytes.argtypes = [i, i, i, i, i, i, i]
+            lib.sigkernel_pde_smem_bytes.restype = ll
             lib.sigkernel_pde_error_string.argtypes = [ctypes.c_int]
             lib.sigkernel_pde_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
 
 
+class BandGeometry(NamedTuple):
+    """The fused kernels' Δ band layout (``band_geometry`` in the CUDA
+    source): RP staged dx rows (R = T >> lam1 rounded up to blocks of 16),
+    row stride S of the staged rows and the dy ring (d padded to the MMA's
+    k = 8, plus 4), NT column tiles of 8 per 16-row block, WB unrefined
+    columns a band row holds at stride BS (odd), NR ring rows (the columns
+    two consecutive bands read) and NY, the most dy rows a band adds."""
+    RP: int
+    S: int
+    NT: int
+    WB: int
+    BS: int
+    NR: int
+    NY: int
+
+
+def band_geometry(T: int, lam1: int, lam2: int, d: int) -> BandGeometry:
+    m = 1 << lam1
+    RP = -(-(T >> lam1) // 16) * 16
+    NT = ((((BAND + 16 * m - 2) >> lam2) + 2) + 7) // 8
+    WB = ((BAND + m - 2) >> lam2) + 2
+    return BandGeometry(RP=RP, S=-(-d // 8) * 8 + 4, NT=NT, WB=WB, BS=WB | 1,
+                        NR=((BAND + (RP - 16) * m) >> lam2) + 8 * NT + 1,
+                        NY=(BAND >> lam2) + 1)
+
+
 def smem_bytes(fused: bool, scheme: str, T: int, Ly: int, lam1: int, lam2: int,
                d: int = 0) -> int:
     """Shared memory one block takes: the carried boundary row(s) of length
     ny+T+1 and three anti-diagonals of T floats, and for the fused kernels
-    the strip's R = T >> lam1 rows of dx and a ring of T + GROUP rows of dy,
-    as float64 at odd stride (mirrors ``smem_bytes`` in the CUDA source,
-    which checks it)."""
+    the strip's staged dx rows, the dy ring, two bands and a band's new dy
+    rows, all float32 (:class:`BandGeometry`; mirrors ``smem_bytes`` in the
+    CUDA source, which checks it)."""
     rows = 2 if scheme == "order2" else 1
     n = 4 * (rows * ((Ly << lam2) + T + 1) + 3 * T)
     if fused:
-        n += 8 * ((T >> lam1) + T + GROUP) * (d | 1)
+        g = band_geometry(T, lam1, lam2, d)
+        n += 4 * ((g.RP + g.NR) * g.S + 2 * (T >> lam1) * g.BS + g.NY * d)
     return n
 
 
@@ -186,7 +226,7 @@ def _smem_checked(fused, scheme, T, Ly, lam1, lam2, d=0, backward=False) -> int:
         check_strip(T, lam1, scheme, BWD_MAX_THREADS)
         smem = smem_bytes_bwd(scheme, T, Ly, lam1, lam2)
     else:
-        check_strip(T, lam1, scheme)
+        check_strip(T, lam1, scheme, FUSED_MAX_THREADS if fused else MAX_THREADS)
         smem = smem_bytes(fused, scheme, T, Ly, lam1, lam2, d)
     if smem > SMEM_LIMIT:
         raise ValueError(
@@ -210,6 +250,7 @@ def fwd(delta: torch.Tensor, T: int, lam1: int, lam2: int, scheme: str,
             Lx, Ly, T, lam1, lam2, scheme == "order2",
             interior_dtype == "bfloat16", smem)
     fwd.launches += 1
+    _SHAPES[("fwd", B, Lx, Ly, 0, T)] += 1
     return out
 
 
@@ -232,6 +273,7 @@ def fwd_fused(dx: torch.Tensor, dy: torch.Tensor, T: int, lam1: int, lam2: int,
             out.data_ptr(), B, Lx, Ly, d, T, lam1, lam2, scheme == "order2",
             interior_dtype == "bfloat16", smem)
     fwd_fused.launches += 1
+    _SHAPES[("fwd_fused", B, Lx, Ly, d, T)] += 1
     return out
 
 
@@ -254,6 +296,7 @@ def gram_fused(dX: torch.Tensor, dY: torch.Tensor, T: int, lam1: int, lam2: int,
             out.data_ptr(), Bx, By, Lx, Ly, d, T, lam1, lam2, scheme == "order2",
             interior_dtype == "bfloat16", smem)
     gram_fused.launches += 1
+    _SHAPES[("gram_fused", (Bx, By), Lx, Ly, d, T)] += 1
     return out
 
 
@@ -277,6 +320,7 @@ def fwd_cps(delta: torch.Tensor, T: int, lam1: int, lam2: int, scheme: str,
             cps.data_ptr(), B, Lx, Ly, T, lam1, lam2, scheme == "order2",
             interior_dtype == "bfloat16", smem)
     fwd_cps.launches += 1
+    _SHAPES[("fwd_cps", B, Lx, Ly, 0, T)] += 1
     return out, cps
 
 
@@ -308,6 +352,7 @@ def bwd(delta: torch.Tensor, cps: torch.Tensor, gbar: torch.Tensor, T: int, lam1
             gbar.data_ptr(), ws.data_ptr(), out.data_ptr(), B, Lx, Ly, T, lam1, lam2,
             scheme == "order2", interior_dtype == "bfloat16", smem)
     bwd.launches += 1
+    _SHAPES[("bwd", B, Lx, Ly, 0, T)] += 1
     return out
 
 
@@ -315,14 +360,22 @@ LAUNCHERS = (fwd, fwd_cps, fwd_fused, gram_fused, bwd)
 
 
 def reset_launch_counts() -> None:
-    """Set every launcher's ``launches`` count to 0."""
+    """Set every launcher's ``launches`` count, and the shape log, to 0."""
     for fn in LAUNCHERS:
         fn.launches = 0
+    _SHAPES.clear()
 
 
 def launch_counts() -> dict:
     """``{launcher name: launches}`` since the last reset."""
     return {fn.__name__: fn.launches for fn in LAUNCHERS}
+
+
+def launch_shapes() -> dict:
+    """``{(launcher name, problems, Lx, Ly, d, T): launches}`` since the last
+    reset (problems is (Bx, By) for ``gram_fused``; d = 0 for the kernels
+    that read a precomputed Δ)."""
+    return dict(_SHAPES)
 
 
 reset_launch_counts()
@@ -353,6 +406,86 @@ def gram_fused_plain(dX: torch.Tensor, dY: torch.Tensor, lam1: int, lam2: int,
     wavefront."""
     return solve_plain(stencil.delta_einsum("aid,bjd->abij", dX, dY), lam1, lam2, scheme,
                        interior_dtype)
+
+
+def fused_band_plain(dx: torch.Tensor, dy: torch.Tensor, T: int, lam1: int,
+                     lam2: int) -> torch.Tensor:
+    """How the fused kernels build Δ, in plain PyTorch: for pairs dx (B, Lx,
+    d), dy (B, Ly, d) at strip height T, the refined Δ entry every lane
+    uses at every step (the band's unrefined entry times 2^−(λ1+λ2)), as
+    (B, n_strips·T, ny) in the layout of :func:`_refined_strips` (rows past
+    nx zero).
+
+    Strip by strip, as the kernel does it (:class:`BandGeometry`): the
+    strip's dx rows are staged (zero past R, past Lx and in the k padding);
+    dy rows enter a ring (row j at slot j % NR) one band ahead, before the
+    band built beside them reads the ring; each band of ``BAND`` steps is
+    assembled from 16 x 8 tiles (rows i0..i0+15, columns from jlo(i0+15);
+    tiles with no column in 0..Ly−1 skipped), each a float64 product over
+    the padded k, rounded once to dx's dtype and written skewed to
+    band[i][j − jlo(i)]; lane r reads its cell (r, c) at
+    band[r >> lam1][(c >> lam2) − jlo(r >> lam1)].  Band entries no tile
+    wrote and ring rows not yet loaded are NaN, so a read the kernel could
+    not serve shows in the result.
+    """
+    B, Lx, d = dx.shape
+    Ly = dy.shape[1]
+    g = band_geometry(T, lam1, lam2, d)
+    m, R, ny = 1 << lam1, T >> lam1, Ly << lam2
+    steps = ny + T - 1
+    dev, f64, nan = dx.device, torch.float64, float("nan")
+    lanes = torch.arange(T, device=dev)
+    lrow = lanes >> lam1
+    g8, g16 = torch.arange(8, device=dev), torch.arange(16, device=dev)
+    i0 = 16 * torch.arange(g.RP // 16, device=dev)              # row blocks
+    rr = torch.arange(g.RP, device=dev)
+    out = dx.new_zeros(B, n_strips(Lx, T, lam1) * T, ny)
+
+    def last_col(t0):  # the highest dy row the band at step t0 reads
+        return ((t0 - 16 * m + 1) >> lam2) + 8 * g.NT - 1
+
+    for s in range(n_strips(Lx, T, lam1)):
+        live = (rr < R) & (s * R + rr < Lx)
+        sdx = torch.zeros(B, g.RP, g.S, dtype=f64, device=dev)
+        sdx[:, live, :d] = dx[:, s * R + rr[live]].to(f64)
+        ring = torch.full((B, g.NR, g.S), nan, dtype=f64, device=dev)
+        ring[:, :, d:] = 0.0
+        loaded = -1
+
+        def fill(hi):
+            nonlocal loaded
+            hi = min(hi, Ly - 1)
+            if hi > loaded:
+                j = torch.arange(loaded + 1, hi + 1, device=dev)
+                ring[:, j % g.NR, :d] = dy[:, j].to(f64)
+                loaded = hi
+
+        def build(t0):
+            j0 = ((t0 - (i0 + 16) * m + 1) >> lam2)[:, None] + 8 * torch.arange(g.NT)
+            cols = j0[..., None] + g8                               # (NB, NT, 8)
+            ok = ((cols >= 0) & (cols < Ly))[..., None]
+            Y = torch.where(ok, ring[:, cols % g.NR], 0.0)          # (B, NB, NT, 8, S)
+            tiles = torch.einsum("bnik,bnujk->bnuij", sdx.reshape(B, -1, 16, g.S), Y)
+            i = (i0[:, None] + g16)[:, None, :, None]               # (NB, 1, 16, 1)
+            q = cols[:, :, None, :] - ((t0 - i * m - m + 1) >> lam2)
+            # tiles with no column in 0 .. Ly-1 are skipped
+            tile_live = ((j0 + 7 >= 0) & (j0 < Ly))[:, :, None, None]
+            keep = (i < R) & (q >= 0) & (q < g.WB) & tile_live
+            band = torch.full((B, R, g.WB), nan, dtype=dx.dtype, device=dev)
+            band[:, i.expand_as(q)[keep], q[keep]] = tiles[:, keep].to(dx.dtype)
+            return band
+
+        fill(last_col(0))
+        for t0 in range(0, steps, BAND):
+            if t0 + BAND < steps:
+                fill(last_col(t0 + BAND))
+            band = build(t0)
+            jlo = (t0 - lrow * m - m + 1) >> lam2
+            for t in range(t0, min(t0 + BAND, steps)):
+                c = t - lanes
+                on = (c >= 0) & (c < ny)
+                out[:, s * T + lanes[on], c[on]] = band[:, lrow[on], (c[on] >> lam2) - jlo[on]]
+    return out * 2.0 ** -(lam1 + lam2)
 
 
 def _refined_strips(delta: torch.Tensor, T: int, lam1: int, lam2: int) -> torch.Tensor:

@@ -38,10 +38,14 @@ from . import kernel, stencil
 #: noise of each other and well ahead of 256); one with more than
 #: _MANY_PROBLEMS blocks fills the card several times over, and short
 #: strips keep the wavefront's lanes busy (64 beat 128 by ~12% at 128 x 128
-#: pairs of 255 x 255, and tied with 32).
+#: pairs of 255 x 255, and tied with 32).  The fused kernels, whose blocks
+#: add producer warps to the wavefront, take 128 there: at every many-problem
+#: launch of the main paths (2,048 to 16,384 pairs of 255 x 255, d = 8) 128
+#: beat 64 by 14-16% and 256 by 45-50% (chip_smoke strip sweep, H100 SXM).
 _FEW_PROBLEMS_T = 512
 _MANY_PROBLEMS = 4 * 132
 _MANY_PROBLEMS_T = 64
+_MANY_PROBLEMS_FUSED_T = 128
 
 
 def _pow2_ceil(n: int) -> int:
@@ -55,18 +59,21 @@ def choose_T(Lx: int, Ly: int, lam1: int, lam2: int, n_problems: int, *,
 
     The largest power of two that is at most ``max_t`` (a
     ``LaunchConfig.pde_strip`` cap; default 512 threads, or 64 when the
-    launch has more than ``_MANY_PROBLEMS`` blocks), at most the refined
+    launch has more than ``_MANY_PROBLEMS`` blocks, 128 for the fused
+    kernels), at most the refined
     row count rounded up, at least ``max(2, 2**lam1)``, and whose shared
-    memory fits one block.  ``backward=True`` picks the one T that both the
-    checkpoint forward and the backward kernel take (at most
+    memory fits one block (fused launches, ``d > 0``: at most
+    ``kernel.FUSED_MAX_THREADS``).  ``backward=True`` picks the one T that
+    both the checkpoint forward and the backward kernel take (at most
     ``kernel.BWD_MAX_THREADS``, and the backward's shared memory fits too).
     Raises ValueError when even the smallest strip does not fit.
     """
     fused = d > 0
     t_min = max(2, 1 << lam1)
-    max_threads = kernel.BWD_MAX_THREADS if backward else kernel.MAX_THREADS
-    cap = max_t or (_MANY_PROBLEMS_T if n_problems > _MANY_PROBLEMS
-                    else _FEW_PROBLEMS_T)
+    max_threads = (kernel.BWD_MAX_THREADS if backward else
+                   kernel.FUSED_MAX_THREADS if fused else kernel.MAX_THREADS)
+    many_t = _MANY_PROBLEMS_FUSED_T if fused else _MANY_PROBLEMS_T
+    cap = max_t or (many_t if n_problems > _MANY_PROBLEMS else _FEW_PROBLEMS_T)
 
     def need(T):
         n = kernel.smem_bytes(fused, scheme, T, Ly, lam1, lam2, d)

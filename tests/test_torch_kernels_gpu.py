@@ -159,6 +159,68 @@ def test_two_row_strips(cuda):
         _close(got, kernel.solve_plain(delta, 0, 1, scheme, "float32"), TOL["float32"])
 
 
+FUSED_COMBOS = [("order1", "float32", (0, 0)), ("order2", "bfloat16", (1, 1)),
+                ("order1", "float32", (2, 0))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strip", [2, 4, 16])
+@pytest.mark.parametrize("d", [1, 8, 32, 33])
+@pytest.mark.parametrize("scheme, idt, lam", FUSED_COMBOS,
+                         ids=[f"{s}-{i}-lam{l1}{l2}" for s, i, (l1, l2) in FUSED_COMBOS])
+@pytest.mark.parametrize("which", ["fwd_fused", "gram_fused"])
+def test_fused_band_widths_and_short_strips(cuda, which, scheme, idt, lam, d, strip):
+    """The fused kernels' Δ band: tile products over every k padding (d = 1,
+    8, 32, 33 pad to 4, 8, 32, 36) and strips of fewer than 32 rows, where the
+    lanes at or past T only build tiles (lam1 = 2 raises strip 2 to 4)."""
+    dx, dy = _incs(20 + d, 3, 45, d, cuda), _incs(40 + d, 3, 30, d, cuda)
+    launch = LaunchConfig(pde_strip=strip)
+    if which == "fwd_fused":
+        got = ops.solve_fused(dx, dy, *lam, launch, scheme, idt)
+        want = kernel.solve_fused_plain(dx, dy, *lam, scheme, idt)
+    else:
+        got = ops.gram_fused(dx, dy, *lam, launch, scheme, idt)
+        want = kernel.gram_fused_plain(dx, dy, *lam, scheme, idt)
+    _close(got, want, TOL[idt])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["fwd_fused", "gram_fused"])
+def test_fused_kernels_mid_size(cuda, which, record_property):
+    """B4 on (8, 300, 32) x (8, 280, 32) pairs and B3 as a 16 x 16 Gram of
+    (200, 8) increments, at the wrappers' strip height; the largest absolute
+    difference from the plain version is reported."""
+    if which == "fwd_fused":
+        dx, dy = _incs(60, 8, 300, 32, cuda), _incs(61, 8, 280, 32, cuda)
+        got = ops.solve_fused(dx, dy)
+        want = kernel.solve_fused_plain(dx, dy, 0, 0, "order1", "float32")
+    else:
+        dx, dy = _incs(62, 16, 200, 8, cuda), _incs(63, 16, 200, 8, cuda)
+        got = ops.gram_fused(dx, dy)
+        want = kernel.gram_fused_plain(dx, dy, 0, 0, "order1", "float32")
+    torch.cuda.synchronize()
+    max_abs = float((got - want).abs().max())
+    record_property("max_abs_err", max_abs)
+    print(f"{which}: max abs err {max_abs:.3g}")
+    _close(got, want, TOL["float32"])
+
+
+@pytest.mark.gpu
+def test_smem_bytes_mirrors_the_cuda_layout(cuda):
+    """kernel.smem_bytes (which choose_T reads) equals the CUDA source's
+    smem_bytes, which the launch checks, for every forward mode."""
+    lib = kernel.library()
+    for T in (2, 4, 16, 32, 64, 256, 512):
+        for lam1, lam2 in ((0, 0), (1, 2), (2, 0), (0, 3)):
+            if T >> lam1 < 1:
+                continue
+            for scheme in ("order1", "order2"):
+                for mode, d in ((0, 0), (1, 1), (1, 8), (1, 33), (2, 32)):
+                    want = lib.sigkernel_pde_smem_bytes(mode, scheme == "order2", T, 255,
+                                                        lam1, lam2, d)
+                    assert kernel.smem_bytes(mode > 0, scheme, T, 255, lam1, lam2, d) == want
+
+
 @pytest.mark.gpu
 def test_launcher_checks_its_inputs(cuda):
     delta = torch.zeros(2, 5, 5, device=cuda)

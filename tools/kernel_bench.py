@@ -3,11 +3,12 @@
 
     python3 tools/kernel_bench.py ablate  --old DIR [--set original|redesign] [--out FILE]
     python3 tools/kernel_bench.py ablate-horner --old DIR [--out FILE]
+    python3 tools/kernel_bench.py ablate-fused --old DIR [--out FILE]
     python3 tools/kernel_bench.py compare --old DIR [--out FILE]
 
-``DIR`` holds a version of the kernel sources (``sigkernel_pde.cu`` and
-``signature.cu``, e.g. ``git show <commit>:<path>`` of each, copied into a
-git-ignored directory such as ``build/old``).  Each command needs one CUDA
+``DIR`` holds a version of the kernel sources (``sigkernel_pde.cu`` and,
+for ``ablate-horner``, ``signature.cu``, e.g. ``git show <commit>:<path>``
+of each, copied into a git-ignored directory such as ``build/old``).  Each command needs one CUDA
 card and nvcc; it prints one JSON object per measurement and writes them
 all to ``--out`` (default ``build/kernel_bench/<command>.json``).
 
@@ -27,11 +28,19 @@ per-step rows, its top level, their Horner chains or their entries
 skipped) at the paper's Table 1 shapes, and sweeps its prefix length and
 row chunk width around the wrapper's choice.
 
-``compare`` times the Goursat backward and the Horner kernel of ``DIR``
-(the first port's, whose C interfaces it calls; built under another
-library name) against the repo's kernels at the main paths' shapes, in
-turns (old, new, new, old), and checks that old and new agree: the Horner
-kernels bit for bit, the backwards within 1e-4.
+``ablate-fused`` times variants of the fused kernels of ``DIR`` (``--old
+src/repro_torch/kernels/sigkernel_pde/csrc``) at the main paths' shapes:
+the band built without the tensor cores (each lane's float64 FMAs), no band
+built at all (the wavefront and the band hand-over alone, wrong values),
+dx and dy staged as float64, other producer warp counts, 80 registers a
+thread, and a 16-step band.
+
+``compare`` times the Goursat kernels of ``DIR`` (the parent's
+``sigkernel_pde.cu``, whose C interfaces it calls; built under another
+library name) against the repo's, in turns (old, new, new, old): the fused
+kernels B4 and B3 at every main-path shape they launch at
+(``FUSED_SHAPES``), and B1, B1-cps and B2 at Δ (128, 1023, 1023), and
+checks that old and new agree within 1e-4 (relative to the largest value).
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ import ctypes
 import json
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -362,9 +372,272 @@ def ablate_horner(src_dir: Path, out: Path):
     out.write_text(json.dumps(rows, indent=1))
 
 
+# the fused kernels' Δ band (FUSED_SHAPES): tensor cores, staging, band length
+def _no_mma(src):
+    """The same band and data flow, each 16 x 8 x 8 product by the lanes'
+    own float64 FMAs (operands gathered by warp shuffles) instead of the
+    tensor cores."""
+    mma = ('  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "\n'
+           '      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"\n'
+           '      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])\n'
+           '      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));')
+    return _patch(src, mma, """  const int l = threadIdx.x & 31;  // ablation: no tensor cores
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {  // A[r, k] sits in lane 4 (r % 8) + k % 4, a[(r / 8) + 2 (k / 4)]
+    const int src = (l & ~3) + (k & 3), hi = 2 * (k >> 2);
+    const double a0 = __shfl_sync(0xffffffffu, a[hi], src);
+    const double a1 = __shfl_sync(0xffffffffu, a[hi + 1], src);
+    const double b0 = __shfl_sync(0xffffffffu, b[k >> 2], 8 * (l & 3) + (k & 3));
+    const double b1 = __shfl_sync(0xffffffffu, b[k >> 2], 8 * (l & 3) + 4 + (k & 3));
+    c[0] = fma(a0, b0, c[0]);
+    c[1] = fma(a0, b1, c[1]);
+    c[2] = fma(a1, b0, c[2]);
+    c[3] = fma(a1, b1, c[3]);
+  }""")
+
+
+def _no_band(src):
+    """Producers build nothing: the wavefront and the band hand-over alone
+    (wrong values; timing only)."""
+    return _patch(src, "        build_band(band + (n & 1) * R * gm.BS,",
+                  "        if (Lx < 0) build_band(band + (n & 1) * R * gm.BS,")
+
+
+def _double_staging(src):
+    """dx rows and the dy ring staged as float64: no conversion at the tile
+    operand loads, twice the shared memory."""
+    return _patch(src, "using Stage = float;", "using Stage = double;")
+
+
+def _warps(expr):
+    return lambda src: _patch(src, "{ return T >= 256 ? 16 : (T >= 128 ? 4 : 2); }",
+                              "{ return %s; }" % expr)
+
+
+def _registers_80(src):
+    """A launch bound of 768 threads: up to 80 registers a thread."""
+    return _patch(src, "constexpr int kFusedThreads = 1024;",
+                  "constexpr int kFusedThreads = 768;")
+
+
+def _band(n):
+    return lambda src: _patch(src, "constexpr int kBand = 32;", "constexpr int kBand = %d;" % n)
+
+
+FUSED_VARIANTS = {"as_is": (), "no_mma": (_no_mma,), "no_band": (_no_band,),
+                  "double_staging": (_double_staging,),
+                  "warps_half": (_warps("T >= 256 ? 8 : (T >= 128 ? 2 : 1)"),),
+                  "warps_more": (_warps("T >= 256 ? 16 : (T >= 128 ? 8 : 4)"),),
+                  "regs_80": (_registers_80,), "band_16": (_band(16),)}
+
+
+def ablate_fused(src_dir: Path, out: Path):
+    """Variants of the fused kernels of ``DIR`` at FUSED_SHAPES, at the
+    wrappers' strip height, in turns; each variant's shared memory is its own
+    library's ``sigkernel_pde_smem_bytes``."""
+    import torch
+    from repro_torch.kernels.sigkernel_pde import ops
+    rows = []
+    card = _card()
+    print(f"card: {card}", flush=True)
+    base = (src_dir / "sigkernel_pde.cu").read_text()
+    jobs = {}
+    for name, patches in FUSED_VARIANTS.items():
+        src = base
+        for f in patches:
+            src = f(src)
+        d = WORK / "ablate_fused" / name
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "sigkernel_pde.cu").write_text(src)
+        jobs[name] = (d / "sigkernel_pde.cu", d / f"libsigkernel_pde_{name}.so")
+    reports = _nvcc_all(jobs)
+    for name in jobs:
+        _emit(rows, {"ptxas": name, "report": [ln for ln in reports[name]
+                                               if "fused" in ln or "registers" in ln
+                                               or "spill" in ln]})
+    libs = {}
+    for name in jobs:
+        lib = _fused_lib(jobs[name][1])
+        lib.sigkernel_pde_smem_bytes.argtypes = [ctypes.c_int] * 7
+        lib.sigkernel_pde_smem_bytes.restype = ctypes.c_longlong
+        libs[name] = lib
+    rng = np.random.default_rng(3)
+    for which, B, Lpx, Lpy, d in FUSED_SHAPES:
+        dx, dy = _fused_inputs(rng, which, B, Lpx, Lpy, d)
+        n = B[0] * B[1] if which == "gram_fused" else B
+        Lx, Ly = dx.shape[1], dy.shape[1]
+        T = ops.choose_T(Lx, Ly, 0, 0, n, d=d)
+        mode = 2 if which == "gram_fused" else 1
+        runs = {name: _fused_call(lib, which, dx, dy, T,
+                                  lib.sigkernel_pde_smem_bytes(mode, 0, T, Ly, 0, 0, d))
+                for name, lib in libs.items()
+                if lib.sigkernel_pde_smem_bytes(mode, 0, T, Ly, 0, 0, d) <= 232448}
+        ref = runs["as_is"]().clone()
+        errs = {}
+        for name, run in runs.items():
+            got = run()
+            torch.cuda.synchronize()
+            errs[name] = float((got - ref).abs().max() / ref.abs().max())
+        times = {name: [] for name in runs}
+        for turn in range(4):
+            for name in (list(runs) if turn % 2 == 0 else list(reversed(runs))):
+                times[name] += _time_ms(runs[name], 3)
+        _emit(rows, {"fused_ablation": which, "shape": [B, Lx, Ly, d], "T": T,
+                     "ms_median": {k: float(np.median(v)) for k, v in times.items()},
+                     "rel_vs_as_is": errs, "card": card})
+        del dx, dy
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(rows, indent=1))
+
+
+#: the fused kernels' launch shapes on the main paths: (kernel, problems or
+#: (Bx, By), Lx + 1 points, Ly + 1 points, d) -- sigkernel(x, y, backend=
+#: "gpu_fused") on (128, 1024, 32) paths, one 4,096-pair chunk of the
+#: symmetric Gram on (128, 256, 8), the dense Gram on (128, 256, 8) and the
+#: trainer's (64 x 64) Gram on (64, 256, 8)
+FUSED_SHAPES = (("fwd_fused", 128, 1024, 1024, 32), ("fwd_fused", 4096, 256, 256, 8),
+                ("gram_fused", (128, 128), 256, 256, 8), ("gram_fused", (64, 64), 256, 256, 8))
+
+
+def _old_fused_smem(T, ny, d):
+    """smem_bytes of the parent's fused kernels (order 1, lam = 0): dx rows
+    and a dy ring of T + 8 rows as float64 at odd stride."""
+    return 4 * ((ny + T + 1) + 3 * T) + 8 * (T + T + 8) * (d | 1)
+
+
+def _fused_inputs(rng, which, B, Lpx, Lpy, d):
+    import torch
+    from chip_smoke import random_paths
+    Bx, By = B if which == "gram_fused" else (B, B)
+    dx = torch.from_numpy(np.diff(random_paths(rng, Bx, Lpx, d), axis=1)).cuda().contiguous()
+    dy = torch.from_numpy(np.diff(random_paths(rng, By, Lpy, d), axis=1)).cuda().contiguous()
+    return dx, dy
+
+
+def _fused_call(lib, which, dx, dy, T, smem):
+    """A closure that launches ``lib``'s fused kernel on dx, dy (order 1,
+    float32 interiors, lam = 0) and returns its output."""
+    import torch
+    stream = torch.cuda.current_stream().cuda_stream
+    Bx, Lx, d = dx.shape
+    By, Ly = dy.shape[:2]
+    gram = which == "gram_fused"
+    out = torch.empty((Bx, By) if gram else (Bx,), device=dx.device)
+
+    def run():
+        if gram:
+            e = lib.sigkernel_pde_gram_fused(dx.data_ptr(), dy.data_ptr(), out.data_ptr(), Bx,
+                                             By, Lx, Ly, d, T, 0, 0, 0, 0, smem, stream)
+        else:
+            e = lib.sigkernel_pde_fwd_fused(dx.data_ptr(), dy.data_ptr(), out.data_ptr(), Bx,
+                                            Lx, Ly, d, T, 0, 0, 0, 0, smem, stream)
+        assert e == 0, e
+        return out
+    return run
+
+
+def _fused_lib(lib_path):
+    lib = _goursat(lib_path)
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.sigkernel_pde_fwd_fused.argtypes = [p, p, p, ll, i, i, i, i, i, i, i, i, ll, p]
+    lib.sigkernel_pde_gram_fused.argtypes = [p, p, p, ll, ll, i, i, i, i, i, i, i, i, ll, p]
+    lib.sigkernel_pde_fwd.argtypes = [p, p, ll, i, i, i, i, i, i, i, ll, p]
+    for fn in (lib.sigkernel_pde_fwd_fused, lib.sigkernel_pde_gram_fused, lib.sigkernel_pde_fwd):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _turns(rows, card, what, old_run, new_run, reps=5, **info):
+    """Time old and new in turns (old, new, new, old), check they agree
+    (relative to the largest old value, 1e-4) and emit one row."""
+    import torch
+    want, got = old_run().clone(), new_run().clone()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max() / want.abs().max())
+    times = {"old": [], "new": []}
+    for who in ("old", "new", "new", "old"):
+        times[who] += _time_ms(old_run if who == "old" else new_run, reps)
+    _emit(rows, {"kernel": what, **info, "old_ms": float(np.median(times["old"])),
+                 "new_ms": float(np.median(times["new"])), "old_all": times["old"],
+                 "new_all": times["new"], "new_vs_old_rel": err,
+                 "new_equals_old": bool(torch.equal(got, want)), "card": card})
+    if not err <= 1e-4:
+        raise SystemExit(f"{what} {info}: new and old disagree by {err:.3g}")
+
+
+def compare(old: Path, out: Path):
+    """Old (DIR's sigkernel_pde.cu, the parent's) against new (the repo's),
+    in turns (old, new, new, old): the fused kernels B4 and B3 at the main
+    paths' shapes (FUSED_SHAPES) at the wrappers' strip height, and the
+    kernels that read a precomputed Δ (B1, B1-cps, B2) at Δ (128, 1023,
+    1023), T = 512, which should not move."""
+    import torch
+    from repro_torch.kernels.sigkernel_pde import kernel, ops
+    rows = []
+    card = _card()
+    print(f"card: {card}", flush=True)
+    d_old = WORK / "old"
+    d_old.mkdir(parents=True, exist_ok=True)
+    jobs = {"goursat": (old / "sigkernel_pde.cu", d_old / "libsigkernel_pde_old.so")}
+    news = threading.Thread(target=kernel.build)
+    news.start()
+    reports = _nvcc_all(jobs)
+    news.join()
+    _emit(rows, {"ptxas_old": reports["goursat"]})
+    _emit(rows, {"ptxas_new": [
+        ln.strip() for ln in (kernel.build().parent / "nvcc.log").read_text().splitlines()
+        if "registers" in ln or "spill" in ln or "Compiling entry" in ln]})
+    lib_old = _fused_lib(jobs["goursat"][1])
+    lib_new = kernel.library()
+
+    rng = np.random.default_rng(3)
+    for which, B, Lpx, Lpy, d in FUSED_SHAPES:
+        dx, dy = _fused_inputs(rng, which, B, Lpx, Lpy, d)
+        n = B[0] * B[1] if which == "gram_fused" else B
+        Lx, Ly = dx.shape[1], dy.shape[1]
+        T = ops.choose_T(Lx, Ly, 0, 0, n, d=d)
+        # the parent's choose_T: cap 64 above 4 x 132 problems, else 512, at
+        # most the rows rounded up, halved until its float64 staging fits
+        T_old = min(64 if n > 4 * 132 else 512, 1 << (Lx - 1).bit_length())
+        while _old_fused_smem(T_old, Ly, d) > kernel.SMEM_LIMIT:
+            T_old //= 2
+        old_run = _fused_call(lib_old, which, dx, dy, T_old, _old_fused_smem(T_old, Ly, d))
+        new_run = _fused_call(lib_new, which, dx, dy, T,
+                              kernel.smem_bytes(True, "order1", T, Ly, 0, 0, d))
+        _turns(rows, card, which, old_run, new_run, shape=[B, Lx, Ly, d], T_old=T_old, T=T)
+        del dx, dy
+
+    delta, gbar = _b2_inputs()
+    B, Lx, Ly = delta.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    smem_f = kernel.smem_bytes(False, "order1", B2_T, Ly, 0, 0)
+
+    def delta_call(lib, with_cps):
+        res = torch.empty(B, device=delta.device)
+        cps = torch.empty(B, -(-Lx // B2_T), Ly + B2_T + 1, device=delta.device)
+
+        def run():
+            if with_cps:
+                e = lib.sigkernel_pde_fwd_cps(delta.data_ptr(), res.data_ptr(), cps.data_ptr(),
+                                              B, Lx, Ly, B2_T, 0, 0, 0, 0, smem_f, stream)
+            else:
+                e = lib.sigkernel_pde_fwd(delta.data_ptr(), res.data_ptr(), B, Lx, Ly, B2_T,
+                                          0, 0, 0, 0, smem_f, stream)
+            assert e == 0, e
+            return cps if with_cps else res
+        return run
+    for what, with_cps in (("fwd", False), ("fwd_cps", True)):
+        _turns(rows, card, what, delta_call(lib_old, with_cps), delta_call(lib_new, with_cps),
+               shape=[B, Lx, Ly], T=B2_T)
+    _turns(rows, card, "bwd", _bwd_call(lib_old, delta, gbar, B2_T, False),
+           _bwd_call(lib_new, delta, gbar, B2_T, False), shape=[B, Lx, Ly], T=B2_T)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(rows, indent=1))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("command", choices=("ablate", "ablate-horner", "compare"))
+    ap.add_argument("command", choices=("ablate", "ablate-horner", "ablate-fused", "compare"))
     ap.add_argument("--old", type=Path, required=True)
     ap.add_argument("--set", choices=tuple(VARIANTS), default="original",
                     help="ablate: which source's variants (DIR must hold that source)")
@@ -380,118 +653,11 @@ def main() -> int:
         ablate(a.old, out, a.set)
     elif a.command == "ablate-horner":
         ablate_horner(a.old, out)
+    elif a.command == "ablate-fused":
+        ablate_fused(a.old, out)
     else:
         compare(a.old, out)
     return 0
-
-
-def _old_horner(lib_path):
-    lib = ctypes.CDLL(str(lib_path))
-    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.signature_horner.argtypes = [p, p, ll, i, i, i, i, i, ll, p]
-    lib.signature_horner.restype = ctypes.c_int
-    return lib
-
-
-def _old_horner_geometry(n, d, N):
-    """The old wrapper's length block and threads (its choose_lb and
-    choose_threads with their defaults): (S, threads, smem bytes)."""
-    def smem(S):
-        m = sum(d ** k for k in range(1, N)) + S * d + (N - 1) * d
-        m += 2 * d ** (N - 2) if N >= 4 else 0
-        m += S * d ** (N - 1) if N >= 2 else 0
-        return 4 * m
-    S = max(1, min(64, n))
-    while S > 1 and smem(S) > 232448 - 8 * 17:
-        S -= 1
-    threads = max(32, min(1024, 1 << max(0, d ** (N - 1) - 1).bit_length()))
-    return S, threads, smem(S)
-
-
-def compare(old: Path, out: Path):
-    """Old against new, in turns (old, new, new, old), at the main paths'
-    shapes: B2 at Δ (128, 1023, 1023), B5 at the three SIG_SHAPES."""
-    import threading
-    import torch
-    from repro_torch.core import transforms as tf
-    from repro_torch.kernels.sigkernel_pde import kernel, ops
-    from repro_torch.kernels.signature import kernel as sig_kernel
-    from repro_torch.kernels.signature import ops as sig_ops
-    from chip_smoke import random_paths
-    rows = []
-    card = _card()
-    print(f"card: {card}", flush=True)
-    d_old = WORK / "old"
-    d_old.mkdir(parents=True, exist_ok=True)
-    jobs = {"goursat": (old / "sigkernel_pde.cu", d_old / "libsigkernel_pde_old.so"),
-            "horner": (old / "signature.cu", d_old / "libsignature_old.so")}
-    built = {}
-    news = [threading.Thread(target=lambda m=m: built.setdefault(m, m.build()))
-            for m in (kernel, sig_kernel)]
-    for th in news:
-        th.start()
-    _nvcc_all(jobs)
-    for th in news:
-        th.join()
-    for m, lib in built.items():
-        _emit(rows, {"ptxas_new": lib.name, "report": [
-            ln.strip() for ln in (lib.parent / "nvcc.log").read_text().splitlines()
-            if "registers" in ln or "spill" in ln or "Compiling entry" in ln]})
-
-    # ---- B2 ----------------------------------------------------------------
-    delta, gbar = _b2_inputs()
-    old_run = _bwd_call(_goursat(jobs["goursat"][1]), delta, gbar, B2_T, True)
-    cps = kernel.fwd_cps(delta, B2_T, 0, 0, "order1", "float32")[1]
-    new_run = lambda: kernel.bwd(delta, cps, gbar, B2_T, 0, 0, "order1", "float32")
-    want, got = old_run().clone(), new_run()
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max() / want.abs().max())
-    times = {"old": [], "new": []}
-    for who in ("old", "new", "new", "old"):
-        times[who] += _time_ms(old_run if who == "old" else new_run, 5)
-    _emit(rows, {"kernel": "bwd", "shape": list(delta.shape), "T": B2_T,
-                 "old_ms": float(np.median(times["old"])),
-                 "new_ms": float(np.median(times["new"])), "old_all": times["old"],
-                 "new_all": times["new"], "new_vs_old_rel": err, "card": card})
-    if err > 1e-4:
-        raise SystemExit(f"bwd: new and old disagree by {err:.3g}")
-    del delta, cps, got, want
-    torch.cuda.empty_cache()
-
-    # ---- B5 ----------------------------------------------------------------
-    lib = _old_horner(jobs["horner"][1])
-    rng = np.random.default_rng(1)
-    identity = __import__("repro_torch").TransformPipeline()
-    for B, L, d, N in SIG_SHAPES:
-        z = tf.pipeline_increments(torch.from_numpy(random_paths(rng, B, L, d)).cuda(),
-                                   identity).contiguous()
-        n = z.shape[1]
-        S_old, th_old, smem_old = _old_horner_geometry(n, d, N)
-        res_old = torch.empty(B, sig_kernel.sig_dim(d, N), device=z.device)
-
-        def old_run():
-            e = lib.signature_horner(z.data_ptr(), res_old.data_ptr(), B, n, d, N, S_old,
-                                     th_old, smem_old, torch.cuda.current_stream().cuda_stream)
-            assert e == 0, e
-            return res_old
-        geo = sig_ops.geometry(B, n, d, N)
-        new_run = lambda: sig_kernel.horner(z, N, *geo)
-        a, b = old_run().clone(), new_run()
-        torch.cuda.synchronize()
-        times = {"old": [], "new": []}
-        for who in ("old", "new", "new", "old"):
-            times[who] += _time_ms(old_run if who == "old" else new_run, 5)
-        _emit(rows, {"kernel": "horner", "shape": [B, L, d, N],
-                     "old_geometry": {"S": S_old, "threads": th_old},
-                     "new_geometry": dict(zip(("p", "jw", "cw", "S", "threads"), geo)),
-                     "old_ms": float(np.median(times["old"])),
-                     "new_ms": float(np.median(times["new"])), "old_all": times["old"],
-                     "new_all": times["new"], "new_equals_old": bool(torch.equal(a, b)),
-                     "card": card})
-        if not torch.equal(a, b):
-            raise SystemExit(f"horner {(B, L, d, N)}: new and old differ")
-    out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(json.dumps(rows, indent=1))
 
 
 if __name__ == "__main__":
