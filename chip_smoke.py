@@ -17,7 +17,8 @@ Phases (any failure exits non-zero; nothing runs without CUDA):
    ``gram(X)``, ``mmd2`` and the RBF-lift Gram on (128, 256, 8) paths;
    results must be finite, the routes must agree, and every kernel of the
    path must have launched; the Goursat launches are also counted by shape
-   (problems, Lx, Ly, d) and strip height;
+   (problems, Lx, Ly, d) and strip height (for the precomputed-Δ forward,
+   which has none, its geometry);
 3. drive the gradient path the same way, counts reset just before it:
    ``torch.autograd.grad`` of ``sigkernel(x, y).sum()`` on (128, 1024, 32)
    through auto ("gpu") and "gpu_fused", of ``SigKernel().mmd2(X, Y)`` and
@@ -49,8 +50,10 @@ Phases (any failure exits non-zero; nothing runs without CUDA):
    only), an odd batch, a bf16 input and two launch settings, all exactly;
 7. time each kernel and its plain version at the main paths' shapes
    (CUDA events, median), compute the bound (bytes / 3.35 TB/s vs
-   operations / 67 TFLOP/s FP32, H100 SXM data sheet), sweep the forward
-   kernels' strip height, the backward's with its checkpoint forward, and
+   operations / 67 TFLOP/s FP32, H100 SXM data sheet), sweep the
+   precomputed-Δ forward's geometry (rows a lane, problems a block; each
+   result equal to the default's), the fused kernels' strip height, the
+   backward's with its checkpoint forward, and
    the Horner kernel's length block and prefix length (also at the two
    pipelines' kernel shapes), time every Goursat kernel at every shape it
    launched at on the forward and gradient paths against its bound (B4 and
@@ -158,7 +161,7 @@ def grads(fn, *inputs):
 def shape_rows(shapes) -> list:
     """kernel.launch_shapes() as JSON rows, most launches first."""
     return [{"kernel": k, "problems": list(P) if isinstance(P, tuple) else P, "Lx": Lx,
-             "Ly": Ly, "d": d, "T": T, "launches": n}
+             "Ly": Ly, "d": d, "T": list(T) if isinstance(T, tuple) else T, "launches": n}
             for (k, P, Lx, Ly, d, T), n in sorted(shapes.items(), key=lambda kv: -kv[1])]
 
 
@@ -519,7 +522,7 @@ def main() -> int:
              lambda: kernel.gram_fused_plain(da, dc, l1, l2, scheme, idt)),
         ]
         T = ops.choose_T(delta.shape[1], delta.shape[2], l1, l2, 8, scheme=scheme,
-                         max_t=strip, backward=True)
+                         max_t=strip)
         gbar = torch.from_numpy(rng.normal(size=8).astype(np.float32)).to(dev)
         cps_k = kernel.fwd_cps(delta, T, l1, l2, scheme, idt)[1]
         cps_p = kernel.solve_with_grid_plain(delta, T, l1, l2, scheme, idt)[1]
@@ -579,7 +582,7 @@ def main() -> int:
     d = dx.shape[-1]
     Bx, Lgx, dg = dX.shape
     By, Lgy = dY.shape[0], dY.shape[1]
-    T_grad = ops.choose_T(Lx, Ly, 0, 0, B, backward=True)
+    T_grad = ops.choose_T(Lx, Ly, 0, 0, B)
     cps = kernel.fwd_cps(delta, T_grad, 0, 0, "order1", "float32")[1]
     gbar = torch.from_numpy(rng.normal(size=B).astype(np.float32)).to(dev)
     work = {
@@ -593,7 +596,7 @@ def main() -> int:
                        Bx * By * (2 * dg + CELL_FLOPS) * Lgx * Lgy),
     }
     default_T = {
-        "fwd": ops.choose_T(Lx, Ly, 0, 0, B),
+        "fwd": ops.geometry(B, Lx, Ly),
         "fwd_cps": T_grad,
         "bwd": T_grad,
         "fwd_fused": ops.choose_T(Lx, Ly, 0, 0, B, d=d),
@@ -630,12 +633,21 @@ def main() -> int:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nflops / FP32_FLOPS_PER_S * 1e3
         sweep = {}
-        if kname in FORWARD_PATH:
-            fused = kname != "fwd"
+        if kname == "fwd":  # the geometry: R rows a lane, one pass of warps, problems a block
+            for R in kernel.FWD_ROWS:
+                warps = min(kernel.fwd_bands(Lx, R), kernel.fwd_max_threads(R) // 32)
+                for pb in (1, 2, 4):
+                    geo = kernel.FwdGeometry(R, warps, pb)
+                    if 32 * warps * pb > kernel.fwd_max_threads(R) or kernel.fwd_smem_bytes(
+                            "order1", geo, Lx, Ly, 0, 0) > kernel.SMEM_LIMIT:
+                        continue
+                    check(torch.equal(launchers[kname](geo), got),
+                          f"fwd at geometry {tuple(geo)} differs from the default's")
+                    sweep[str(tuple(geo))] = round(time_ms(lambda: launchers[kname](geo), 3), 4)
+        elif kname in FORWARD_PATH:  # the fused kernels' strip height
             sweep = {Ts: round(time_ms(lambda: launchers[kname](Ts), 3), 4)
-                     for Ts in (32, 64, 128, 256, 512, 1024)
-                     if Ts <= (kernel.FUSED_MAX_THREADS if fused else kernel.MAX_THREADS)
-                     and kernel.smem_bytes(fused, "order1", Ts, Ly if kname != "gram_fused"
+                     for Ts in (32, 64, 128, 256, 512) if Ts <= kernel.FUSED_MAX_THREADS
+                     and kernel.smem_bytes(True, "order1", Ts, Ly if kname != "gram_fused"
                                            else Lgy, 0, 0, d if kname == "fwd_fused" else dg)
                      <= kernel.SMEM_LIMIT}
         if kname == "bwd":  # the backward with the checkpoint forward it lines up with
@@ -654,7 +666,8 @@ def main() -> int:
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "library_ms": None}
         rows.append(row)
-        emit({"timing": kname, "strip_T": T, "bytes": nbytes, "flops": nflops,
+        emit({"timing": kname, "strip_T": list(T) if kname == "fwd" else T, "bytes": nbytes,
+              "flops": nflops,
               "bytes_ms": t_bytes, "ops_ms": t_ops, "strip_sweep_ms": sweep,
               **row, "card": name, "power_limit": power})
 
@@ -671,7 +684,8 @@ def main() -> int:
         fused = kname in ("fwd_fused", "gram_fused")
         Bx_, By_ = P if gram else (P, P)
         row = {"timing_by_shape": kname, "problems": list(P) if gram else P, "Lx": Lx_,
-               "Ly": Ly_, "d": d_, "T": T_, "launches": by_path}
+               "Ly": Ly_, "d": d_, "T": list(T_) if isinstance(T_, tuple) else T_,
+               "launches": by_path}
         if fused:
             a_ = torch.from_numpy(np.diff(random_paths(rng, Bx_, Lx_ + 1, d_), axis=1)).to(dev)
             b_ = torch.from_numpy(np.diff(random_paths(rng, By_, Ly_ + 1, d_), axis=1)).to(dev)
@@ -700,8 +714,9 @@ def main() -> int:
             dl_ = delta_matrix(torch.from_numpy(random_paths(rng, P, Lx_ + 1, 8)).to(dev),
                                torch.from_numpy(random_paths(rng, P, Ly_ + 1, 8)).to(dev))
             dl_ = dl_.contiguous()
-            if kname == "fwd":
-                run = lambda: kernel.fwd(dl_, T_, 0, 0, "order1", "float32")
+            if kname == "fwd":  # T_: the geometry it launched at
+                run = lambda: kernel.fwd(dl_, kernel.FwdGeometry(*T_), 0, 0, "order1",
+                                         "float32")
                 extra, cell = 0, CELL_FLOPS
             else:
                 cps_ = kernel.fwd_cps(dl_, T_, 0, 0, "order1", "float32")[1]

@@ -118,9 +118,13 @@ class LaunchConfig:
     """Launch parameters; every field defaults to ``None`` (library default).
 
     Attributes:
-      pde_strip: cap on the CUDA kernels' strip height T (threads per
-        block); a power of two.  Default: :func:`repro_torch.kernels.
-        sigkernel_pde.ops.choose_T` picks it from the shape.
+      pde_strip: cap on the Goursat kernels' strip height T (the fused
+        kernels' wavefront threads, the checkpoint rows' strip that the
+        backward sweeps) and on the rows the precomputed-Δ forward's warps
+        cover at once (at least 32); a power of two.  Default:
+        :func:`repro_torch.kernels.sigkernel_pde.ops.choose_T` and
+        :func:`~repro_torch.kernels.sigkernel_pde.ops.geometry` pick from
+        the shape.
       sig_bt: cap on the threads per block of the Horner kernel; a power of
         two.  The TPU kernel's batch tile (paths on the lanes of one
         program) has no counterpart on the card, where one block runs one

@@ -6,8 +6,9 @@
 //                               (+ _wavefront), save_cps=False mode: Delta
 //                               precomputed in device memory.
 //   sigkernel_pde_fwd_cps    <- the same kernel's save_cps=True mode: it also
-//                               writes each strip's carried row(s) as the
-//                               strip begins (kernel.py:134-137).
+//                               writes each strip's carried row(s), the
+//                               checkpoint rows the backward starts from
+//                               (kernel.py:134-137).
 //   sigkernel_pde_fwd_fused  <- kernel.py:fused_fwd_kernel: Delta built in the
 //                               kernel from increments, matched pair lists.
 //   sigkernel_pde_gram_fused <- kernel.py:fused_gram_kernel: Delta built in the
@@ -16,25 +17,31 @@
 //                               (Alg 4); its design is described above
 //                               goursat_bwd below.
 //
-// Design.  One thread block solves one Goursat problem.  The TPU ran the
-// strip axis of its grid in order on one core and carried the boundary row in
-// VMEM scratch across grid steps; GPU blocks run in no order, so the strip
-// loop lives inside the block and the carried boundary row `brow` (length
-// ny+T+1; plus `brow2` = the row above it for the order-2 stencil) sits in
-// shared memory.  Thread r owns refined row strip_top + r and at wavefront
-// step t computes cell (r, c = t - r) when 0 <= c < ny.  The last two
-// anti-diagonals are exchanged between lanes through three rotating buffers
-// in shared memory with one __syncthreads() per step (this replaces the
-// jnp.roll lane shifts of kernel.py:160-177); lanes 0 and 1 read the carried
-// rows exactly as the TPU kernel's where(lane == 0/1, ...) does.  Row T-1
-// overwrites brow in place (kernel.py:187-191) and row T-2 writes brow2
-// (:193-198); reads trail those writes, except for T == 2 where one extra
-// barrier orders the reads of a step before its writes.  Dyadic refinement is
-// index arithmetic: p = Delta[row >> lam1, col >> lam2] * 2^-(lam1+lam2), and
-// the order-2 data-gridline fallback is
-// edge = (lane % 2^lam1 == 0) | ((t - lane) % 2^lam2 == 0) (kernel.py:173).
-// Rows at or past Lx read p = 0: that is the zero padding of Lx to the strip
-// (JAX ops.py:49-54), done by index arithmetic instead of a padded copy, and
+// Two wavefront designs.  The precomputed-Delta forward (goursat_fwd, at the
+// end of the kernels) is a register wavefront: lanes own rows, neighbours
+// pass by warp shuffles, and warps hand band edges to each other through
+// mbarrier rings, with no block barrier per step; its note is above it.
+//
+// The fused kernels and the backward sweep strips of T refined rows, one
+// block per Goursat problem.  The TPU ran the strip axis of its grid in order
+// on one core and carried the boundary row in VMEM scratch across grid
+// steps; GPU blocks run in no order, so the strip loop lives inside the block
+// and the carried boundary row `brow` (length ny+T+1; plus `brow2` = the row
+// above it for the order-2 stencil) sits in shared memory.  Thread r owns
+// refined row strip_top + r and at wavefront step t computes cell (r, c = t -
+// r) when 0 <= c < ny.  The last two anti-diagonals are exchanged between
+// lanes through three rotating buffers in shared memory with one barrier per
+// step (this replaces the jnp.roll lane shifts of kernel.py:160-177); lanes 0
+// and 1 read the carried rows exactly as the TPU kernel's where(lane == 0/1,
+// ...) does.  Row T-1 overwrites brow in place (kernel.py:187-191) and row
+// T-2 writes brow2 (:193-198); reads trail those writes, except for T == 2
+// where one extra barrier orders the reads of a step before its writes.
+//
+// In both, dyadic refinement is index arithmetic: p = Delta[row >> lam1, col
+// >> lam2] * 2^-(lam1+lam2), and the order-2 data-gridline fallback is edge
+// = (row % 2^lam1 == 0) | (col % 2^lam2 == 0) (kernel.py:173).  Rows at or
+// past Lx read p = 0: that is the zero padding of Lx to the strip (JAX
+// ops.py:49-54), done by index arithmetic instead of a padded copy, and
 // k[nx, ny] is taken from the lane that owns the last real row, so padding
 // rows below it never touch the result.
 //
@@ -47,19 +54,15 @@
 // (bar a dot product within 1e-16 of a float32 rounding boundary), including
 // the bf16 interiors, where one flipped rounding would otherwise spread.
 //
-// What bounds it on an H100.  The precomputed-Delta kernel reads Delta once
-// (B*Lx*Ly*4 bytes) and does ~13-19 flops per refined cell, so its bound is
-// the 3.35 TB/s memory rate.  Each thread walks its own Delta row, so a warp's
-// load at one step touches 32 rows: loads are issued kGroup steps ahead into
-// registers, each 32-byte sector read is fully used over those steps, and the
-// refined repeats (2^lam2 columns) reuse one load.  The fused kernels read
-// only the increments and are bound by operations; they build each strip's
-// Delta as tile products on the FP64 tensor cores (described above
-// goursat_fwd_fused below).  The wavefront itself is latency-bound: ny+T-1
-// dependent steps per strip, each a barrier plus a short chain of dependent
-// operations, so few large problems (one block per SM) want tall strips and
-// many small problems want short strips; ops.py's choose_T picks T
-// accordingly.
+// What bounds it on an H100.  The precomputed-Delta kernels read Delta once
+// (B*Lx*Ly*4 bytes) and do ~13-19 flops per refined cell, so their bound is
+// the 3.35 TB/s memory rate.  The fused kernels read only the increments and
+// are bound by operations; they build each strip's Delta as tile products on
+// the FP64 tensor cores (described above goursat_fwd_fused below).  A strip
+// wavefront itself is latency-bound: ny+T-1 dependent steps per strip, each
+// a barrier plus a short chain of dependent operations, so few large
+// problems (one block per SM) want tall strips and many small problems want
+// short strips; ops.py's choose_T picks T accordingly.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,9 +70,9 @@
 
 namespace {
 
-constexpr int kMaxThreads = 1024;
+constexpr int kMaxThreads = 1024;  // checkpoint strips: at most this many rows
 constexpr int kBwdMaxThreads = 512;  // the backward's launch bound: 128 registers
-constexpr int kGroup = 8;  // Delta loads issued this many wavefront steps ahead
+constexpr int kGroup = 8;  // Delta loads issued this many wavefront steps ahead (backward)
 
 enum Mode { kDelta = 0, kFusedPairs = 1, kFusedGram = 2 };
 
@@ -90,10 +93,31 @@ __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b);
 constexpr float kOne = 1.0f, kHalf = 0.5f, kSixth = 1.0f / 6.0f,
                 kTwelfth = 1.0f / 12.0f;
 
-// One forward cell: lane r at wavefront step t computes cell (r, c = t - r)
-// of its strip from the two previous anti-diagonals (diag rotates three
-// buffers of T) and, in lanes 0 and 1, the carried rows; m1, m2 are the
-// masks 2^lam1 - 1, 2^lam2 - 1 of the order-2 data-gridline test.
+// One cell of either stencil from its neighbours' values, in stencil.py's
+// order of operations: A = 1 + p/2 + p²/12 and B1 = 1 − p²/12; order 2
+// falls back to B1 and no C on a data gridline (edge).
+template <bool ORDER2, bool BF16>
+__device__ __forceinline__ float stencil_cell(float p, float left, float up, float upleft,
+                                              float k_dl, float k_ul, bool edge) {
+  const float p2 = mul(mul(kTwelfth, p), p);
+  const float A = add(add(kOne, mul(kHalf, p)), p2);
+  const float B1 = sub(kOne, p2);
+  float cur;
+  if (ORDER2) {
+    const float Bq = edge ? B1 : add(sub(kOne, mul(kSixth, p)), p2);
+    const float Cq = edge ? 0.0f : mul(kTwelfth, p);
+    cur = sub(sub(mul(add(left, up), A), mul(upleft, Bq)), mul(add(k_dl, k_ul), Cq));
+  } else {
+    cur = sub(mul(add(left, up), A), mul(upleft, B1));
+  }
+  return round_interior<BF16>(cur);
+}
+
+// One cell of a strip wavefront (the fused kernels and the backward's
+// recompute): lane r at wavefront step t computes cell (r, c = t - r) of its
+// strip from the two previous anti-diagonals (diag rotates three buffers of
+// T) and, in lanes 0 and 1, the carried rows; m1, m2 are the masks 2^lam1 - 1,
+// 2^lam2 - 1 of the order-2 data-gridline test.
 template <bool ORDER2, bool BF16>
 __device__ __forceinline__ float fwd_cell(float p, int r, int c, int t, int T, int m1,
                                           int m2, const float* diag, const float* brow,
@@ -103,22 +127,11 @@ __device__ __forceinline__ float fwd_cell(float p, int r, int c, int t, int T, i
   const float left = c == 0 ? kOne : prev[r];
   const float up = r == 0 ? brow[t + 1] : prev[r - 1];
   const float upleft = c == 0 ? kOne : (r == 0 ? brow[t] : prev2[r - 1]);
-  // A = 1 + p/2 + p²/12 and B1 = 1 − p²/12, in stencil.py's order
-  const float p2 = mul(mul(kTwelfth, p), p);
-  const float A = add(add(kOne, mul(kHalf, p)), p2);
-  const float B1 = sub(kOne, p2);
-  float cur;
-  if (ORDER2) {
-    const bool edge = (r & m1) == 0 || (c & m2) == 0;
-    const float Bq = edge ? B1 : add(sub(kOne, mul(kSixth, p)), p2);
-    const float Cq = edge ? 0.0f : mul(kTwelfth, p);
-    const float k_dl = c <= 1 ? kOne : prev2[r];
-    const float k_ul = r >= 2 ? prev2[r - 2] : (r == 1 ? brow[t] : brow2[t + 1]);
-    cur = sub(sub(mul(add(left, up), A), mul(upleft, Bq)), mul(add(k_dl, k_ul), Cq));
-  } else {
-    cur = sub(mul(add(left, up), A), mul(upleft, B1));
-  }
-  return round_interior<BF16>(cur);
+  if (!ORDER2) return stencil_cell<false, BF16>(p, left, up, upleft, 0.0f, 0.0f, false);
+  const bool edge = (r & m1) == 0 || (c & m2) == 0;
+  const float k_dl = c <= 1 ? kOne : prev2[r];
+  const float k_ul = r >= 2 ? prev2[r - 2] : (r == 1 ? brow[t] : brow2[t + 1]);
+  return stencil_cell<true, BF16>(p, left, up, upleft, k_dl, k_ul, edge);
 }
 
 // The fused kernels' Delta band (see goursat_fwd_fused): kBand wavefront
@@ -152,101 +165,20 @@ __host__ __device__ inline BandGeometry band_geometry(int T, int lam1, int lam2,
   return g;
 }
 
-// Shared memory bytes the kernel lays out for one block (kernel.py mirrors
-// it): fused kernels first hold, as Stage, the strip's dx rows (RP x S) and
-// the dy ring (NR x S), then as float32 two bands (R x BS each) and a band's
-// new dy rows (NY x d) on their way in; then every kernel holds the carried
-// row(s) of ny+T+1 floats and three anti-diagonals of T floats.
+// Shared memory bytes a fused kernel lays out for one block at strip height
+// T (kernel.py mirrors it): first, as Stage, the strip's dx rows (RP x S)
+// and the dy ring (NR x S), then as float32 two bands (R x BS each) and a
+// band's new dy rows (NY x d) on their way in, the carried row(s) of ny+T+1
+// floats and three anti-diagonals of T floats.  The precomputed-Delta
+// forward (mode kDelta) holds no strip: its block follows its geometry
+// (wave_smem_bytes below), so its strip height sets no bytes here.
 __host__ __device__ inline int64_t smem_bytes(int mode, bool order2, int T, int ny,
                                               int lam1, int lam2, int d) {
-  int64_t n = 4 * ((order2 ? 2 : 1) * ((int64_t)ny + T + 1) + 3 * (int64_t)T);
-  if (mode != kDelta) {
-    const BandGeometry g = band_geometry(T, lam1, lam2, d);
-    n += (int64_t)sizeof(Stage) * (g.RP + g.NR) * g.S +
+  if (mode == kDelta) return 0;
+  const BandGeometry g = band_geometry(T, lam1, lam2, d);
+  return 4 * ((order2 ? 2 : 1) * ((int64_t)ny + T + 1) + 3 * (int64_t)T) +
+         (int64_t)sizeof(Stage) * (g.RP + g.NR) * g.S +
          4 * (2LL * (T >> lam1) * g.BS + (int64_t)g.NY * d);
-  }
-  return n;
-}
-
-// CPS: at the start of strip s the carried row(s) brow (, brow2), contiguous
-// in shared memory, are copied to the checkpoint rows
-// cps[prob, s * rows + (0, 1), :] (kernel.py:134-137).
-template <bool ORDER2, bool BF16, bool CPS>
-__global__ void __launch_bounds__(kMaxThreads)
-goursat_fwd(const float* __restrict__ delta_all, float* __restrict__ out,
-            float* __restrict__ cps, int Lx, int Ly, int lam1, int lam2) {
-  extern __shared__ double smem[];
-  const int T = blockDim.x;
-  const int r = threadIdx.x;
-  const int ny = Ly << lam2;
-  const int W = ny + T + 1;
-  const int R = T >> lam1;                     // unrefined rows per strip
-  float* brow = reinterpret_cast<float*>(smem);
-  float* brow2 = brow + W;                     // k[strip_top - 1, c] (order 2)
-  float* diag = brow + (ORDER2 ? 2 : 1) * W;   // 3 rotating anti-diagonals
-
-  const int64_t prob = blockIdx.x;
-  const float* delta = delta_all + prob * (int64_t)Lx * Ly;
-  for (int i = r; i < (ORDER2 ? 2 : 1) * W; i += T) brow[i] = 1.0f;
-
-  const float scale = ldexpf(1.0f, -(lam1 + lam2));  // exact power of two
-  const int n_strips = (Lx + R - 1) / R;
-  const int steps = ny + T - 1;
-  const int m1 = (1 << lam1) - 1;
-  const int m2 = (1 << lam2) - 1;
-  const int lrow = r >> lam1;              // this thread's unrefined row in the strip
-  // lane holding refined row nx-1 in the last strip: its cell (., ny-1) is
-  // k[nx, ny], read before any padding row below it
-  const int r_out = (Lx << lam1) - 1 - (n_strips - 1) * T;
-
-  for (int s = 0; s < n_strips; ++s) {
-    const int row = s * R + lrow;
-    const bool row_ok = row < Lx;          // rows past Lx: zero padding
-    __syncthreads();  // ones / previous strip's last step
-    if (CPS) {
-      const int rows = ORDER2 ? 2 : 1;
-      float* dst = cps + (prob * n_strips + s) * rows * (int64_t)W;
-      for (int i = r; i < rows * W; i += T) dst[i] = brow[i];
-      __syncthreads();  // at T = 2, lane 0 writes brow2[1] at step 0
-    }
-
-    // pbuf[k]: the unrefined Delta entry of this thread's cell at step t0 + k
-    const float* drow = row_ok ? delta + (int64_t)row * Ly : nullptr;
-    float pbuf[kGroup];
-#pragma unroll
-    for (int k = 0; k < kGroup; ++k) {
-      const int c = k - r;
-      pbuf[k] = (drow && c >= 0 && c < ny) ? __ldg(drow + (c >> lam2)) : 0.0f;
-    }
-
-    for (int t0 = 0; t0 < steps; t0 += kGroup) {
-      float pnext[kGroup];
-#pragma unroll
-      for (int k = 0; k < kGroup; ++k) {
-        const int c = t0 + kGroup + k - r;
-        pnext[k] = (drow && c >= 0 && c < ny) ? __ldg(drow + (c >> lam2)) : 0.0f;
-      }
-#pragma unroll
-      for (int k = 0; k < kGroup; ++k) {
-        const int t = t0 + k;
-        if (t >= steps) break;  // uniform across the block
-        const int c = t - r;
-        float cur = 0.0f;
-        if (c >= 0 && c < ny) {
-          cur = fwd_cell<ORDER2, BF16>(mul(pbuf[k], scale), r, c, t, T, m1, m2, diag,
-                                       brow, brow2);
-          if (s == n_strips - 1 && r == r_out && c == ny - 1) out[prob] = cur;
-        }
-        if (T == 2) __syncthreads();  // lane 1 writes brow[t], which lane 0 read
-        diag[(t % 3) * T + r] = cur;
-        if (r == T - 1 && t >= T - 1) brow[t - T + 2] = cur;
-        if (ORDER2 && r == T - 2 && t >= T - 2) brow2[t - T + 3] = cur;
-        __syncthreads();
-      }
-#pragma unroll
-      for (int k = 0; k < kGroup; ++k) pbuf[k] = pnext[k];
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -888,51 +820,478 @@ goursat_bwd(const float* __restrict__ delta, const float* __restrict__ cps,
   }
 }
 
-template <int MODE, bool ORDER2, bool BF16, bool CPS>
-cudaError_t launch(const float* a, const float* b, float* out, float* cps,
-                   long long n_problems, int n_cols, int Lx, int Ly, int d, int T,
-                   int lam1, int lam2, long long smem, cudaStream_t stream) {
-  if constexpr (MODE == kDelta) {
-    auto kern = goursat_fwd<ORDER2, BF16, CPS>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    kern<<<(unsigned)n_problems, T, (size_t)smem, stream>>>(a, out, cps, Lx, Ly, lam1,
-                                                            lam2);
+// ---------------------------------------------------------------------------
+// The precomputed-Delta forward, replacing kernel.py:fwd_kernel (+ _wavefront)
+// in both of its modes (save_cps False and True).
+//
+// A wavefront step costs a warp's dependent chain, not a block barrier.
+//   * Rows.  A lane owns R consecutive refined rows (R = 1, 2, 4 or 8, a
+//     template parameter); a warp covers a band of 32 R rows.  At its local
+//     step t, lane l computes cells (lR + i, t - lR - i), i < R, of its band:
+//     R independent cells whose neighbours sit in registers.  Row i reads
+//     left and k_dl from its own values of steps t-1 and t-2, up and upleft
+//     from row i-1's, order 2's k_ul from row i-2's.  Only the lane's top
+//     row needs another lane: row lR-1's value of step t-1 comes by
+//     __shfl_up_sync, and order 2's row lR-2 of step t-2 by a second shuffle
+//     (the neighbour's value of t-2, or for R = 1 what the neighbour received
+//     the step before).  No anti-diagonal passes through shared memory and no
+//     barrier spans the block.
+//   * Boundaries.  A cell left of the grid (c < 0) reads Delta = 0 and, from
+//     neighbours that are 1, computes exactly 1 = k(row, 0) in either
+//     stencil, so registers start at 1 and no cell tests c == 0.  Cells right
+//     of the grid (c >= ny) compute values nothing reads.
+//   * Warps pipelined down the problem.  Lane 0 of band b+1 needs band b's
+//     bottom row (two rows for order 2) at its own column.  The warp of band
+//     b hands them over through a ring of kSlots slots of kChunk columns in
+//     shared memory, with a full and an empty mbarrier per slot: lane 31
+//     (lane 30 for order 2's second row at R = 1) writes its cells as it
+//     computes them, the warp arrives on `full` once a chunk of columns is
+//     complete, and the next warp waits on it before the chunk's first step
+//     and arrives on `empty` after the chunk's last.  A problem's NW warps
+//     take bands w, w+NW, ...; when they loop over more bands than warps,
+//     the ring from the last warp back to the first holds a whole row, so
+//     that warp never waits for the first warp's next band, which cannot
+//     start before its current one ends.
+//   * Delta staged ahead.  During chunk m a warp copies chunk m+1's entries
+//     of its 32 R rows (row rho of the band needs columns mK - rho .. mK -
+//     rho + K-1) into shared memory with 4-byte cp.async, R copies a step,
+//     consecutive lanes on consecutive columns of one row (coalesced; rows
+//     past nx and columns off the grid zero-filled by the copy's source
+//     size), double-buffered, into lines [i][k] of kLine floats, lane l at
+//     +l: a step's reads by the 32 lanes and a copy's writes each fall on
+//     distinct banks, and a lane reads its entry with one load at a fixed
+//     offset.  Spread over the steps, the copies interleave with the cells
+//     instead of stalling the warp in a burst at the chunk's start.  An
+//     unrefined grid has its own instantiation (REF = false): an entry's
+//     address is then linear in its copy's index, and the scale multiply
+//     goes.  Delta's rows are not 16-byte aligned at the main path's widths
+//     (Ly = 1023, 255): 16-byte copies of each row's window (cp.async or the
+//     TMA's bulk copies) leave a step's reads 4-way bank-conflicted and
+//     measured slower (PERF.md §6).  (kStageDelta = false: each lane loads
+//     its own entries kGroup steps ahead into registers instead.)
+//   * Checkpoints.  The lane that owns refined row sT-1 (and sT-2 for order
+//     2) writes each of its cells into strip s's checkpoint row as it computes
+//     it; the constant entries (strip 0's rows, column 0, the tails past ny,
+//     order 2's 0 at ny+1) are written once up front.  The kernel's layout is
+//     free of T, which only places the rows.
+//   * Several problems a block: PB groups of NW warps, each with its own rings
+//     and buffers (ops.geometry picks R, NW and PB).
+// Arithmetic: stencil_cell's, fwd_cell's, so k and the checkpoint rows are
+// bit for bit those of the plain versions.  Bound on an H100: reading Delta,
+// B*Lx*Ly*4 bytes, at 3.35 TB/s.
+// ---------------------------------------------------------------------------
+
+constexpr int kChunk = 16;          // steps a chunk: Delta staging and ring hand-over
+constexpr int kSlots = 4;           // ring slots between two warps of a pass
+constexpr int kLine = 33;           // floats a staged line: 32 lanes and a pad
+constexpr int kStages = 2;          // staged chunks a warp keeps (in flight and in use)
+constexpr bool kSpread = true;      // a chunk's copies spread over the steps of the chunk
+                                    // kStages-1 before it, else all at that one's first
+constexpr bool kStageDelta = true;  // Delta staged in shared memory, else in registers
+
+__host__ __device__ constexpr int wave_max_threads(int R) {
+  return R >= 8 ? 256 : (R >= 4 ? 512 : 1024);
+}
+
+__host__ __device__ inline int wave_bands(int nx, int R) { return (nx + 32 * R - 1) / (32 * R); }
+
+// Slots of the ring from a pass's last warp back to its first: only when the
+// warps loop over bands, and then a whole row's chunks.
+__host__ __device__ inline int wave_last_slots(int nx, int ny, int R, int NW) {
+  const int nrc = (ny + kChunk - 1) / kChunk;
+  return wave_bands(nx, R) > NW ? (nrc > kSlots ? nrc : kSlots) : 0;
+}
+
+// Shared memory of one block (kernel.py mirrors it): a chunk of ones (what
+// the first band reads above it); per problem group, a full and an empty
+// mbarrier and kChunk columns of the handed-over row(s) per ring slot; per
+// warp, kStages staged chunks of Delta.
+__host__ __device__ inline int64_t wave_smem_bytes(bool order2, int R, int NW, int PB, int nx,
+                                                   int ny) {
+  const int64_t slots = (int64_t)(NW - 1) * kSlots + wave_last_slots(nx, ny, R, NW);
+  const int64_t stage = kStageDelta ? (int64_t)kStages * R * kChunk * kLine : 0;
+  return 8LL * kChunk + PB * (slots * (16 + 4LL * kChunk * (order2 ? 2 : 1)) + 4LL * NW * stage);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// 4 bytes from global to shared memory; a zero instead where !ok.  The L2
+// fetches the whole 128-byte line: a row's next chunks read on from this one
+// (8-13% faster at the main path's shapes than without the hint, PERF.md §6).
+__device__ __forceinline__ void cp_async4_or_zero(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global.L2::128B [%0], [%1], 4, %2;" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Wait until at most n of this thread's committed copy groups are pending.
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(n) : "memory");
+}
+
+// A warp stages chunk m's Delta entries of its band (rows base .. base+32R-1)
+// into `buf`: entry (row lR + i, step k) at line i*kChunk + k, lane l.  Copy
+// `it` (0 <= it < R*K) of a lane covers band row it*(32/K) + h, h = lane / K,
+// at the chunk's step k = lane % K: K lanes a row, so each copy instruction
+// reads consecutive columns of 32/K rows.  Unrefined (!REF), a copy's
+// address is linear in it (src0 + it * next) and the copies on the grid are
+// it_lo <= it < it_hi; refined, each copy is checked on its own.  Off the
+// grid (and past nx) the copy writes a zero.
+struct StageSpan {
+  const float* src0;
+  int64_t next;
+  int it_lo, it_hi, c0, base;
+};
+
+template <int R, bool REF>
+__device__ __forceinline__ void stage_one(float* buf, const float* delta, const StageSpan& sp,
+                                          int it, int nx, int ny, int Ly, int lam1, int lam2) {
+  constexpr int K = kChunk, RPI = 32 / K;
+  const int lane = threadIdx.x & 31;
+  const int h = lane / K, k = lane % K;
+  const int rl = it * RPI + h;
+  float* dst = buf + k * kLine + (rl % R) * K * kLine + rl / R;
+  if constexpr (!REF) {
+    const bool ok = it >= sp.it_lo && it < sp.it_hi;
+    cp_async4_or_zero(dst, ok ? sp.src0 + it * sp.next : delta, ok);
   } else {
-    auto kern = goursat_fwd_fused<MODE, ORDER2, BF16>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    // whole warps: strips of fewer than 32 rows get a wavefront warp of 32
-    const int threads = (T < 32 ? 32 : T) + 32 * band_warps(T);
-    kern<<<(unsigned)n_problems, threads, (size_t)smem, stream>>>(a, b, out, n_cols, Lx, Ly,
-                                                                 d, T, lam1, lam2);
+    const int c = sp.c0 - it * RPI;
+    const bool ok = sp.base + rl < nx && c >= 0 && c < ny;
+    cp_async4_or_zero(dst, ok ? delta + (int64_t)((sp.base + rl) >> lam1) * Ly + (c >> lam2)
+                              : delta, ok);
   }
+}
+
+template <int R, bool REF>
+__device__ __forceinline__ StageSpan stage_span(const float* delta, int m, int base, int nx,
+                                                int ny, int Ly) {
+  constexpr int K = kChunk, RPI = 32 / K;
+  const int lane = threadIdx.x & 31;
+  const int h = lane / K, k = lane % K;
+  StageSpan sp;
+  sp.c0 = m * K + k - h;  // row h's column
+  sp.base = base;
+  sp.src0 = delta + (int64_t)(base + h) * Ly + sp.c0;
+  sp.next = (int64_t)RPI * (Ly - 1);
+  // entries on the grid: 0 <= c0 - it*RPI < ny and base + it*RPI + h < nx
+  sp.it_lo = sp.c0 - ny < 0 ? 0 : (sp.c0 - ny) / RPI + 1;
+  const int rows_left = nx - base - h;
+  sp.it_hi = min(R * K, min(sp.c0 < 0 ? 0 : sp.c0 / RPI + 1,
+                            rows_left <= 0 ? 0 : (rows_left + RPI - 1) / RPI));
+  return sp;
+}
+
+template <bool ORDER2, bool BF16, bool CPS, int R, bool REF>
+__global__ void __launch_bounds__(wave_max_threads(R))
+goursat_fwd(const float* __restrict__ delta_all, float* __restrict__ out,
+            float* __restrict__ cps, long long B, int Lx, int Ly, int T, int NW, int lam1_,
+            int lam2_) {
+  const int lam1 = REF ? lam1_ : 0, lam2 = REF ? lam2_ : 0;  // unrefined: constants
+  constexpr int K = kChunk;
+  constexpr int RB = 32 * R;            // rows of a band
+  constexpr int D = RB / K;             // chunks the band's bottom row trails its top
+  constexpr int rows = ORDER2 ? 2 : 1;  // rows handed over, checkpoint rows a strip
+  constexpr int i2 = R >= 2 ? R - 2 : 0;  // the lane's row that may hand over row -2
+  constexpr int SB = R * K * kLine;     // floats a staged chunk
+  static_assert(K <= RB && K % kGroup == 0 && K <= 32, "chunk");
+  extern __shared__ double smem[];
+  const int lane = threadIdx.x & 31;
+  const int wi = threadIdx.x >> 5;
+  const int PB = blockDim.x / (32 * NW);
+  const int pp = wi / NW, w = wi - pp * NW;  // problem group, warp in the group
+  const int nx = Lx << lam1, ny = Ly << lam2;
+  const int n_bands = wave_bands(nx, R);
+  const int nrc = (ny + K - 1) / K;     // ring chunks a band hands over
+  const int nsl = wave_last_slots(nx, ny, R, NW);
+  const int slots = (NW - 1) * kSlots + nsl;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  float* ones = reinterpret_cast<float*>(bars + 2LL * PB * slots);  // 2K ones
+  float* rings = ones + 2 * K;
+  uint64_t* full = bars + 2LL * pp * slots;
+  uint64_t* empty = full + slots;
+  float* ring = rings + (int64_t)pp * slots * K * rows;   // slot: K columns a row
+  float* stage = rings + (int64_t)PB * slots * K * rows + (int64_t)wi * kStages * SB;
+  if (w == 0)
+    for (int i = lane; i < 2 * slots; i += 32) mbar_init(full + i);
+  for (int i = threadIdx.x; i < 2 * K; i += blockDim.x) ones[i] = 1.0f;
+  __syncthreads();
+  const long long prob = (long long)blockIdx.x * PB + pp;
+  if (prob >= B) return;
+
+  const float* delta = delta_all + prob * (int64_t)Lx * Ly;
+  const float scale = ldexpf(1.0f, -(lam1 + lam2));  // exact power of two
+  const int m1 = (1 << lam1) - 1, m2 = (1 << lam2) - 1;
+  const int lr = lane * R;                           // the lane's first row in a band
+  const int n_strips = CPS ? (Lx + (T >> lam1) - 1) / (T >> lam1) : 0;
+  const int W = ny + T + 1;                          // checkpoint row length
+  float* cps_prob = CPS ? cps + prob * n_strips * rows * (int64_t)W : nullptr;
+  if (CPS && w == 0) {  // the checkpoint rows' constant entries
+    for (int s = 0; s < n_strips; ++s)
+      for (int r = 0; r < rows; ++r) {
+        float* row = cps_prob + (int64_t)(s * rows + r) * W;
+        for (int i = s == 0 ? lane : ny + 1 + lane; i < W; i += 32)
+          row[i] = s > 0 && r == 1 && i == ny + 1 ? 0.0f : 1.0f;
+        if (s > 0 && lane == 0) row[0] = 1.0f;
+      }
+  }
+  // the ring this warp reads (from the warp before it) and the one it writes
+  const int wc = w == 0 ? NW - 1 : w - 1;
+  const int ns_in = wc < NW - 1 ? kSlots : nsl, ns_out = w < NW - 1 ? kSlots : nsl;
+  uint64_t* full_in = full + wc * kSlots;
+  uint64_t* empty_in = empty + wc * kSlots;
+  uint64_t* full_out = full + w * kSlots;
+  uint64_t* empty_out = empty + w * kSlots;
+  const float* ring_in = ring + wc * kSlots * K * rows;
+  float* ring_out = ring + w * kSlots * K * rows;
+
+  for (int b = w, q = 0; b < n_bands; b += NW, ++q) {
+    const int base = b * RB;                         // the band's first refined row
+    const int M = (ny + min(RB, nx - base) - 1 + K - 1) / K;
+    const bool consume = b > 0, produce = b + 1 < n_bands;
+    const long long g_in = (long long)(w == 0 ? q - 1 : q) * nrc;  // ring chunk 0's use
+    const long long g_out = (long long)q * nrc;
+    // the lane's rows: order 2's data gridlines; the row handing over row -1
+    // (lane 31's last) and -2; checkpoint rows sT-1 (its last row, R <= T)
+    // and sT-2 (row i2); the row holding k[nx, ny]
+    unsigned emask = 0;
+#pragma unroll
+    for (int i = 0; i < R; ++i) emask |= ((base + lr + i) & m1) == 0 ? 1u << i : 0u;
+    const bool wr1 = produce && lane == 31;
+    const bool wr2 = ORDER2 && produce && lane == (R >= 2 ? 31 : 30);
+    const int rho1 = base + lr + R - 1, rho2 = base + lr + i2;
+    const bool ck1 = CPS && (rho1 + 1) % T == 0 && (rho1 + 1) / T < n_strips;
+    const bool ck2 = CPS && ORDER2 && (rho2 + 2) % T == 0 && (rho2 + 2) / T < n_strips;
+    // cp*[t]: the checkpoint entry of the row's cell at step t
+    float* cp1 = ck1 ? cps_prob + (int64_t)((rho1 + 1) / T * rows) * W + 1 - (lr + R - 1)
+                     : cps_prob;
+    float* cp2 = ck2 ? cps_prob + (int64_t)((rho2 + 2) / T * rows + 1) * W + 1 - (lr + i2)
+                     : cps_prob;
+    const int i_out = nx - 1 - base - lr;            // in 0 .. R-1 for the lane holding it
+    const int t_out = i_out >= 0 && i_out < R ? nx - 1 - base + ny - 1 : -1;
+    float c1[R], c2[R];  // the rows' values at steps t-1 and t-2
+#pragma unroll
+    for (int i = 0; i < R; ++i) c1[i] = c2[i] = 1.0f;
+    float u1p = 1.0f;    // row lR-1 at step t-2
+    float pre[kStageDelta ? 1 : R][kGroup];  // register variant: Delta kGroup steps ahead
+    auto fetch = [&](int i, int t) {
+      const int rho = base + lr + i, c = t - lr - i;
+      return rho < nx && c >= 0 && c < ny
+                 ? __ldg(delta + (int64_t)(rho >> lam1) * Ly + (c >> lam2)) : 0.0f;
+    };
+    if constexpr (kStageDelta) {  // the first kStages-1 chunks, in a burst
+      for (int s = 0; s < kStages - 1; ++s) {
+        const StageSpan sp = stage_span<R, REF>(delta, s < M ? s : -(1 << 20), base, nx, ny, Ly);
+#pragma unroll 8
+        for (int it = 0; it < R * K; ++it)
+          stage_one<R, REF>(stage + s * SB, delta, sp, it, nx, ny, Ly, lam1, lam2);
+        cp_async_commit();
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < (kStageDelta ? 1 : R); ++i)
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g) pre[i][g] = fetch(i, g);
+    }
+
+    for (int m = 0; m < M; ++m) {
+      const int mn = m + kStages - 1;  // the chunk this one's steps stage
+      const StageSpan sp = stage_span<R, REF>(delta, mn < M ? mn : -(1 << 20), base, nx, ny, Ly);
+      float* nbuf = stage + (mn % kStages) * SB;
+      // the rows above: chunk m of the band before's bottom row(s), or ones
+      const bool ring_ok = consume && m < nrc;
+      const float* r1 = ones;
+      if (ring_ok) {
+        const long long g = g_in + m;
+        r1 = ring_in + (g % ns_in) * K * rows;
+        mbar_wait(full_in + g % ns_in, (uint32_t)(g / ns_in) & 1u);
+      }
+      // room below: ring chunk m-D+1 takes its first column in this chunk
+      float *w0 = ring_out, *w1 = ring_out;  // ring chunks m-D and m-D+1
+      if (produce) {
+        const int j = m - D + 1;
+        if (j >= 0 && j < nrc && g_out + j >= ns_out) {
+          const long long g = g_out + j;
+          mbar_wait(empty_out + g % ns_out, (uint32_t)(g / ns_out - 1) & 1u);
+        }
+        w0 = ring_out + ((g_out + max(0, min(nrc - 1, j - 1))) % ns_out) * K * rows;
+        w1 = ring_out + ((g_out + max(0, min(nrc - 1, j))) % ns_out) * K * rows;
+      }
+      const float* sb = stage + (m % kStages) * SB + lane;
+      if constexpr (kStageDelta) {
+        cp_async_wait<kStages - 2>();  // chunk m is in
+        __syncwarp();                  // for every lane; all are done with chunk m-1
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int t = m * K + k;
+        float up1 = __shfl_up_sync(0xffffffffu, c1[R - 1], 1);             // row lR-1, t-1
+        float up2 = ORDER2 ? __shfl_up_sync(0xffffffffu, R >= 2 ? c2[i2] : u1p, 1)
+                           : 0.0f;                                         // row lR-2, t-2
+        const float top1 = r1[k], top2 = ORDER2 ? r1[K + k] : 0.0f;
+        up1 = lane == 0 ? top1 : up1;
+        up2 = lane == 0 ? top2 : up2;
+        float nw[R];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          float p;
+          if constexpr (kStageDelta) {
+            p = sb[(i * K + k) * kLine];
+          } else {
+            p = pre[kStageDelta ? 0 : i][k % kGroup];
+            pre[kStageDelta ? 0 : i][k % kGroup] = fetch(i, t + kGroup);
+          }
+          const bool edge = ORDER2 && (((emask >> i) & 1u) || ((t - lr - i) & m2) == 0);
+          nw[i] = stencil_cell<ORDER2, BF16>(
+              REF ? mul(p, scale) : p, c1[i], i == 0 ? up1 : c1[i >= 1 ? i - 1 : 0],
+              i == 0 ? u1p : c2[i >= 1 ? i - 1 : 0], c2[i],
+              i == 0 ? up2 : (i == 1 ? u1p : c2[i >= 2 ? i - 2 : 0]), edge);
+        }
+        // the band's bottom row(s) into the ring, by the lanes that own them
+        const int cb = t - RB + 1;
+        if (wr1 && (unsigned)cb < (unsigned)ny) *(k + 1 < K ? w0 + k + 1 : w1) = nw[R - 1];
+        if (wr2 && (unsigned)(cb + 1) < (unsigned)ny)
+          *(k + 2 < K ? w0 + K + k + 2 : w1 + k + 2) = nw[i2];
+        if (CPS && ck1 && (unsigned)(t - lr - (R - 1)) < (unsigned)ny) cp1[t] = nw[R - 1];
+        if (CPS && ck2 && (unsigned)(t - lr - i2) < (unsigned)ny) cp2[t] = nw[i2];
+        float vo = nw[R - 1];  // cell (nx-1, ny-1)
+#pragma unroll
+        for (int i = 0; i < R - 1; ++i) vo = i == i_out ? nw[i] : vo;
+        if (t == t_out) out[prob] = vo;
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          c2[i] = c1[i];
+          c1[i] = nw[i];
+        }
+        u1p = up1;
+        if constexpr (kStageDelta) {  // this step's share of chunk mn's copies
+#pragma unroll
+          for (int j = 0; j < (kSpread ? R : (k == 0 ? R * K : 0)); ++j)
+            stage_one<R, REF>(nbuf, delta, sp, kSpread ? k * R + j : j, nx, ny, Ly, lam1, lam2);
+        }
+      }
+      if constexpr (kStageDelta) cp_async_commit();
+      // release what was read, publish what was written
+      if (ring_ok) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty_in + (g_in + m) % ns_in);
+      }
+      if (produce && m - D >= 0 && m - D < nrc) {
+        __syncwarp();
+        if (lane == 31) mbar_arrive(full_out + (g_out + m - D) % ns_out);
+      }
+    }
+    if (produce)  // chunks whose last column came in the band's last chunk
+      for (int j = max(0, M - D); j < nrc; ++j) {
+        __syncwarp();
+        if (lane == 31) mbar_arrive(full_out + (g_out + j) % ns_out);
+      }
+  }
+}
+
+template <int MODE, bool ORDER2, bool BF16>
+cudaError_t launch(const float* a, const float* b, float* out, long long n_problems,
+                   int n_cols, int Lx, int Ly, int d, int T, int lam1, int lam2,
+                   long long smem, cudaStream_t stream) {
+  auto kern = goursat_fwd_fused<MODE, ORDER2, BF16>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  // whole warps: strips of fewer than 32 rows get a wavefront warp of 32
+  const int threads = (T < 32 ? 32 : T) + 32 * band_warps(T);
+  kern<<<(unsigned)n_problems, threads, (size_t)smem, stream>>>(a, b, out, n_cols, Lx, Ly, d,
+                                                               T, lam1, lam2);
   return cudaGetLastError();
 }
 
-template <int MODE, bool CPS = false>
-int dispatch(const float* a, const float* b, float* out, float* cps, long long n_problems,
-             int n_cols, int Lx, int Ly, int d, int T, int lam1, int lam2,
-             int order2, int bf16, long long smem, void* stream) {
-  if (n_problems < 1 || n_problems > 0x7fffffffLL || T < 2 ||
-      T > (MODE == kDelta ? kMaxThreads : kFusedMaxT) || (T & (T - 1)) ||
-      (T >> lam1) < 1 || Lx < 1 || Ly < 1 || (MODE != kDelta && d < 1) ||
+template <int MODE>
+int dispatch(const float* a, const float* b, float* out, long long n_problems, int n_cols,
+             int Lx, int Ly, int d, int T, int lam1, int lam2, int order2, int bf16,
+             long long smem, void* stream) {
+  if (n_problems < 1 || n_problems > 0x7fffffffLL || T < 2 || T > kFusedMaxT ||
+      (T & (T - 1)) || (T >> lam1) < 1 || Lx < 1 || Ly < 1 || d < 1 ||
       smem < smem_bytes(MODE, order2 != 0, T, Ly << lam2, lam1, lam2, d))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
   if (order2)
-    err = bf16 ? launch<MODE, true, true, CPS>(a, b, out, cps, n_problems, n_cols, Lx, Ly,
-                                               d, T, lam1, lam2, smem, s)
-               : launch<MODE, true, false, CPS>(a, b, out, cps, n_problems, n_cols, Lx,
-                                                Ly, d, T, lam1, lam2, smem, s);
+    err = bf16 ? launch<MODE, true, true>(a, b, out, n_problems, n_cols, Lx, Ly, d, T, lam1,
+                                          lam2, smem, s)
+               : launch<MODE, true, false>(a, b, out, n_problems, n_cols, Lx, Ly, d, T, lam1,
+                                           lam2, smem, s);
   else
-    err = bf16 ? launch<MODE, false, true, CPS>(a, b, out, cps, n_problems, n_cols, Lx,
-                                                Ly, d, T, lam1, lam2, smem, s)
-               : launch<MODE, false, false, CPS>(a, b, out, cps, n_problems, n_cols, Lx,
-                                                 Ly, d, T, lam1, lam2, smem, s);
+    err = bf16 ? launch<MODE, false, true>(a, b, out, n_problems, n_cols, Lx, Ly, d, T, lam1,
+                                           lam2, smem, s)
+               : launch<MODE, false, false>(a, b, out, n_problems, n_cols, Lx, Ly, d, T,
+                                            lam1, lam2, smem, s);
+  return (int)err;
+}
+
+template <bool ORDER2, bool BF16, bool CPS, int R>
+cudaError_t launch_wave(const float* delta, float* out, float* cps, long long B, int Lx,
+                        int Ly, int T, int NW, int PB, int lam1, int lam2, long long smem,
+                        cudaStream_t stream) {
+  auto kern = (lam1 | lam2) ? goursat_fwd<ORDER2, BF16, CPS, R, true>
+                            : goursat_fwd<ORDER2, BF16, CPS, R, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (B + PB - 1) / PB;
+  kern<<<(unsigned)blocks, 32 * NW * PB, (size_t)smem, stream>>>(delta, out, cps, B, Lx, Ly,
+                                                                T, NW, lam1, lam2);
+  return cudaGetLastError();
+}
+
+template <bool ORDER2, bool BF16, bool CPS>
+cudaError_t launch_wave_rows(int R, const float* delta, float* out, float* cps, long long B,
+                             int Lx, int Ly, int T, int NW, int PB, int lam1, int lam2,
+                             long long smem, cudaStream_t s) {
+  switch (R) {
+    case 1:
+      return launch_wave<ORDER2, BF16, CPS, 1>(delta, out, cps, B, Lx, Ly, T, NW, PB, lam1,
+                                               lam2, smem, s);
+    case 2:
+      return launch_wave<ORDER2, BF16, CPS, 2>(delta, out, cps, B, Lx, Ly, T, NW, PB, lam1,
+                                               lam2, smem, s);
+    case 4:
+      return launch_wave<ORDER2, BF16, CPS, 4>(delta, out, cps, B, Lx, Ly, T, NW, PB, lam1,
+                                               lam2, smem, s);
+    default:
+      return launch_wave<ORDER2, BF16, CPS, 8>(delta, out, cps, B, Lx, Ly, T, NW, PB, lam1,
+                                               lam2, smem, s);
+  }
+}
+
+// The precomputed-Delta forward at geometry (R, NW, PB); T sets the
+// checkpoint rows' layout only (CPS).
+template <bool CPS>
+int dispatch_wave(const float* delta, float* out, float* cps, long long B, int Lx, int Ly,
+                  int T, int R, int NW, int PB, int lam1, int lam2, int order2, int bf16,
+                  long long smem, void* stream) {
+  if (B < 1 || B > 0x7fffffffLL || Lx < 1 || Ly < 1 || lam1 < 0 || lam2 < 0 ||
+      (R != 1 && R != 2 && R != 4 && R != 8) || kChunk > 32 * R || NW < 1 || PB < 1 ||
+      32LL * NW * PB > wave_max_threads(R) || NW > wave_bands(Lx << lam1, R) ||
+      (CPS && (T < 2 || T > kMaxThreads || (T & (T - 1)) || (T >> lam1) < 1 || R > T)) ||
+      smem < wave_smem_bytes(order2 != 0, R, NW, PB, Lx << lam1, Ly << lam2))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
+  if (order2)
+    err = bf16 ? launch_wave_rows<true, true, CPS>(R, delta, out, cps, B, Lx, Ly, T, NW, PB,
+                                                   lam1, lam2, smem, s)
+               : launch_wave_rows<true, false, CPS>(R, delta, out, cps, B, Lx, Ly, T, NW, PB,
+                                                    lam1, lam2, smem, s);
+  else
+    err = bf16 ? launch_wave_rows<false, true, CPS>(R, delta, out, cps, B, Lx, Ly, T, NW, PB,
+                                                    lam1, lam2, smem, s)
+               : launch_wave_rows<false, false, CPS>(R, delta, out, cps, B, Lx, Ly, T, NW,
+                                                     PB, lam1, lam2, smem, s);
   return (int)err;
 }
 
@@ -956,26 +1315,29 @@ extern "C" {
 // Each entry point launches on `stream`, does not synchronise and returns
 // cudaGetLastError() (0 on success).
 
-int sigkernel_pde_fwd(const float* delta, float* out, long long B, int Lx, int Ly,
-                      int T, int lam1, int lam2, int order2, int bf16, long long smem,
-                      void* stream) {
-  return dispatch<kDelta>(delta, nullptr, out, nullptr, B, 1, Lx, Ly, 0, T, lam1, lam2,
-                          order2, bf16, smem, stream);
+// The precomputed-Delta forward at geometry (R rows a lane, NW warps a
+// problem, PB problems a block; kernel.py / ops.py geometry).
+int sigkernel_pde_fwd(const float* delta, float* out, long long B, int Lx, int Ly, int R,
+                      int NW, int PB, int lam1, int lam2, int order2, int bf16,
+                      long long smem, void* stream) {
+  return dispatch_wave<false>(delta, out, nullptr, B, Lx, Ly, 0, R, NW, PB, lam1, lam2,
+                              order2, bf16, smem, stream);
 }
 
-// cps: (B, n_strips * rows, ny + T + 1), rows = 1 (order 1) or 2 (order 2).
+// cps: (B, n_strips * rows, ny + T + 1), rows = 1 (order 1) or 2 (order 2),
+// strips of T refined rows.
 int sigkernel_pde_fwd_cps(const float* delta, float* out, float* cps, long long B, int Lx,
-                          int Ly, int T, int lam1, int lam2, int order2, int bf16,
-                          long long smem, void* stream) {
-  return dispatch<kDelta, true>(delta, nullptr, out, cps, B, 1, Lx, Ly, 0, T, lam1, lam2,
-                                order2, bf16, smem, stream);
+                          int Ly, int T, int R, int NW, int PB, int lam1, int lam2,
+                          int order2, int bf16, long long smem, void* stream) {
+  return dispatch_wave<true>(delta, out, cps, B, Lx, Ly, T, R, NW, PB, lam1, lam2, order2,
+                             bf16, smem, stream);
 }
 
 int sigkernel_pde_fwd_fused(const float* dx, const float* dy, float* out, long long B,
                             int Lx, int Ly, int d, int T, int lam1, int lam2,
                             int order2, int bf16, long long smem, void* stream) {
-  return dispatch<kFusedPairs>(dx, dy, out, nullptr, B, 1, Lx, Ly, d, T, lam1, lam2,
-                               order2, bf16, smem, stream);
+  return dispatch<kFusedPairs>(dx, dy, out, B, 1, Lx, Ly, d, T, lam1, lam2, order2, bf16,
+                               smem, stream);
 }
 
 int sigkernel_pde_gram_fused(const float* dX, const float* dY, float* out,
@@ -983,8 +1345,8 @@ int sigkernel_pde_gram_fused(const float* dX, const float* dY, float* out,
                              int lam1, int lam2, int order2, int bf16, long long smem,
                              void* stream) {
   if (By < 1 || By > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  return dispatch<kFusedGram>(dX, dY, out, nullptr, Bx * By, (int)By, Lx, Ly, d, T, lam1,
-                              lam2, order2, bf16, smem, stream);
+  return dispatch<kFusedGram>(dX, dY, out, Bx * By, (int)By, Lx, Ly, d, T, lam1, lam2,
+                              order2, bf16, smem, stream);
 }
 
 // cps as sigkernel_pde_fwd_cps wrote it at the same T; ws: B * (ny+T-1) *
@@ -1012,11 +1374,19 @@ int sigkernel_pde_bwd(const float* delta, const float* cps, const float* gbar, f
   return (int)err;
 }
 
-// Shared memory bytes a forward launch needs (mode 0: precomputed Delta, 1:
-// fused pairs, 2: fused Gram), as dispatch checks them.
+// Shared memory bytes a forward launch needs at strip height T (mode 0:
+// precomputed Delta, none; 1: fused pairs, 2: fused Gram), as dispatch checks
+// them.
 long long sigkernel_pde_smem_bytes(int mode, int order2, int T, int Ly, int lam1, int lam2,
                                    int d) {
   return smem_bytes(mode, order2 != 0, T, Ly << lam2, lam1, lam2, d);
+}
+
+// Shared memory bytes of the precomputed-Delta forward at geometry (R, NW,
+// PB), as dispatch_wave checks them.
+long long sigkernel_pde_fwd_smem_bytes(int order2, int R, int NW, int PB, int Lx, int Ly,
+                                       int lam1, int lam2) {
+  return wave_smem_bytes(order2 != 0, R, NW, PB, Lx << lam1, Ly << lam2);
 }
 
 const char* sigkernel_pde_error_string(int err) {

@@ -29,7 +29,10 @@ by problem shape and strip height).  Beside each is its plain version
 ``gram_fused_plain``, ``solve_grad_plain``): vectorised anti-diagonal
 wavefronts in PyTorch, with Δ built by ``einsum`` for the fused pair.
 ``fused_band_plain`` mirrors how the fused kernels build Δ: band by band,
-as 16 x 8 tiles, through the same staged rows, ring and skewed band.  The
+as 16 x 8 tiles, through the same staged rows, ring and skewed band;
+``fwd_wavefront_plain`` runs the precomputed-Δ forward's own schedule (R
+rows a lane, warps handing band edges down through mbarrier rings, the
+checkpoint rows written by the lanes that own them).  The
 kernels round every operation as these elementwise ops do and take the
 fused dot product in float64, as :func:`stencil.delta_einsum` does, so on
 the card each forward kernel matches its plain version bit for bit in
@@ -55,7 +58,7 @@ _SRC = Path(__file__).resolve().parent / "csrc" / "sigkernel_pde.cu"
 
 #: shared memory one block may use on an H100 (opt-in, 227 KB)
 SMEM_LIMIT = 232448
-#: threads per block
+#: threads per block; the most rows of a checkpoint strip (kMaxThreads)
 MAX_THREADS = 1024
 #: strip height of the fused kernels (kFusedMaxT in the CUDA source: their
 #: blocks add producer warps to the T wavefront threads)
@@ -66,6 +69,15 @@ BWD_MAX_THREADS = 512
 #: wavefront steps whose Δ entries a thread gathers at once (kGroup in the
 #: CUDA source)
 GROUP = 8
+#: the precomputed-Δ forward (goursat_fwd in the CUDA source): rows a lane
+#: may own (R), wavefront steps a chunk (kChunk: Δ staged, band edges handed
+#: over), ring slots between two warps (kSlots), floats a staged line (kLine:
+#: 32 lanes and a pad) and staged chunks a warp keeps (kStages)
+FWD_ROWS = (1, 2, 4, 8)
+CHUNK = 16
+RING_SLOTS = 4
+STAGE_LINE = 33
+STAGES = 2
 #: wavefront steps per Δ band of the fused kernels (kBand in the CUDA source)
 BAND = 32
 #: reverse steps per dΔ tile of the backward kernel (kFlush in the CUDA
@@ -95,13 +107,13 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-            lib.sigkernel_pde_fwd.argtypes = [p, p, ll, i, i, i, i, i, i, i, ll, p]
+            lib.sigkernel_pde_fwd.argtypes = [p, p, ll, i, i, i, i, i, i, i, i, i, ll, p]
             lib.sigkernel_pde_fwd_fused.argtypes = [p, p, p, ll, i, i, i, i, i, i,
                                                     i, i, ll, p]
             lib.sigkernel_pde_gram_fused.argtypes = [p, p, p, ll, ll, i, i, i, i,
                                                      i, i, i, i, ll, p]
-            lib.sigkernel_pde_fwd_cps.argtypes = [p, p, p, ll, i, i, i, i, i, i, i,
-                                                  ll, p]
+            lib.sigkernel_pde_fwd_cps.argtypes = [p, p, p, ll, i, i, i, i, i, i, i, i,
+                                                  i, i, ll, p]
             lib.sigkernel_pde_bwd.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, i, i,
                                               ll, p]
             for fn in (lib.sigkernel_pde_fwd, lib.sigkernel_pde_fwd_fused,
@@ -110,6 +122,8 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.sigkernel_pde_smem_bytes.argtypes = [i, i, i, i, i, i, i]
             lib.sigkernel_pde_smem_bytes.restype = ll
+            lib.sigkernel_pde_fwd_smem_bytes.argtypes = [i] * 8
+            lib.sigkernel_pde_fwd_smem_bytes.restype = ll
             lib.sigkernel_pde_error_string.argtypes = [ctypes.c_int]
             lib.sigkernel_pde_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -144,17 +158,77 @@ def band_geometry(T: int, lam1: int, lam2: int, d: int) -> BandGeometry:
 
 def smem_bytes(fused: bool, scheme: str, T: int, Ly: int, lam1: int, lam2: int,
                d: int = 0) -> int:
-    """Shared memory one block takes: the carried boundary row(s) of length
-    ny+T+1 and three anti-diagonals of T floats, and for the fused kernels
-    the strip's staged dx rows, the dy ring, two bands and a band's new dy
-    rows, all float32 (:class:`BandGeometry`; mirrors ``smem_bytes`` in the
-    CUDA source, which checks it)."""
+    """Shared memory one block of a fused kernel takes at strip height T:
+    the carried boundary row(s) of length ny+T+1, three anti-diagonals of T
+    floats, the strip's staged dx rows, the dy ring, two bands and a band's
+    new dy rows, all float32 (:class:`BandGeometry`; mirrors ``smem_bytes``
+    in the CUDA source, which checks it).  The precomputed-Δ forward
+    (``fused=False``) holds no strip: its block follows its geometry
+    (:func:`fwd_smem_bytes`), so T sets none of its bytes and this is 0."""
+    if not fused:
+        return 0
     rows = 2 if scheme == "order2" else 1
-    n = 4 * (rows * ((Ly << lam2) + T + 1) + 3 * T)
-    if fused:
-        g = band_geometry(T, lam1, lam2, d)
-        n += 4 * ((g.RP + g.NR) * g.S + 2 * (T >> lam1) * g.BS + g.NY * d)
-    return n
+    g = band_geometry(T, lam1, lam2, d)
+    return 4 * (rows * ((Ly << lam2) + T + 1) + 3 * T + (g.RP + g.NR) * g.S
+                + 2 * (T >> lam1) * g.BS + g.NY * d)
+
+
+class FwdGeometry(NamedTuple):
+    """Launch geometry of the precomputed-Δ forward (``ops.geometry`` picks
+    it): R refined rows a lane (a warp covers a band of 32·R rows), ``warps``
+    warps a problem (they take bands w, w + warps, ...) and ``problems``
+    problems a block."""
+    R: int
+    warps: int
+    problems: int
+
+
+def fwd_max_threads(R: int) -> int:
+    """Threads a block of the forward may have at R rows a lane (its launch
+    bound, ``wave_max_threads`` in the CUDA source: registers for R rows)."""
+    return 256 if R >= 8 else (512 if R >= 4 else 1024)
+
+
+def fwd_bands(nx: int, R: int) -> int:
+    """Bands of 32·R refined rows covering nx."""
+    return -(-nx // (32 * R))
+
+
+def fwd_last_slots(nx: int, ny: int, R: int, warps: int) -> int:
+    """Slots of the ring from a pass's last warp back to its first: none
+    unless the warps loop over bands, then a whole row's chunks (at least
+    RING_SLOTS)."""
+    return max(RING_SLOTS, -(-ny // CHUNK)) if fwd_bands(nx, R) > warps else 0
+
+
+def fwd_smem_bytes(scheme: str, geo: FwdGeometry, Lx: int, Ly: int, lam1: int,
+                   lam2: int) -> int:
+    """Shared memory one block of the forward takes (mirrors
+    ``wave_smem_bytes`` in the CUDA source, which checks it): a chunk of
+    ones (2·CHUNK floats, what the first band reads above it); per problem,
+    two mbarriers (16 bytes) and CHUNK columns of the handed-over row(s) per
+    ring slot; per warp, STAGES staged chunks of R x CHUNK lines of
+    STAGE_LINE floats."""
+    nx, ny = Lx << lam1, Ly << lam2
+    rows = 2 if scheme == "order2" else 1
+    slots = (geo.warps - 1) * RING_SLOTS + fwd_last_slots(nx, ny, geo.R, geo.warps)
+    stage = STAGES * geo.R * CHUNK * STAGE_LINE
+    return 8 * CHUNK + geo.problems * (slots * (16 + 4 * CHUNK * rows) + 4 * geo.warps * stage)
+
+
+def check_fwd_geometry(geo: FwdGeometry, Lx: int, lam1: int, T=None) -> None:
+    """Validate a forward geometry for the kernel (in the checkpoint mode at
+    strip height T, a lane's rows hold at most one checkpoint row each:
+    R <= T); raise ValueError otherwise."""
+    R, warps, problems = geo
+    if (R not in FWD_ROWS or warps < 1 or problems < 1
+            or 32 * warps * problems > fwd_max_threads(R)
+            or warps > fwd_bands(Lx << lam1, R) or (T is not None and R > T)):
+        raise ValueError(
+            f"forward geometry {geo} does not fit: R in {FWD_ROWS} (at most the "
+            f"checkpoint strip T={T}), at most "
+            f"{fwd_max_threads(R) if R in FWD_ROWS else '?'} threads a block and at "
+            f"most one warp a band of {32 * R} rows")
 
 
 def ws_stride(T: int) -> int:
@@ -228,29 +302,49 @@ def _smem_checked(fused, scheme, T, Ly, lam1, lam2, d=0, backward=False) -> int:
     else:
         check_strip(T, lam1, scheme, FUSED_MAX_THREADS if fused else MAX_THREADS)
         smem = smem_bytes(fused, scheme, T, Ly, lam1, lam2, d)
+    return _fits(smem, f"T={T}, ny={Ly << lam2}, scheme={scheme!r}")
+
+
+def _fits(smem: int, what: str) -> int:
     if smem > SMEM_LIMIT:
         raise ValueError(
             f"Goursat kernel needs {smem} bytes of shared memory per block "
-            f"(T={T}, ny={Ly << lam2}, scheme={scheme!r}), above the "
-            f"{SMEM_LIMIT}-byte limit of one H100 block")
+            f"({what}), above the {SMEM_LIMIT}-byte limit of one H100 block")
     return smem
 
 
-def fwd(delta: torch.Tensor, T: int, lam1: int, lam2: int, scheme: str,
+def _fwd_geometry(delta: torch.Tensor, geo, lam1: int, lam2: int, scheme: str, T=None):
+    """The forward's geometry and its shared memory: ``geo`` as given, or
+    ``ops.geometry``'s, under a ``LaunchConfig.pde_strip`` cap if ``geo`` is
+    an int (T: the checkpoint strip, if any)."""
+    B, Lx, Ly = delta.shape
+    if not isinstance(geo, FwdGeometry):
+        if geo is not None:
+            check_strip(geo, lam1, scheme)
+        from .ops import geometry
+        geo = geometry(B, Lx, Ly, lam1, lam2, scheme=scheme, max_t=geo, T=T)
+    check_fwd_geometry(geo, Lx, lam1, T)
+    stencil.check_scheme(scheme)
+    return geo, _fits(fwd_smem_bytes(scheme, geo, Lx, Ly, lam1, lam2), f"geometry {geo}")
+
+
+def fwd(delta: torch.Tensor, geo, lam1: int, lam2: int, scheme: str,
         interior_dtype: str) -> torch.Tensor:
-    """k̂[nx, ny] for Δ (B, Lx, Ly) on the card: one block per problem."""
+    """k̂[nx, ny] for Δ (B, Lx, Ly) on the card at geometry ``geo``
+    (:class:`FwdGeometry`; an int is taken as a ``LaunchConfig.pde_strip``
+    cap for ``ops.geometry``)."""
     _check(delta, "delta", 3)
     stencil.check_interior_dtype(interior_dtype)
     B, Lx, Ly = delta.shape
-    smem = _smem_checked(False, scheme, T, Ly, lam1, lam2)
+    geo, smem = _fwd_geometry(delta, geo, lam1, lam2, scheme)
     out = torch.empty(B, device=delta.device, dtype=torch.float32)
     if B == 0:
         return out
     _launch(library().sigkernel_pde_fwd, out, delta.data_ptr(), out.data_ptr(), B,
-            Lx, Ly, T, lam1, lam2, scheme == "order2",
-            interior_dtype == "bfloat16", smem)
+            Lx, Ly, *geo, lam1, lam2, scheme == "order2", interior_dtype == "bfloat16",
+            smem)
     fwd.launches += 1
-    _SHAPES[("fwd", B, Lx, Ly, 0, T)] += 1
+    _SHAPES[("fwd", B, Lx, Ly, 0, tuple(geo))] += 1
     return out
 
 
@@ -301,23 +395,26 @@ def gram_fused(dX: torch.Tensor, dY: torch.Tensor, T: int, lam1: int, lam2: int,
 
 
 def fwd_cps(delta: torch.Tensor, T: int, lam1: int, lam2: int, scheme: str,
-            interior_dtype: str):
+            interior_dtype: str, geo=None):
     """``(k, cps)`` for Δ (B, Lx, Ly) on the card: k̂[nx, ny] and the
     checkpoint rows (B, n_strips·rows, ny+T+1) at strip height T — for
     strip s, row s·rows holds k̂[s·T, ·] and (order2) row s·rows+1 holds
     k̂[s·T−1, ·], each as the carried row stood when the strip began, in
-    the layout of the JAX kernel's ``save_cps=True`` output."""
+    the layout of the JAX kernel's ``save_cps=True`` output.  The kernel's
+    geometry is free of T but for R <= T: ``geo`` (default
+    ``ops.geometry``'s)."""
     _check(delta, "delta", 3)
     stencil.check_interior_dtype(interior_dtype)
+    check_strip(T, lam1, scheme)
     B, Lx, Ly = delta.shape
-    smem = _smem_checked(False, scheme, T, Ly, lam1, lam2)
+    geo, smem = _fwd_geometry(delta, geo, lam1, lam2, scheme, T)
     out = torch.empty(B, device=delta.device, dtype=torch.float32)
     cps = torch.empty(B, n_strips(Lx, T, lam1) * cps_rows(scheme), (Ly << lam2) + T + 1,
                       device=delta.device, dtype=torch.float32)
     if B == 0:
         return out, cps
     _launch(library().sigkernel_pde_fwd_cps, out, delta.data_ptr(), out.data_ptr(),
-            cps.data_ptr(), B, Lx, Ly, T, lam1, lam2, scheme == "order2",
+            cps.data_ptr(), B, Lx, Ly, T, *geo, lam1, lam2, scheme == "order2",
             interior_dtype == "bfloat16", smem)
     fwd_cps.launches += 1
     _SHAPES[("fwd_cps", B, Lx, Ly, 0, T)] += 1
@@ -374,7 +471,8 @@ def launch_counts() -> dict:
 def launch_shapes() -> dict:
     """``{(launcher name, problems, Lx, Ly, d, T): launches}`` since the last
     reset (problems is (Bx, By) for ``gram_fused``; d = 0 for the kernels
-    that read a precomputed Δ)."""
+    that read a precomputed Δ; for ``fwd``, which has no strip, T is its
+    geometry (R, warps, problems))."""
     return dict(_SHAPES)
 
 
@@ -519,6 +617,18 @@ def _unskew(D: torch.Tensor, n: int) -> torch.Tensor:
     return torch.gather(D.permute(1, 2, 0), 2, idx.expand(D.shape[1], nl, n))
 
 
+def _cell(p, left, up, upleft, k_dl, k_ul, edge, scheme: str, interior_dtype: str):
+    """One cell of either stencil from its neighbours' values, in the
+    kernels' order of operations and rounding (``stencil_cell`` in the CUDA
+    source)."""
+    if scheme == "order2":
+        cur = ((left + up) * stencil.coeff_A(p) - upleft * stencil.coeff_B2_at(p, edge)
+               - (k_dl + k_ul) * stencil.coeff_C2_at(p, edge))
+    else:
+        cur = (left + up) * stencil.coeff_A(p) - upleft * stencil.coeff_B1(p)
+    return stencil.round_interior(cur, interior_dtype)
+
+
 def _strip_wavefront(P: torch.Tensor, brow: torch.Tensor, brow2, lam1: int, lam2: int,
                      scheme: str, interior_dtype: str) -> torch.Tensor:
     """One strip of T refined rows, all N strips at once: refined Δ (N, T,
@@ -546,12 +656,9 @@ def _strip_wavefront(P: torch.Tensor, brow: torch.Tensor, brow2, lam1: int, lam2
             edge = (lanes % m1 == 0) | (c % m2 == 0)
             k_dl = torch.where(c <= 1, 1.0, prev2)
             k_ul = torch.cat([brow2[:, t + 1:t + 2], brow[:, t:t + 1], prev2[:, :-2]], dim=1)
-            cur = ((left + up) * stencil.coeff_A(p)
-                   - upleft * stencil.coeff_B2_at(p, edge)
-                   - (k_dl + k_ul) * stencil.coeff_C2_at(p, edge))
+            cur = _cell(p, left, up, upleft, k_dl, k_ul, edge, scheme, interior_dtype)
         else:
-            cur = (left + up) * stencil.coeff_A(p) - upleft * stencil.coeff_B1(p)
-        cur = stencil.round_interior(cur, interior_dtype)
+            cur = _cell(p, left, up, upleft, None, None, None, scheme, interior_dtype)
         cur = torch.where((c >= 0) & (c < ny), cur, 0.0)
         prev2, prev = prev, cur
         diags.append(cur)
@@ -583,6 +690,145 @@ def solve_with_grid_plain(delta: torch.Tensor, T: int, lam1: int, lam2: int,
         brow = torch.cat([brow[:, :1], rows[:, T - 1], brow[:, ny + 1:]], dim=1)
     k = rows[:, nx - 1 - (S - 1) * T, ny - 1]
     return k, torch.stack(cps, dim=1)
+
+
+def fwd_wavefront_plain(delta: torch.Tensor, geo: FwdGeometry, lam1: int, lam2: int,
+                        scheme: str, interior_dtype: str, T=None):
+    """The precomputed-Δ forward's own schedule, in plain PyTorch: k̂[nx, ny]
+    (B,) for Δ (B, Lx, Ly) at geometry ``geo`` and, given a strip height T,
+    also the checkpoint rows of :func:`fwd_cps`, as ``(k, cps)``.
+
+    As the kernel runs it (``goursat_fwd`` in the CUDA source): lane l of a
+    warp owns rows l·R .. l·R+R−1 of its band of 32·R rows and at local step
+    t computes their cells (l·R+i, t−l·R−i) from its own values of steps t−1
+    and t−2 and, for its top row, lane l−1's (the shuffles; lane 0 reads the
+    band above's bottom row(s) from the ring, or 1 on the first band).  Each
+    chunk of CHUNK steps reads Δ staged with zeros off the grid.  The warps
+    of a problem take bands w, w+warps, ...; each warp is a generator that
+    yields while its mbarrier waits are not met (full before a chunk reads
+    the ring, empty before it writes a slot of its own), and the warps run
+    round-robin, so the rings' slot counts and phases are those of the
+    kernel and a schedule that could deadlock raises.  Ring entries not yet
+    written and checkpoint entries the kernel never writes are NaN, so a
+    read or a row the kernel would miss shows in the result.
+    """
+    B, Lx, Ly = delta.shape
+    nx, ny = Lx << lam1, Ly << lam2
+    R, NW = geo.R, geo.warps
+    K, RB = CHUNK, 32 * R
+    D = RB // K
+    n_bands, nrc = fwd_bands(nx, R), -(-ny // K)
+    ns = [RING_SLOTS] * (NW - 1) + [fwd_last_slots(nx, ny, R, NW)]
+    order2 = scheme == "order2"
+    rows = cps_rows(scheme)
+    dev, dt, nan = delta.device, delta.dtype, float("nan")
+    m1, m2 = (1 << lam1) - 1, (1 << lam2) - 1
+    scale = 2.0 ** -(lam1 + lam2)
+    ring = [torch.full((B, n, 2, K), nan, dtype=dt, device=dev) for n in ns]
+    full = [[0] * n for n in ns]     # phases each slot's full barrier completed
+    empty = [[0] * n for n in ns]
+    k_out = delta.new_full((B,), nan)
+    cps = None
+    if T is not None:
+        S, W = n_strips(Lx, T, lam1), ny + T + 1
+        cps = delta.new_full((B, S * rows, W), nan)
+        cps[:, :rows] = 1.0                  # the constant entries, written up front
+        cps[:, rows:, 0] = 1.0
+        cps[:, rows:, ny + 1:] = 1.0
+        if order2:
+            cps[:, rows + 1::rows, ny + 1] = 0.0
+    lr = torch.arange(32, device=dev)[:, None] * R          # (32, 1)
+    ii = torch.arange(R, device=dev)
+    ones = delta.new_ones(B, 32, R)
+
+    def warp(w):
+        wc = NW - 1 if w == 0 else w - 1
+        for q, b in enumerate(range(w, n_bands, NW)):
+            base = b * RB
+            loc = lr + ii                                         # (32, R) rows of the band
+            rho = base + loc
+            M = -(-(ny + min(RB, nx - base) - 1) // K)
+            consume, produce = b > 0, b + 1 < n_bands
+            g_in, g_out = (q - 1 if w == 0 else q) * nrc, q * nrc
+            edge_r = (rho & m1) == 0
+            if T is not None:
+                s1 = torch.where(((rho + 1) % T == 0) & ((rho + 1) // T < S), (rho + 1) // T, 0)
+                s2 = torch.where(((rho + 2) % T == 0) & ((rho + 2) // T < S) & order2,
+                                 (rho + 2) // T, 0)
+            c1, c2, u1p = ones, ones, ones[:, :, 0]
+            for m in range(M):
+                ring_ok = consume and m < nrc
+                if ring_ok:
+                    g = g_in + m
+                    while full[wc][g % ns[wc]] <= g // ns[wc]:
+                        yield
+                    r_in = ring[wc][:, g % ns[wc]]
+                if produce and 0 <= m - D + 1 < nrc and g_out + m - D + 1 >= ns[w]:
+                    g = g_out + m - D + 1
+                    while empty[w][g % ns[w]] < g // ns[w]:
+                        yield
+                t = m * K + torch.arange(K, device=dev)[:, None, None]
+                c = t - loc                                       # (K, 32, R) columns
+                ok = (rho < nx) & (c >= 0) & (c < ny)
+                P = delta[:, (rho >> lam1).clamp(max=Lx - 1), c.clamp(0, ny - 1) >> lam2]
+                P = torch.where(ok, P, 0.0) * scale               # the staged chunk
+                for k in range(K):
+                    tk = m * K + k
+                    if ring_ok:
+                        top1, top2 = r_in[:, 0, k:k + 1], r_in[:, 1, k:k + 1]
+                    else:
+                        top1 = top2 = delta.new_ones(B, 1)
+                    up1 = torch.cat([top1, c1[:, :-1, R - 1]], dim=1)            # (B, 32)
+                    if order2:
+                        send = c2[:, :, R - 2] if R >= 2 else u1p
+                        up2 = torch.cat([top2, send[:, :-1]], dim=1)
+                    up = torch.cat([up1[:, :, None], c1[:, :, :-1]], dim=2)
+                    upleft = torch.cat([u1p[:, :, None], c2[:, :, :-1]], dim=2)
+                    if order2:
+                        k_ul = torch.cat([up2[:, :, None], u1p[:, :, None], c2[:, :, :-2]],
+                                         dim=2)[:, :, :R]
+                        edge = edge_r | (((tk - loc) & m2) == 0)
+                        nw = _cell(P[:, k], c1, up, upleft, c2, k_ul, edge, scheme,
+                                   interior_dtype)
+                    else:
+                        nw = _cell(P[:, k], c1, up, upleft, None, None, None, scheme,
+                                   interior_dtype)
+                    if produce:  # the band's bottom row(s) into the ring, column by column
+                        for which, cb, v in ((0, tk - RB + 1, nw[:, 31, R - 1]),
+                                             (1, tk - RB + 2, nw[:, 31 if R >= 2 else 30,
+                                                                  R - 2 if R >= 2 else 0])):
+                            if (which == 0 or order2) and 0 <= cb < ny:
+                                g = g_out + cb // K
+                                assert empty[w][g % ns[w]] >= g // ns[w], "slot still in use"
+                                ring[w][:, g % ns[w], which, cb % K] = v
+                    col = tk - loc
+                    on = (col >= 0) & (col < ny)
+                    if cps is not None:  # the lanes that own checkpoint rows
+                        for srow, add in ((s1, 0), (s2, 1)):
+                            sel = on & (srow > 0)
+                            if sel.any():
+                                cps[:, srow[sel] * rows + add, col[sel] + 1] = nw[:, sel]
+                    hit = (rho == nx - 1) & (col == ny - 1)
+                    if hit.any():
+                        k_out.copy_(nw[:, hit][:, 0])
+                    c2, c1, u1p = c1, nw, up1
+                if ring_ok:
+                    empty[wc][(g_in + m) % ns[wc]] += 1
+                if produce and 0 <= m - D < nrc:
+                    full[w][(g_out + m - D) % ns[w]] += 1
+            if produce:
+                for j in range(max(0, M - D), nrc):
+                    full[w][(g_out + j) % ns[w]] += 1
+
+    running = [warp(w) for w in range(min(NW, n_bands))]
+    while running:  # round-robin; a round in which no warp moves is a deadlock
+        before = sum(map(sum, full)) + sum(map(sum, empty)), len(running)
+        for gen in list(running):
+            if next(gen, StopIteration) is StopIteration:
+                running.remove(gen)
+        if running and (sum(map(sum, full)) + sum(map(sum, empty)), len(running)) == before:
+            raise RuntimeError(f"forward schedule deadlocks at geometry {geo}")
+    return k_out if T is None else (k_out, cps)
 
 
 def solve_grad_plain(delta: torch.Tensor, cps: torch.Tensor, gbar: torch.Tensor, T: int,

@@ -6,7 +6,9 @@ Counterpart of ``repro/kernels/sigkernel_pde/ops.py``.  Responsibilities:
   upcast, float64 is cast down as the JAX wrappers do); the CPU path keeps
   at least float32, so float64 stays float64 there;
 * batch flattening;
-* the strip height T for this card (:func:`choose_T`);
+* the launch geometry of the precomputed-Δ forward (:func:`geometry`) and
+  the strip height T of the fused kernels and of the checkpoint rows the
+  backward reads (:func:`choose_T`);
 * device routing: a CUDA tensor launches the kernel (or raises), a CPU
   tensor takes the kernel's plain version.  There is no fallback between
   the two;
@@ -15,10 +17,10 @@ Counterpart of ``repro/kernels/sigkernel_pde/ops.py``.  Responsibilities:
   (``ops.py:165-241``): Δ is rebuilt where the forward never held it, the
   forward reruns in its checkpoint mode (``solve_with_grid``), the
   backward kernel gives ∂F/∂Δ (``solve_grad``), and ``einsum`` pulls it
-  back onto the increments.  The strip height T is chosen once per
-  forward and kept for its backward, so the backward's strips line up with
-  the checkpoint rows.  Without an input that requires grad, the forward
-  takes the plain forward kernel and saves nothing.
+  back onto the increments.  The checkpoint rows' strip height T is chosen
+  once per forward and kept for its backward, so the backward's strips line
+  up with them.  Without an input that requires grad, the forward takes the
+  plain forward kernel and saves nothing.
 
 The zero padding of Lx to the strip (JAX ``ops.py:49-54``, ``:147-149``,
 ``:201-203``) happens inside the kernels by index arithmetic: rows at or
@@ -42,44 +44,97 @@ from . import kernel, stencil
 #: add producer warps to the wavefront, take 128 there: at every many-problem
 #: launch of the main paths (2,048 to 16,384 pairs of 255 x 255, d = 8) 128
 #: beat 64 by 14-16% and 256 by 45-50% (chip_smoke strip sweep, H100 SXM).
+#: The checkpoint rows keep these strips: the backward kernel sweeps them.
 _FEW_PROBLEMS_T = 512
 _MANY_PROBLEMS = 4 * 132
 _MANY_PROBLEMS_T = 64
 _MANY_PROBLEMS_FUSED_T = 128
+
+#: The precomputed-Δ forward's rows a lane (kernel_bench ablate-fwd on an
+#: H100, every launch shape of the main paths, both modes): R = 2 led at all
+#: of them, from 64 to 16,384 pairs of 255 x 255 and at 128 x (1023, 1023);
+#: R = 1 leaves a lane one cell a step and R >= 4 adds 32 idle lane-steps a
+#: row to each band's skew and more copies to each warp's chunk.
+_ROWS = 2
+#: problems a block packs up to this many warps (small problems of one or
+#: two warps each; one problem a block led wherever a problem had four)
+_BLOCK_WARPS = 4
 
 
 def _pow2_ceil(n: int) -> int:
     return 1 << max(0, int(n) - 1).bit_length()
 
 
+def geometry(n_problems: int, Lx: int, Ly: int, lam1: int = 0, lam2: int = 0, *,
+             scheme: str = "order1", max_t=None, T=None) -> kernel.FwdGeometry:
+    """Launch geometry of the precomputed-Δ forward for one launch on an H100.
+
+    R (rows a lane): ``_ROWS``, at most the refined rows rounded up over
+    32.  Warps a problem: one a band of 32·R rows, within the block's
+    thread limit (:func:`kernel.fwd_max_threads`) and shared memory; fewer
+    warps loop over the bands.  Problems a block: packed up to
+    ``_BLOCK_WARPS`` warps.  ``max_t`` (a ``LaunchConfig.pde_strip`` cap)
+    caps the rows a problem's warps cover at once at max(32, max_t); the
+    checkpoint mode's strip height T caps R (a lane holds at most one
+    checkpoint row).  The chunk of steps (staging, hand-over) is the CUDA
+    source's constant, ``kernel.CHUNK``.  Raises ValueError when no geometry
+    fits one block.
+    """
+    nx = Lx << lam1
+    cap = max(32, max_t) if max_t else None
+    R = _ROWS
+    while R > 1 and (32 * R > _pow2_ceil(nx) or (cap and 32 * R > cap) or (T and R > T)):
+        R //= 2
+
+    def fits(g):
+        return (32 * g.warps * g.problems <= kernel.fwd_max_threads(g.R) and
+                kernel.fwd_smem_bytes(scheme, g, Lx, Ly, lam1, lam2) <= kernel.SMEM_LIMIT)
+
+    warps = min(kernel.fwd_bands(nx, R), kernel.fwd_max_threads(R) // 32)
+    if cap:
+        warps = min(warps, max(1, cap // (32 * R)))
+    while warps > 1 and not fits(kernel.FwdGeometry(R, warps, 1)):
+        warps -= 1
+    geo = kernel.FwdGeometry(R, warps, 1)
+    if not fits(geo):
+        raise ValueError(
+            f"no forward geometry fits one H100 block: {geo} needs "
+            f"{kernel.fwd_smem_bytes(scheme, geo, Lx, Ly, lam1, lam2)} bytes of shared "
+            f"memory (limit {kernel.SMEM_LIMIT}; nx={nx}, ny={Ly << lam2}, "
+            f"scheme={scheme!r}) — lower lam1/lam2 or shorten the paths")
+    while (2 * geo.problems <= n_problems and 2 * geo.problems * warps <= _BLOCK_WARPS
+           and fits(geo._replace(problems=2 * geo.problems))):
+        geo = geo._replace(problems=2 * geo.problems)
+    return geo
+
+
 def choose_T(Lx: int, Ly: int, lam1: int, lam2: int, n_problems: int, *,
-             d: int = 0, scheme: str = "order1", max_t=None,
-             backward: bool = False) -> int:
-    """Strip height (threads per block) for one launch on an H100.
+             d: int = 0, scheme: str = "order1", max_t=None) -> int:
+    """Strip height for one launch on an H100: the threads a wavefront of a
+    fused kernel (``d > 0``) runs, or, for the kernels that read a
+    precomputed Δ (``d = 0``), the strip of the checkpoint rows that the
+    checkpoint forward writes and the backward kernel sweeps (the plain
+    forward has no strip: :func:`geometry`).
 
     The largest power of two that is at most ``max_t`` (a
-    ``LaunchConfig.pde_strip`` cap; default 512 threads, or 64 when the
-    launch has more than ``_MANY_PROBLEMS`` blocks, 128 for the fused
-    kernels), at most the refined
-    row count rounded up, at least ``max(2, 2**lam1)``, and whose shared
-    memory fits one block (fused launches, ``d > 0``: at most
-    ``kernel.FUSED_MAX_THREADS``).  ``backward=True`` picks the one T that
-    both the checkpoint forward and the backward kernel take (at most
-    ``kernel.BWD_MAX_THREADS``, and the backward's shared memory fits too).
-    Raises ValueError when even the smallest strip does not fit.
+    ``LaunchConfig.pde_strip`` cap; default 512, or 64 when the launch has
+    more than ``_MANY_PROBLEMS`` problems, 128 for the fused kernels), at
+    most the refined row count rounded up, at least ``max(2, 2**lam1)``,
+    and whose shared memory fits one block: the fused kernel's (at most
+    ``kernel.FUSED_MAX_THREADS``), or the backward kernel's (at most
+    ``kernel.BWD_MAX_THREADS``).  Raises ValueError when even the smallest
+    strip does not fit.
     """
     fused = d > 0
     t_min = max(2, 1 << lam1)
-    max_threads = (kernel.BWD_MAX_THREADS if backward else
-                   kernel.FUSED_MAX_THREADS if fused else kernel.MAX_THREADS)
+    max_threads = kernel.FUSED_MAX_THREADS if fused else kernel.BWD_MAX_THREADS
     many_t = _MANY_PROBLEMS_FUSED_T if fused else _MANY_PROBLEMS_T
     cap = max_t or (many_t if n_problems > _MANY_PROBLEMS else _FEW_PROBLEMS_T)
 
     def need(T):
-        n = kernel.smem_bytes(fused, scheme, T, Ly, lam1, lam2, d)
-        if backward:
-            n = max(n, kernel.smem_bytes_bwd(scheme, T, Ly, lam1, lam2))
-        return n
+        if fused:
+            return kernel.smem_bytes(True, scheme, T, Ly, lam1, lam2, d)
+        return kernel.smem_bytes_bwd(scheme, T, Ly, lam1, lam2)
 
     T = max(t_min, min(cap, max_threads, _pow2_ceil(Lx << lam1)))
     while T > t_min and need(T) > kernel.SMEM_LIMIT:
@@ -129,8 +184,8 @@ def solve(delta: torch.Tensor, lam1: int = 0, lam2: int = 0, launch=None,
         k = kernel.solve_plain(flat, lam1, lam2, scheme, interior_dtype)
     else:
         B, Lx, Ly = flat.shape
-        T = choose_T(Lx, Ly, lam1, lam2, B, scheme=scheme, max_t=_max_t(launch))
-        k = kernel.fwd(flat, T, lam1, lam2, scheme, interior_dtype)
+        geo = geometry(B, Lx, Ly, lam1, lam2, scheme=scheme, max_t=_max_t(launch))
+        k = kernel.fwd(flat, geo, lam1, lam2, scheme, interior_dtype)
     return k.reshape(delta.shape[:-2])
 
 
@@ -142,12 +197,12 @@ def solve_with_grid(delta: torch.Tensor, lam1: int = 0, lam2: int = 0, launch=No
     device = _route(delta)
     flat = _flat(delta, device)
     B, Lx, Ly = flat.shape
-    T = choose_T(Lx, Ly, lam1, lam2, B, scheme=scheme, max_t=_max_t(launch),
-                 backward=True)
+    T = choose_T(Lx, Ly, lam1, lam2, B, scheme=scheme, max_t=_max_t(launch))
     if device == "cpu":
         k, cps = kernel.solve_with_grid_plain(flat, T, lam1, lam2, scheme, interior_dtype)
     else:
-        k, cps = kernel.fwd_cps(flat, T, lam1, lam2, scheme, interior_dtype)
+        k, cps = kernel.fwd_cps(flat, T, lam1, lam2, scheme, interior_dtype,
+                                geometry(B, Lx, Ly, lam1, lam2, scheme=scheme, T=T))
     return k.reshape(delta.shape[:-2]), cps, T
 
 

@@ -90,7 +90,7 @@ def test_cps_and_bwd_match_plain(cuda, scheme, idt, lam, strip):
     and solve_grad_plain; Lx = 44 is no multiple of the strip and nx > ny."""
     delta = torch.einsum("bid,bjd->bij", _incs(4, 3, 45, 5, cuda), _incs(5, 3, 30, 5, cuda))
     gbar = _incs(6, 1, 1, 3, cuda).reshape(3)
-    T = ops.choose_T(44, 29, *lam, 3, scheme=scheme, max_t=strip, backward=True)
+    T = ops.choose_T(44, 29, *lam, 3, scheme=scheme, max_t=strip)
     before = (kernel.fwd_cps.launches, kernel.bwd.launches)
     k, cps = kernel.fwd_cps(delta, T, *lam, scheme, idt)
     dd = kernel.bwd(delta, cps, gbar, T, *lam, scheme, idt)
@@ -208,7 +208,11 @@ def test_fused_kernels_mid_size(cuda, which, record_property):
 @pytest.mark.gpu
 def test_smem_bytes_mirrors_the_cuda_layout(cuda):
     """kernel.smem_bytes (which choose_T reads) equals the CUDA source's
-    smem_bytes, which the launch checks, for every forward mode."""
+    smem_bytes, which the launch checks, for every forward mode (the
+    precomputed-Δ forward's strip height sets none of its bytes), and
+    kernel.fwd_smem_bytes (which ops.geometry reads) the source's
+    wave_smem_bytes at every geometry: R rows a lane, one or several warps
+    and problems, one pass or a loop over bands (the wrap ring)."""
     lib = kernel.library()
     for T in (2, 4, 16, 32, 64, 256, 512):
         for lam1, lam2 in ((0, 0), (1, 2), (2, 0), (0, 3)):
@@ -219,6 +223,51 @@ def test_smem_bytes_mirrors_the_cuda_layout(cuda):
                     want = lib.sigkernel_pde_smem_bytes(mode, scheme == "order2", T, 255,
                                                         lam1, lam2, d)
                     assert kernel.smem_bytes(mode > 0, scheme, T, 255, lam1, lam2, d) == want
+    for R in kernel.FWD_ROWS:
+        for warps, problems in ((1, 1), (1, 4), (2, 2), (3, 1), (8, 1)):
+            for Lx, Ly, lam1, lam2 in ((255, 255, 0, 0), (1023, 1023, 0, 0), (100, 300, 1, 2)):
+                for scheme in ("order1", "order2"):
+                    geo = kernel.FwdGeometry(R, warps, problems)
+                    want = lib.sigkernel_pde_fwd_smem_bytes(scheme == "order2", R, warps,
+                                                            problems, Lx, Ly, lam1, lam2)
+                    assert kernel.fwd_smem_bytes(scheme, geo, Lx, Ly, lam1, lam2) == want
+
+
+#: (nx, scheme, interior dtype, (lam1, lam2), checkpoint strip T)
+WAVE_CASES = ([(nx, "order1", "float32", (0, 0), 64) for nx in (31, 32, 33, 255, 256, 257, 1023)]
+              + [(nx, "order2", "bfloat16", (0, 0), 16) for nx in (33, 257, 1023)]
+              + [(257, "order2", "float32", (0, 0), 2), (256, "order1", "float32", (2, 0), 4),
+                 (260, "order2", "bfloat16", (2, 1), 8)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nx, scheme, idt, lam, T", WAVE_CASES,
+                         ids=[f"nx{n}-{s}-{i}-lam{a}{b}-T{T}" for n, s, i, (a, b), T in WAVE_CASES])
+def test_wavefront_geometries_match_plain(cuda, nx, scheme, idt, lam, T):
+    """The register-wavefront forward at every R the geometry can pick (one
+    pass of warps, a loop of one warp over the bands, and several problems
+    a block), both modes, against solve_plain and solve_with_grid_plain
+    exactly (k and the checkpoint rows); the backward on those checkpoint
+    rows against solve_grad_plain (1e-4, its fold's order)."""
+    Lx, Ly = nx >> lam[0], 40
+    delta = torch.einsum("bid,bjd->bij", _incs(70 + nx, 3, Lx + 1, 4, cuda),
+                         _incs(71 + nx, 3, Ly + 1, 4, cuda))
+    k_plain = kernel.solve_plain(delta, *lam, scheme, idt)
+    kg, cps_plain = kernel.solve_with_grid_plain(delta, T, *lam, scheme, idt)
+    gbar = _incs(72, 1, 1, 3, cuda).reshape(3)
+    dd_plain = kernel.solve_grad_plain(delta, cps_plain, gbar, T, *lam, scheme, idt)
+    torch.testing.assert_close(kg, k_plain, rtol=0, atol=0)
+    for R in kernel.FWD_ROWS:
+        bands = kernel.fwd_bands(nx, R)
+        for geo in {kernel.FwdGeometry(R, min(bands, kernel.fwd_max_threads(R) // 32), 1),
+                    kernel.FwdGeometry(R, 1, 1), kernel.FwdGeometry(R, 1, 2)}:
+            assert torch.equal(kernel.fwd(delta, geo, *lam, scheme, idt), k_plain), geo
+            if R > T:
+                continue
+            k, cps = kernel.fwd_cps(delta, T, *lam, scheme, idt, geo)
+            assert torch.equal(k, k_plain), geo
+            assert torch.equal(cps, cps_plain), geo
+            _close(kernel.bwd(delta, cps, gbar, T, *lam, scheme, idt), dd_plain, 1e-4)
 
 
 @pytest.mark.gpu

@@ -169,7 +169,7 @@ def test_backward_strip_fits_one_block(Lx, Ly, lam1, lam2, scheme):
     both kernels' shared memory fits (the backward's two staged workspace
     groups and two dΔ tiles included), and every workspace row starts on
     16 bytes, as the backward's bulk copies need."""
-    T = ops.choose_T(Lx, Ly, lam1, lam2, 128, scheme=scheme, backward=True)
+    T = ops.choose_T(Lx, Ly, lam1, lam2, 128, scheme=scheme)
     kernel.check_strip(T, lam1, scheme, kernel.BWD_MAX_THREADS)
     assert kernel.smem_bytes_bwd(scheme, T, Ly, lam1, lam2) <= kernel.SMEM_LIMIT
     assert kernel.smem_bytes(False, scheme, T, Ly, lam1, lam2) <= kernel.SMEM_LIMIT

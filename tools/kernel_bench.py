@@ -4,6 +4,7 @@
     python3 tools/kernel_bench.py ablate  --old DIR [--set original|redesign] [--out FILE]
     python3 tools/kernel_bench.py ablate-horner --old DIR [--out FILE]
     python3 tools/kernel_bench.py ablate-fused --old DIR [--out FILE]
+    python3 tools/kernel_bench.py ablate-fwd --old DIR [--out FILE]
     python3 tools/kernel_bench.py compare --old DIR [--out FILE]
 
 ``DIR`` holds a version of the kernel sources (``sigkernel_pde.cu`` and,
@@ -35,12 +36,25 @@ built at all (the wavefront and the band hand-over alone, wrong values),
 dx and dy staged as float64, other producer warp counts, 80 registers a
 thread, and a 16-step band.
 
+``ablate-fwd`` times variants of the precomputed-Δ forward of ``DIR``
+(``--old src/repro_torch/kernels/sigkernel_pde/csrc``), both modes, at
+every shape B1 and B1-cps launch at (``WAVE_SHAPES``), over R in {1, 2, 4,
+8} rows a lane and 1, 2 or 4 problems a block: as it is, its copies
+without the L2 prefetch hint, three staged chunks, a chunk's copies in one
+burst instead of spread over the steps,
+32-step chunks, Δ in registers instead of staged, and no copies at all
+(timing only); each checked bit for bit against the source as it is (a
+variant the source has no part for is skipped).
+
 ``compare`` times the Goursat kernels of ``DIR`` (the parent's
 ``sigkernel_pde.cu``, whose C interfaces it calls; built under another
 library name) against the repo's, in turns (old, new, new, old): the fused
 kernels B4 and B3 at every main-path shape they launch at
-(``FUSED_SHAPES``), and B1, B1-cps and B2 at Δ (128, 1023, 1023), and
-checks that old and new agree within 1e-4 (relative to the largest value).
+(``FUSED_SHAPES``), B1 and B1-cps at every shape they launch at
+(``WAVE_SHAPES``; the parent's per-strip kernel against the register
+wavefront), and B2 at Δ (128, 1023, 1023), and checks that old and new
+agree within 1e-4 (relative to the largest value), and whether bit for bit.
+Every ``-Xptxas -v`` line of both builds is printed.
 """
 
 from __future__ import annotations
@@ -157,7 +171,9 @@ def _nvcc_all(jobs):
     return reports
 
 
-def _time_ms(fn, reps: int) -> list:
+def _time_ms(fn, reps: int, inner: int = 1) -> list:
+    """CUDA-event times of fn, ms a launch: reps samples of `inner`
+    launches back to back (so that the host's launch gaps do not count)."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -165,10 +181,11 @@ def _time_ms(fn, reps: int) -> list:
     for _ in range(reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        out.append(a.elapsed_time(b))
+        out.append(a.elapsed_time(b) / inner)
     return out
 
 
@@ -187,9 +204,8 @@ def _card():
 def _goursat(lib_path):
     lib = ctypes.CDLL(str(lib_path))
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.sigkernel_pde_fwd_cps.argtypes = [p, p, p, ll, i, i, i, i, i, i, i, ll, p]
     lib.sigkernel_pde_bwd.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, i, i, ll, p]
-    lib.sigkernel_pde_fwd_cps.restype = lib.sigkernel_pde_bwd.restype = ctypes.c_int
+    lib.sigkernel_pde_bwd.restype = ctypes.c_int
     return lib
 
 
@@ -214,20 +230,15 @@ def _b2_inputs():
 
 
 def _bwd_call(lib, delta, gbar, T, original):
-    """A closure that runs the backward of ``lib`` (its own checkpoint
-    forward first, once) and returns dΔ; ``original``: the original
-    source's workspace and shared memory, else the repo's."""
+    """A closure that runs the backward of ``lib`` on the checkpoint rows of
+    the repo's checkpoint forward (bit for bit those of every earlier
+    version) and returns dΔ; ``original``: the original source's shared
+    memory, else the repo's."""
     import torch
+    from repro_torch.kernels.sigkernel_pde import kernel
     B, Lx, Ly = delta.shape
-    W = Ly + T + 1
-    S = -(-Lx // T)
     stream = torch.cuda.current_stream().cuda_stream
-    k = torch.empty(B, device=delta.device)
-    cps = torch.empty(B, S, W, device=delta.device)
-    smem_f = 4 * (W + 3 * T)
-    err = lib.sigkernel_pde_fwd_cps(delta.data_ptr(), k.data_ptr(), cps.data_ptr(), B, Lx,
-                                    Ly, T, 0, 0, 0, 0, smem_f, stream)
-    assert err == 0, err
+    cps = kernel.fwd_cps(delta, T, 0, 0, "order1", "float32")[1]
     ws = torch.zeros(B * (Ly + T - 1) * max(T, 4), device=delta.device)
     dd = torch.zeros_like(delta)
     smem = _bwd_smem(T, Ly, original)
@@ -499,12 +510,6 @@ FUSED_SHAPES = (("fwd_fused", 128, 1024, 1024, 32), ("fwd_fused", 4096, 256, 256
                 ("gram_fused", (128, 128), 256, 256, 8), ("gram_fused", (64, 64), 256, 256, 8))
 
 
-def _old_fused_smem(T, ny, d):
-    """smem_bytes of the parent's fused kernels (order 1, lam = 0): dx rows
-    and a dy ring of T + 8 rows as float64 at odd stride."""
-    return 4 * ((ny + T + 1) + 3 * T) + 8 * (T + T + 8) * (d | 1)
-
-
 def _fused_inputs(rng, which, B, Lpx, Lpy, d):
     import torch
     from chip_smoke import random_paths
@@ -536,18 +541,30 @@ def _fused_call(lib, which, dx, dy, T, smem):
     return run
 
 
-def _fused_lib(lib_path):
+def _fused_lib(lib_path, wave=False):
+    """The library's fused kernels, backward and precomputed-Δ forwards:
+    ``wave`` for this repo's interface (a geometry), else the per-strip
+    interface of the versions before the register wavefront (a strip height
+    T)."""
     lib = _goursat(lib_path)
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.sigkernel_pde_fwd_fused.argtypes = [p, p, p, ll, i, i, i, i, i, i, i, i, ll, p]
     lib.sigkernel_pde_gram_fused.argtypes = [p, p, p, ll, ll, i, i, i, i, i, i, i, i, ll, p]
-    lib.sigkernel_pde_fwd.argtypes = [p, p, ll, i, i, i, i, i, i, i, ll, p]
-    for fn in (lib.sigkernel_pde_fwd_fused, lib.sigkernel_pde_gram_fused, lib.sigkernel_pde_fwd):
+    if wave:
+        lib.sigkernel_pde_fwd.argtypes = [p, p, ll, i, i, i, i, i, i, i, i, i, ll, p]
+        lib.sigkernel_pde_fwd_cps.argtypes = [p, p, p, ll, i, i, i, i, i, i, i, i, i, i, ll, p]
+        lib.sigkernel_pde_fwd_smem_bytes.argtypes = [i] * 8
+        lib.sigkernel_pde_fwd_smem_bytes.restype = ll
+    else:
+        lib.sigkernel_pde_fwd.argtypes = [p, p, ll, i, i, i, i, i, i, i, ll, p]
+        lib.sigkernel_pde_fwd_cps.argtypes = [p, p, p, ll, i, i, i, i, i, i, i, ll, p]
+    for fn in (lib.sigkernel_pde_fwd_fused, lib.sigkernel_pde_gram_fused, lib.sigkernel_pde_fwd,
+               lib.sigkernel_pde_fwd_cps):
         fn.restype = ctypes.c_int
     return lib
 
 
-def _turns(rows, card, what, old_run, new_run, reps=5, **info):
+def _turns(rows, card, what, old_run, new_run, reps=5, inner=1, **info):
     """Time old and new in turns (old, new, new, old), check they agree
     (relative to the largest old value, 1e-4) and emit one row."""
     import torch
@@ -556,7 +573,7 @@ def _turns(rows, card, what, old_run, new_run, reps=5, **info):
     err = float((got - want).abs().max() / want.abs().max())
     times = {"old": [], "new": []}
     for who in ("old", "new", "new", "old"):
-        times[who] += _time_ms(old_run if who == "old" else new_run, reps)
+        times[who] += _time_ms(old_run if who == "old" else new_run, reps, inner)
     _emit(rows, {"kernel": what, **info, "old_ms": float(np.median(times["old"])),
                  "new_ms": float(np.median(times["new"])), "old_all": times["old"],
                  "new_all": times["new"], "new_vs_old_rel": err,
@@ -568,9 +585,9 @@ def _turns(rows, card, what, old_run, new_run, reps=5, **info):
 def compare(old: Path, out: Path):
     """Old (DIR's sigkernel_pde.cu, the parent's) against new (the repo's),
     in turns (old, new, new, old): the fused kernels B4 and B3 at the main
-    paths' shapes (FUSED_SHAPES) at the wrappers' strip height, and the
-    kernels that read a precomputed Δ (B1, B1-cps, B2) at Δ (128, 1023,
-    1023), T = 512, which should not move."""
+    paths' shapes (FUSED_SHAPES) at the wrappers' strip height, B1 and
+    B1-cps at every shape they launch at (WAVE_SHAPES), and B2 at Δ (128,
+    1023, 1023), T = 512."""
     import torch
     from repro_torch.kernels.sigkernel_pde import kernel, ops
     rows = []
@@ -588,56 +605,217 @@ def compare(old: Path, out: Path):
         ln.strip() for ln in (kernel.build().parent / "nvcc.log").read_text().splitlines()
         if "registers" in ln or "spill" in ln or "Compiling entry" in ln]})
     lib_old = _fused_lib(jobs["goursat"][1])
-    lib_new = kernel.library()
+    lib_new = _fused_lib(kernel.build(), wave=True)
 
     rng = np.random.default_rng(3)
     for which, B, Lpx, Lpy, d in FUSED_SHAPES:
         dx, dy = _fused_inputs(rng, which, B, Lpx, Lpy, d)
         n = B[0] * B[1] if which == "gram_fused" else B
         Lx, Ly = dx.shape[1], dy.shape[1]
-        T = ops.choose_T(Lx, Ly, 0, 0, n, d=d)
-        # the parent's choose_T: cap 64 above 4 x 132 problems, else 512, at
-        # most the rows rounded up, halved until its float64 staging fits
-        T_old = min(64 if n > 4 * 132 else 512, 1 << (Lx - 1).bit_length())
-        while _old_fused_smem(T_old, Ly, d) > kernel.SMEM_LIMIT:
-            T_old //= 2
-        old_run = _fused_call(lib_old, which, dx, dy, T_old, _old_fused_smem(T_old, Ly, d))
-        new_run = _fused_call(lib_new, which, dx, dy, T,
-                              kernel.smem_bytes(True, "order1", T, Ly, 0, 0, d))
-        _turns(rows, card, which, old_run, new_run, shape=[B, Lx, Ly, d], T_old=T_old, T=T)
+        T = ops.choose_T(Lx, Ly, 0, 0, n, d=d)  # the parent's too: the layout did not move
+        smem = kernel.smem_bytes(True, "order1", T, Ly, 0, 0, d)
+        _turns(rows, card, which, _fused_call(lib_old, which, dx, dy, T, smem),
+               _fused_call(lib_new, which, dx, dy, T, smem), shape=[B, Lx, Ly, d], T=T)
         del dx, dy
+
+    # B1 and B1-cps at every shape they launch at: the old kernel at the
+    # strip height the parent's wrapper picked (T_old; its checkpoint rows at
+    # the backward's T, which both versions take), the new one at the
+    # geometry ops.geometry picks; k and the checkpoint rows must be equal
+    for B, Lp in WAVE_SHAPES:
+        delta = _wave_delta(rng, B, Lp)
+        Lx = Ly = Lp - 1
+        T_cps = ops.choose_T(Lx, Ly, 0, 0, B)
+        T_old = min(64 if B > 4 * 132 else 512, 1 << (Lx - 1).bit_length())
+        geo = ops.geometry(B, Lx, Ly)
+        for what in ("fwd", "fwd_cps"):
+            T = T_old if what == "fwd" else T_cps
+            old_run = _wave_old_call(lib_old, delta, what, T)
+            new_run = _wave_new_call(lib_new, delta, what, T_cps, geo)
+            _turns(rows, card, what, old_run, new_run, reps=5, inner=5, shape=[B, Lx, Ly],
+                   T_old=T, geometry=list(geo))
+        del delta
+        torch.cuda.empty_cache()
 
     delta, gbar = _b2_inputs()
     B, Lx, Ly = delta.shape
-    stream = torch.cuda.current_stream().cuda_stream
-    smem_f = kernel.smem_bytes(False, "order1", B2_T, Ly, 0, 0)
-
-    def delta_call(lib, with_cps):
-        res = torch.empty(B, device=delta.device)
-        cps = torch.empty(B, -(-Lx // B2_T), Ly + B2_T + 1, device=delta.device)
-
-        def run():
-            if with_cps:
-                e = lib.sigkernel_pde_fwd_cps(delta.data_ptr(), res.data_ptr(), cps.data_ptr(),
-                                              B, Lx, Ly, B2_T, 0, 0, 0, 0, smem_f, stream)
-            else:
-                e = lib.sigkernel_pde_fwd(delta.data_ptr(), res.data_ptr(), B, Lx, Ly, B2_T,
-                                          0, 0, 0, 0, smem_f, stream)
-            assert e == 0, e
-            return cps if with_cps else res
-        return run
-    for what, with_cps in (("fwd", False), ("fwd_cps", True)):
-        _turns(rows, card, what, delta_call(lib_old, with_cps), delta_call(lib_new, with_cps),
-               shape=[B, Lx, Ly], T=B2_T)
     _turns(rows, card, "bwd", _bwd_call(lib_old, delta, gbar, B2_T, False),
            _bwd_call(lib_new, delta, gbar, B2_T, False), shape=[B, Lx, Ly], T=B2_T)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(rows, indent=1))
 
 
+#: the precomputed-Δ forward's launch shapes on the main paths, (problems,
+#: points a path): sigkernel on (128, 1024, 32) paths (B1 on the forward
+#: path, B1-cps on the gradient path) and the Grams' chunks of 255 x 255
+#: (chip_smoke.py's timing_by_shape)
+WAVE_SHAPES = ((128, 1024), (64, 256), (2048, 256), (2080, 256), (4096, 256), (16384, 256))
+
+
+def _wave_delta(rng, B, Lp):
+    import torch
+    from repro_torch.core.sigkernel import delta_matrix
+    from chip_smoke import random_paths
+    x = torch.from_numpy(random_paths(rng, B, Lp, 8)).cuda()
+    y = torch.from_numpy(random_paths(rng, B, Lp, 8)).cuda()
+    return delta_matrix(x, y).contiguous()
+
+
+def _wave_old_call(lib, delta, what, T):
+    """The per-strip forward of the versions before the register wavefront:
+    k (``fwd``) or k and the checkpoint rows flattened (``fwd_cps``)."""
+    import torch
+    B, Lx, Ly = delta.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    smem = 4 * ((Ly + T + 1) + 3 * T)
+    k = torch.empty(B, device=delta.device)
+    res = torch.empty(B + (B * -(-Lx // T) * (Ly + T + 1) if what == "fwd_cps" else 0),
+                      device=delta.device)
+    cps = res[B:]
+
+    def run():
+        if what == "fwd":
+            e = lib.sigkernel_pde_fwd(delta.data_ptr(), res.data_ptr(), B, Lx, Ly, T, 0, 0, 0,
+                                      0, smem, stream)
+        else:
+            e = lib.sigkernel_pde_fwd_cps(delta.data_ptr(), res.data_ptr(), cps.data_ptr(), B,
+                                          Lx, Ly, T, 0, 0, 0, 0, smem, stream)
+        assert e == 0, e
+        return res
+    return run
+
+
+def _wave_new_call(lib, delta, what, T, geo, scheme="order1"):
+    """This repo's forward at geometry ``geo`` through ``lib`` (built from
+    the repo's source or a variant of it), in the layout of
+    :func:`_wave_old_call`."""
+    import torch
+    B, Lx, Ly = delta.shape
+    o2 = scheme == "order2"
+    stream = torch.cuda.current_stream().cuda_stream
+    smem = lib.sigkernel_pde_fwd_smem_bytes(o2, *geo, Lx, Ly, 0, 0)
+    res = torch.empty(B + (B * -(-Lx // T) * (Ly + T + 1) * (2 if o2 else 1)
+                           if what == "fwd_cps" else 0), device=delta.device)
+    cps = res[B:]
+
+    def run():
+        if what == "fwd":
+            e = lib.sigkernel_pde_fwd(delta.data_ptr(), res.data_ptr(), B, Lx, Ly, *geo, 0, 0,
+                                      o2, 0, smem, stream)
+        else:
+            e = lib.sigkernel_pde_fwd_cps(delta.data_ptr(), res.data_ptr(), cps.data_ptr(), B,
+                                          Lx, Ly, T, *geo, 0, 0, o2, 0, smem, stream)
+        assert e == 0, e
+        return res
+    return run
+
+
+# the precomputed-Δ forward (WAVE_SHAPES): staging, chunk length, stages
+def _const(name, value):
+    return lambda src: _patch(src, f"constexpr {name} = ", f"constexpr {name} = {value};  // ",
+                              after="constexpr int kChunk")
+
+
+def _no_copies(src):
+    """Δ never staged (the wavefront, its shuffles and hand-overs alone, on
+    whatever the buffers hold: wrong values, timing only)."""
+    src = _patch(src, "          stage_one<R, REF>(stage + s * SB,",
+                 "          if (Lx < 0) stage_one<R, REF>(stage + s * SB,")
+    return _patch(src, "stage_one<R, REF>(nbuf,", "if (Lx < 0) stage_one<R, REF>(nbuf,")
+
+
+def _no_l2_prefetch(src):
+    """The staging copies without the L2's 128-byte prefetch hint."""
+    return _patch(src, "cp.async.ca.shared.global.L2::128B [%0]", "cp.async.ca.shared.global [%0]")
+
+
+WAVE_VARIANTS = {"as_is": (), "no_l2_prefetch": (_no_l2_prefetch,),
+                 "stages_3": (_const("int kStages", 3),),
+                 "burst": (_const("bool kSpread", "false"),),
+                 "chunk_32": (_const("int kChunk", 32),),
+                 "registers": (_const("bool kStageDelta", "false"),),
+                 "no_copies": (_no_copies,)}
+
+
+def ablate_fwd(src_dir: Path, out: Path):
+    """Variants of the precomputed-Δ forward of ``DIR`` (WAVE_VARIANTS) at
+    WAVE_SHAPES, both modes, over R in {1, 2, 4, 8} (one pass of warps) and
+    1, 2 or 4 problems a block, in turns; each variant's shared memory is its
+    own library's.  Results are checked against the variant as it is (but
+    ``no_copies``)."""
+    import torch
+    from repro_torch.kernels.sigkernel_pde import kernel, ops
+    rows = []
+    card = _card()
+    print(f"card: {card}", flush=True)
+    base = (src_dir / "sigkernel_pde.cu").read_text()
+    jobs = {}
+    for name, patches in WAVE_VARIANTS.items():
+        src = base
+        try:
+            for f in patches:
+                src = f(src)
+        except ValueError:  # the source has no such part (e.g. no kSpread)
+            _emit(rows, {"variant_skipped": name})
+            continue
+        if name != "as_is" and src == base:
+            _emit(rows, {"variant_skipped": name, "why": "the source is already so"})
+            continue
+        d = WORK / "ablate_fwd" / name
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "sigkernel_pde.cu").write_text(src)
+        jobs[name] = (d / "sigkernel_pde.cu", d / f"libsigkernel_pde_{name}.so")
+    reports = _nvcc_all(jobs)
+    for name in jobs:
+        _emit(rows, {"ptxas": name, "report": [ln for ln in reports[name]
+                                               if "goursat_fwdI" in ln or "registers" in ln
+                                               or "spill" in ln]})
+    libs = {name: _fused_lib(jobs[name][1], wave=True) for name in jobs}
+    rng = np.random.default_rng(5)
+    for B, Lp in WAVE_SHAPES:
+        delta = _wave_delta(rng, B, Lp)
+        Lx = Ly = Lp - 1
+        T = ops.choose_T(Lx, Ly, 0, 0, B)
+        geos = []
+        for R in kernel.FWD_ROWS:
+            warps = min(kernel.fwd_bands(Lx, R), kernel.fwd_max_threads(R) // 32)
+            geos += [kernel.FwdGeometry(R, warps, pb) for pb in (1, 2, 4)
+                     if pb <= B and 32 * warps * pb <= kernel.fwd_max_threads(R)]
+        for what in ("fwd", "fwd_cps"):
+            ms, equal = {}, {}
+            for geo in geos:
+                runs = {}
+                for name, lib in libs.items():  # the geometries each library takes
+                    if lib.sigkernel_pde_fwd_smem_bytes(0, *geo, Lx, Ly, 0, 0) <= 232448:
+                        run = _wave_new_call(lib, delta, what, T, geo)
+                        try:
+                            run()
+                        except AssertionError:
+                            continue
+                        runs[name] = run
+                ref = runs["as_is"]().clone() if "as_is" in runs else None
+                times = {name: [] for name in runs}
+                for turn in range(2):
+                    for name in (list(runs) if turn % 2 == 0 else list(reversed(runs))):
+                        times[name] += _time_ms(runs[name], 3, 5)
+                key = str(tuple(geo))
+                for name, ts in times.items():
+                    ms.setdefault(name, {})[key] = round(float(np.median(ts)), 4)
+                    if ref is not None and name != "no_copies":
+                        equal.setdefault(name, {})[key] = bool(torch.equal(runs[name](), ref))
+            _emit(rows, {"fwd_ablation": what, "shape": [B, Lx, Ly], "T": T,
+                         "geometry": list(ops.geometry(B, Lx, Ly)), "ms": ms,
+                         "equal_to_as_is": equal, "card": card})
+        del delta
+        torch.cuda.empty_cache()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(rows, indent=1))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("command", choices=("ablate", "ablate-horner", "ablate-fused", "compare"))
+    ap.add_argument("command", choices=("ablate", "ablate-horner", "ablate-fused", "ablate-fwd",
+                                        "compare"))
     ap.add_argument("--old", type=Path, required=True)
     ap.add_argument("--set", choices=tuple(VARIANTS), default="original",
                     help="ablate: which source's variants (DIR must hold that source)")
@@ -655,6 +833,8 @@ def main() -> int:
         ablate_horner(a.old, out)
     elif a.command == "ablate-fused":
         ablate_fused(a.old, out)
+    elif a.command == "ablate-fwd":
+        ablate_fwd(a.old, out)
     else:
         compare(a.old, out)
     return 0
