@@ -51,8 +51,9 @@ Phases (any failure exits non-zero; nothing runs without CUDA):
 7. time each kernel and its plain version at the main paths' shapes
    (CUDA events, median), compute the bound (bytes / 3.35 TB/s vs
    operations / 67 TFLOP/s FP32, H100 SXM data sheet), sweep the
-   precomputed-Δ forward's geometry (rows a lane, problems a block; each
-   result equal to the default's), the fused kernels' strip height, the
+   precomputed-Δ forward's geometry (rows a lane, one pass of warps or a
+   loop; each result equal to the default's), the fused kernels' strip
+   height, the
    backward's with its checkpoint forward, and
    the Horner kernel's length block and prefix length (also at the two
    pipelines' kernel shapes), time every Goursat kernel at every shape it
@@ -217,6 +218,12 @@ def main() -> int:
               file=sys.stderr)
         return 1
     dev = torch.device("cuda")
+
+    def fwd_cps(delta, T, lam1=0, lam2=0, scheme="order1", idt="float32"):
+        """The checkpoint forward at strip T and the geometry ops.geometry
+        picks for it (as ops.solve_with_grid launches it)."""
+        geo = ops.geometry(*delta.shape[1:], lam1, lam2, scheme=scheme, T=T)
+        return kernel.fwd_cps(delta, T, lam1, lam2, scheme, idt, geo)
 
     def reset_all():
         """Every kernel's launch count to 0, just before a driven path."""
@@ -524,10 +531,10 @@ def main() -> int:
         T = ops.choose_T(delta.shape[1], delta.shape[2], l1, l2, 8, scheme=scheme,
                          max_t=strip)
         gbar = torch.from_numpy(rng.normal(size=8).astype(np.float32)).to(dev)
-        cps_k = kernel.fwd_cps(delta, T, l1, l2, scheme, idt)[1]
+        cps_k = fwd_cps(delta, T, l1, l2, scheme, idt)[1]
         cps_p = kernel.solve_with_grid_plain(delta, T, l1, l2, scheme, idt)[1]
         runs += [
-            ("fwd_cps", lambda: kernel.fwd_cps(delta, T, l1, l2, scheme, idt)[0],
+            ("fwd_cps", lambda: fwd_cps(delta, T, l1, l2, scheme, idt)[0],
              lambda: kernel.solve_with_grid_plain(delta, T, l1, l2, scheme, idt)[0]),
             ("fwd_cps_rows", lambda: cps_k, lambda: cps_p),
             ("bwd", lambda: kernel.bwd(delta, cps_k, gbar, T, l1, l2, scheme, idt),
@@ -583,7 +590,7 @@ def main() -> int:
     Bx, Lgx, dg = dX.shape
     By, Lgy = dY.shape[0], dY.shape[1]
     T_grad = ops.choose_T(Lx, Ly, 0, 0, B)
-    cps = kernel.fwd_cps(delta, T_grad, 0, 0, "order1", "float32")[1]
+    cps = fwd_cps(delta, T_grad)[1]
     gbar = torch.from_numpy(rng.normal(size=B).astype(np.float32)).to(dev)
     work = {
         "fwd": (delta.numel() * 4 + B * 4, B * Lx * Ly * CELL_FLOPS),
@@ -596,7 +603,7 @@ def main() -> int:
                        Bx * By * (2 * dg + CELL_FLOPS) * Lgx * Lgy),
     }
     default_T = {
-        "fwd": ops.geometry(B, Lx, Ly),
+        "fwd": ops.geometry(Lx, Ly),
         "fwd_cps": T_grad,
         "bwd": T_grad,
         "fwd_fused": ops.choose_T(Lx, Ly, 0, 0, B, d=d),
@@ -604,7 +611,7 @@ def main() -> int:
     }
     launchers = {
         "fwd": lambda T: kernel.fwd(delta, T, 0, 0, "order1", "float32"),
-        "fwd_cps": lambda T: kernel.fwd_cps(delta, T, 0, 0, "order1", "float32")[0],
+        "fwd_cps": lambda T: fwd_cps(delta, T)[0],
         "bwd": lambda T: kernel.bwd(delta, cps, gbar, T, 0, 0, "order1", "float32"),
         "fwd_fused": lambda T: kernel.fwd_fused(dx, dy, T, 0, 0, "order1", "float32"),
         "gram_fused": lambda T: kernel.gram_fused(dX, dY, T, 0, 0, "order1", "float32"),
@@ -633,13 +640,12 @@ def main() -> int:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nflops / FP32_FLOPS_PER_S * 1e3
         sweep = {}
-        if kname == "fwd":  # the geometry: R rows a lane, one pass of warps, problems a block
+        if kname == "fwd":  # the geometry: R rows a lane, one pass of warps or a loop
             for R in kernel.FWD_ROWS:
-                warps = min(kernel.fwd_bands(Lx, R), kernel.fwd_max_threads(R) // 32)
-                for pb in (1, 2, 4):
-                    geo = kernel.FwdGeometry(R, warps, pb)
-                    if 32 * warps * pb > kernel.fwd_max_threads(R) or kernel.fwd_smem_bytes(
-                            "order1", geo, Lx, Ly, 0, 0) > kernel.SMEM_LIMIT:
+                bands = kernel.fwd_bands(Lx, R)
+                for warps in sorted({min(bands, kernel.MAX_THREADS // 32), max(1, bands // 2)}):
+                    geo = kernel.FwdGeometry(R, warps)
+                    if kernel.fwd_smem_bytes("order1", geo, Lx, Ly, 0, 0) > kernel.SMEM_LIMIT:
                         continue
                     check(torch.equal(launchers[kname](geo), got),
                           f"fwd at geometry {tuple(geo)} differs from the default's")
@@ -647,12 +653,12 @@ def main() -> int:
         elif kname in FORWARD_PATH:  # the fused kernels' strip height
             sweep = {Ts: round(time_ms(lambda: launchers[kname](Ts), 3), 4)
                      for Ts in (32, 64, 128, 256, 512) if Ts <= kernel.FUSED_MAX_THREADS
-                     and kernel.smem_bytes(True, "order1", Ts, Ly if kname != "gram_fused"
-                                           else Lgy, 0, 0, d if kname == "fwd_fused" else dg)
+                     and kernel.smem_bytes("order1", Ts, Ly if kname != "gram_fused" else Lgy,
+                                           0, 0, d if kname == "fwd_fused" else dg)
                      <= kernel.SMEM_LIMIT}
         if kname == "bwd":  # the backward with the checkpoint forward it lines up with
             for Ts in (64, 128, 256, 512):
-                cps_T = kernel.fwd_cps(delta, Ts, 0, 0, "order1", "float32")[1]
+                cps_T = fwd_cps(delta, Ts)[1]
                 sweep[Ts] = {
                     "fwd_cps": round(time_ms(lambda: launchers["fwd_cps"](Ts), 3), 4),
                     "bwd": round(time_ms(lambda: kernel.bwd(delta, cps_T, gbar, Ts, 0, 0,
@@ -706,7 +712,7 @@ def main() -> int:
                 Ts: round(time_ms(lambda: launchers_fused[kname](a_, b_, Ts, 0, 0, "order1",
                                                                  "float32"), 3), 4)
                 for Ts in (32, 64, 128, 256, 512) if Ts <= kernel.FUSED_MAX_THREADS
-                and kernel.smem_bytes(True, "order1", Ts, Ly_, 0, 0, d_) <= kernel.SMEM_LIMIT}
+                and kernel.smem_bytes("order1", Ts, Ly_, 0, 0, d_) <= kernel.SMEM_LIMIT}
             row.update(plain_ms=plain_ms, max_abs_err=float((got - want).abs().max()),
                        rel_err=err)
             del got, want
@@ -719,9 +725,9 @@ def main() -> int:
                                          "float32")
                 extra, cell = 0, CELL_FLOPS
             else:
-                cps_ = kernel.fwd_cps(dl_, T_, 0, 0, "order1", "float32")[1]
+                cps_ = fwd_cps(dl_, T_)[1]
                 g_ = torch.ones(P, device=dev)
-                run = {"fwd_cps": lambda: kernel.fwd_cps(dl_, T_, 0, 0, "order1", "float32"),
+                run = {"fwd_cps": lambda: fwd_cps(dl_, T_),
                        "bwd": lambda: kernel.bwd(dl_, cps_, g_, T_, 0, 0, "order1",
                                                  "float32")}[kname]
                 extra = cps_.numel() + (dl_.numel() if kname == "bwd" else 0)

@@ -74,7 +74,7 @@ constexpr int kMaxThreads = 1024;  // checkpoint strips: at most this many rows
 constexpr int kBwdMaxThreads = 512;  // the backward's launch bound: 128 registers
 constexpr int kGroup = 8;  // Delta loads issued this many wavefront steps ahead (backward)
 
-enum Mode { kDelta = 0, kFusedPairs = 1, kFusedGram = 2 };
+enum Mode { kFusedPairs = 1, kFusedGram = 2 };
 
 template <bool BF16>
 __device__ __forceinline__ float round_interior(float x) {
@@ -169,12 +169,10 @@ __host__ __device__ inline BandGeometry band_geometry(int T, int lam1, int lam2,
 // T (kernel.py mirrors it): first, as Stage, the strip's dx rows (RP x S)
 // and the dy ring (NR x S), then as float32 two bands (R x BS each) and a
 // band's new dy rows (NY x d) on their way in, the carried row(s) of ny+T+1
-// floats and three anti-diagonals of T floats.  The precomputed-Delta
-// forward (mode kDelta) holds no strip: its block follows its geometry
-// (wave_smem_bytes below), so its strip height sets no bytes here.
-__host__ __device__ inline int64_t smem_bytes(int mode, bool order2, int T, int ny,
-                                              int lam1, int lam2, int d) {
-  if (mode == kDelta) return 0;
+// floats and three anti-diagonals of T floats.  (The precomputed-Delta
+// forward's block follows its geometry: wave_smem_bytes below.)
+__host__ __device__ inline int64_t smem_bytes(bool order2, int T, int ny, int lam1, int lam2,
+                                              int d) {
   const BandGeometry g = band_geometry(T, lam1, lam2, d);
   return 4 * ((order2 ? 2 : 1) * ((int64_t)ny + T + 1) + 3 * (int64_t)T) +
          (int64_t)sizeof(Stage) * (g.RP + g.NR) * g.S +
@@ -186,7 +184,7 @@ __host__ __device__ inline int64_t smem_bytes(int mode, bool order2, int T, int 
 // pairs) and fused_gram_kernel (one block per (row path, column path)).
 //
 // The wavefront, its carried rows, its three rotating anti-diagonals and its
-// one barrier per step are goursat_fwd's.  What differs is where a lane's
+// one barrier per step are the strip design's (top of this file).  What differs is where a lane's
 // Delta entry comes from.  The TPU kernel builds a strip's Delta block as one
 // (R, d) x (d, Ly) product on its MXU (kernel.py:104-105, :337-338); here
 // each band of kBand wavefront steps is built as 16 x 8 tile products on the
@@ -825,8 +823,8 @@ goursat_bwd(const float* __restrict__ delta, const float* __restrict__ cps,
 // in both of its modes (save_cps False and True).
 //
 // A wavefront step costs a warp's dependent chain, not a block barrier.
-//   * Rows.  A lane owns R consecutive refined rows (R = 1, 2, 4 or 8, a
-//     template parameter); a warp covers a band of 32 R rows.  At its local
+//   * Rows.  A lane owns R consecutive refined rows (R = 1 or 2, a template
+//     parameter); a warp covers a band of 32 R rows.  At its local
 //     step t, lane l computes cells (lR + i, t - lR - i), i < R, of its band:
 //     R independent cells whose neighbours sit in registers.  Row i reads
 //     left and k_dl from its own values of steps t-1 and t-2, up and upleft
@@ -861,21 +859,24 @@ goursat_bwd(const float* __restrict__ delta, const float* __restrict__ cps,
 //     +l: a step's reads by the 32 lanes and a copy's writes each fall on
 //     distinct banks, and a lane reads its entry with one load at a fixed
 //     offset.  Spread over the steps, the copies interleave with the cells
-//     instead of stalling the warp in a burst at the chunk's start.  An
+//     instead of stalling the warp in a burst at the chunk's start; issued
+//     at the top of a step, ahead of its dependent chain.  An
 //     unrefined grid has its own instantiation (REF = false): an entry's
 //     address is then linear in its copy's index, and the scale multiply
 //     goes.  Delta's rows are not 16-byte aligned at the main path's widths
 //     (Ly = 1023, 255): 16-byte copies of each row's window (cp.async or the
 //     TMA's bulk copies) leave a step's reads 4-way bank-conflicted and
-//     measured slower (PERF.md §6).  (kStageDelta = false: each lane loads
-//     its own entries kGroup steps ahead into registers instead.)
+//     measured slower (PERF.md §6).
 //   * Checkpoints.  The lane that owns refined row sT-1 (and sT-2 for order
 //     2) writes each of its cells into strip s's checkpoint row as it computes
 //     it; the constant entries (strip 0's rows, column 0, the tails past ny,
 //     order 2's 0 at ny+1) are written once up front.  The kernel's layout is
 //     free of T, which only places the rows.
-//   * Several problems a block: PB groups of NW warps, each with its own rings
-//     and buffers (ops.geometry picks R, NW and PB).
+//   * One problem a block, NW warps (ops.geometry picks R and NW).
+//   * Measured slower at every launch shape of the main paths (PERF.md §5)
+//     and kept only as tools/kernel_bench.py's text patches of this source:
+//     R = 4 and 8, each lane loading its own Delta into registers, a chunk's
+//     copies in one burst at its start.
 // Arithmetic: stencil_cell's, fwd_cell's, so k and the checkpoint rows are
 // bit for bit those of the plain versions.  Bound on an H100: reading Delta,
 // B*Lx*Ly*4 bytes, at 3.35 TB/s.
@@ -885,13 +886,6 @@ constexpr int kChunk = 16;          // steps a chunk: Delta staging and ring han
 constexpr int kSlots = 4;           // ring slots between two warps of a pass
 constexpr int kLine = 33;           // floats a staged line: 32 lanes and a pad
 constexpr int kStages = 2;          // staged chunks a warp keeps (in flight and in use)
-constexpr bool kSpread = true;      // a chunk's copies spread over the steps of the chunk
-                                    // kStages-1 before it, else all at that one's first
-constexpr bool kStageDelta = true;  // Delta staged in shared memory, else in registers
-
-__host__ __device__ constexpr int wave_max_threads(int R) {
-  return R >= 8 ? 256 : (R >= 4 ? 512 : 1024);
-}
 
 __host__ __device__ inline int wave_bands(int nx, int R) { return (nx + 32 * R - 1) / (32 * R); }
 
@@ -903,14 +897,13 @@ __host__ __device__ inline int wave_last_slots(int nx, int ny, int R, int NW) {
 }
 
 // Shared memory of one block (kernel.py mirrors it): a chunk of ones (what
-// the first band reads above it); per problem group, a full and an empty
-// mbarrier and kChunk columns of the handed-over row(s) per ring slot; per
-// warp, kStages staged chunks of Delta.
-__host__ __device__ inline int64_t wave_smem_bytes(bool order2, int R, int NW, int PB, int nx,
-                                                   int ny) {
+// the first band reads above it); a full and an empty mbarrier and kChunk
+// columns of the handed-over row(s) per ring slot; per warp, kStages staged
+// chunks of Delta.
+__host__ __device__ inline int64_t wave_smem_bytes(bool order2, int R, int NW, int nx, int ny) {
   const int64_t slots = (int64_t)(NW - 1) * kSlots + wave_last_slots(nx, ny, R, NW);
-  const int64_t stage = kStageDelta ? (int64_t)kStages * R * kChunk * kLine : 0;
-  return 8LL * kChunk + PB * (slots * (16 + 4LL * kChunk * (order2 ? 2 : 1)) + 4LL * NW * stage);
+  const int64_t stage = (int64_t)kStages * R * kChunk * kLine;
+  return 8LL * kChunk + slots * (16 + 4LL * kChunk * (order2 ? 2 : 1)) + 4LL * NW * stage;
 }
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
@@ -989,10 +982,9 @@ __device__ __forceinline__ StageSpan stage_span(const float* delta, int m, int b
 }
 
 template <bool ORDER2, bool BF16, bool CPS, int R, bool REF>
-__global__ void __launch_bounds__(wave_max_threads(R))
+__global__ void __launch_bounds__(kMaxThreads)
 goursat_fwd(const float* __restrict__ delta_all, float* __restrict__ out,
-            float* __restrict__ cps, long long B, int Lx, int Ly, int T, int NW, int lam1_,
-            int lam2_) {
+            float* __restrict__ cps, int Lx, int Ly, int T, int lam1_, int lam2_) {
   const int lam1 = REF ? lam1_ : 0, lam2 = REF ? lam2_ : 0;  // unrefined: constants
   constexpr int K = kChunk;
   constexpr int RB = 32 * R;            // rows of a band
@@ -1000,30 +992,25 @@ goursat_fwd(const float* __restrict__ delta_all, float* __restrict__ out,
   constexpr int rows = ORDER2 ? 2 : 1;  // rows handed over, checkpoint rows a strip
   constexpr int i2 = R >= 2 ? R - 2 : 0;  // the lane's row that may hand over row -2
   constexpr int SB = R * K * kLine;     // floats a staged chunk
-  static_assert(K <= RB && K % kGroup == 0 && K <= 32, "chunk");
+  static_assert(K <= RB && K <= 32, "chunk");
   extern __shared__ double smem[];
   const int lane = threadIdx.x & 31;
-  const int wi = threadIdx.x >> 5;
-  const int PB = blockDim.x / (32 * NW);
-  const int pp = wi / NW, w = wi - pp * NW;  // problem group, warp in the group
+  const int w = threadIdx.x >> 5, NW = blockDim.x >> 5;  // the warp, the problem's warps
   const int nx = Lx << lam1, ny = Ly << lam2;
   const int n_bands = wave_bands(nx, R);
   const int nrc = (ny + K - 1) / K;     // ring chunks a band hands over
   const int nsl = wave_last_slots(nx, ny, R, NW);
   const int slots = (NW - 1) * kSlots + nsl;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
-  float* ones = reinterpret_cast<float*>(bars + 2LL * PB * slots);  // 2K ones
-  float* rings = ones + 2 * K;
-  uint64_t* full = bars + 2LL * pp * slots;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + slots;
-  float* ring = rings + (int64_t)pp * slots * K * rows;   // slot: K columns a row
-  float* stage = rings + (int64_t)PB * slots * K * rows + (int64_t)wi * kStages * SB;
+  float* ones = reinterpret_cast<float*>(empty + slots);  // 2K ones
+  float* ring = ones + 2 * K;                             // slot: K columns a row
+  float* stage = ring + (int64_t)slots * K * rows + (int64_t)w * kStages * SB;
   if (w == 0)
     for (int i = lane; i < 2 * slots; i += 32) mbar_init(full + i);
   for (int i = threadIdx.x; i < 2 * K; i += blockDim.x) ones[i] = 1.0f;
   __syncthreads();
-  const long long prob = (long long)blockIdx.x * PB + pp;
-  if (prob >= B) return;
+  const long long prob = blockIdx.x;
 
   const float* delta = delta_all + prob * (int64_t)Lx * Ly;
   const float scale = ldexpf(1.0f, -(lam1 + lam2));  // exact power of two
@@ -1079,25 +1066,12 @@ goursat_fwd(const float* __restrict__ delta_all, float* __restrict__ out,
 #pragma unroll
     for (int i = 0; i < R; ++i) c1[i] = c2[i] = 1.0f;
     float u1p = 1.0f;    // row lR-1 at step t-2
-    float pre[kStageDelta ? 1 : R][kGroup];  // register variant: Delta kGroup steps ahead
-    auto fetch = [&](int i, int t) {
-      const int rho = base + lr + i, c = t - lr - i;
-      return rho < nx && c >= 0 && c < ny
-                 ? __ldg(delta + (int64_t)(rho >> lam1) * Ly + (c >> lam2)) : 0.0f;
-    };
-    if constexpr (kStageDelta) {  // the first kStages-1 chunks, in a burst
-      for (int s = 0; s < kStages - 1; ++s) {
-        const StageSpan sp = stage_span<R, REF>(delta, s < M ? s : -(1 << 20), base, nx, ny, Ly);
+    for (int s = 0; s < kStages - 1; ++s) {  // the first kStages-1 chunks, in a burst
+      const StageSpan sp = stage_span<R, REF>(delta, s < M ? s : -(1 << 20), base, nx, ny, Ly);
 #pragma unroll 8
-        for (int it = 0; it < R * K; ++it)
-          stage_one<R, REF>(stage + s * SB, delta, sp, it, nx, ny, Ly, lam1, lam2);
-        cp_async_commit();
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < (kStageDelta ? 1 : R); ++i)
-#pragma unroll
-        for (int g = 0; g < kGroup; ++g) pre[i][g] = fetch(i, g);
+      for (int it = 0; it < R * K; ++it)
+        stage_one<R, REF>(stage + s * SB, delta, sp, it, nx, ny, Ly, lam1, lam2);
+      cp_async_commit();
     }
 
     for (int m = 0; m < M; ++m) {
@@ -1124,13 +1098,14 @@ goursat_fwd(const float* __restrict__ delta_all, float* __restrict__ out,
         w1 = ring_out + ((g_out + max(0, min(nrc - 1, j))) % ns_out) * K * rows;
       }
       const float* sb = stage + (m % kStages) * SB + lane;
-      if constexpr (kStageDelta) {
-        cp_async_wait<kStages - 2>();  // chunk m is in
-        __syncwarp();                  // for every lane; all are done with chunk m-1
-      }
+      cp_async_wait<kStages - 2>();  // chunk m is in
+      __syncwarp();                  // for every lane; all are done with chunk m-1
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         const int t = m * K + k;
+#pragma unroll
+        for (int j = 0; j < R; ++j)  // this step's share of chunk mn's copies, issued first
+          stage_one<R, REF>(nbuf, delta, sp, k * R + j, nx, ny, Ly, lam1, lam2);
         float up1 = __shfl_up_sync(0xffffffffu, c1[R - 1], 1);             // row lR-1, t-1
         float up2 = ORDER2 ? __shfl_up_sync(0xffffffffu, R >= 2 ? c2[i2] : u1p, 1)
                            : 0.0f;                                         // row lR-2, t-2
@@ -1140,13 +1115,7 @@ goursat_fwd(const float* __restrict__ delta_all, float* __restrict__ out,
         float nw[R];
 #pragma unroll
         for (int i = 0; i < R; ++i) {
-          float p;
-          if constexpr (kStageDelta) {
-            p = sb[(i * K + k) * kLine];
-          } else {
-            p = pre[kStageDelta ? 0 : i][k % kGroup];
-            pre[kStageDelta ? 0 : i][k % kGroup] = fetch(i, t + kGroup);
-          }
+          const float p = sb[(i * K + k) * kLine];
           const bool edge = ORDER2 && (((emask >> i) & 1u) || ((t - lr - i) & m2) == 0);
           nw[i] = stencil_cell<ORDER2, BF16>(
               REF ? mul(p, scale) : p, c1[i], i == 0 ? up1 : c1[i >= 1 ? i - 1 : 0],
@@ -1170,13 +1139,8 @@ goursat_fwd(const float* __restrict__ delta_all, float* __restrict__ out,
           c1[i] = nw[i];
         }
         u1p = up1;
-        if constexpr (kStageDelta) {  // this step's share of chunk mn's copies
-#pragma unroll
-          for (int j = 0; j < (kSpread ? R : (k == 0 ? R * K : 0)); ++j)
-            stage_one<R, REF>(nbuf, delta, sp, kSpread ? k * R + j : j, nx, ny, Ly, lam1, lam2);
-        }
       }
-      if constexpr (kStageDelta) cp_async_commit();
+      cp_async_commit();
       // release what was read, publish what was written
       if (ring_ok) {
         __syncwarp();
@@ -1216,7 +1180,7 @@ int dispatch(const float* a, const float* b, float* out, long long n_problems, i
              long long smem, void* stream) {
   if (n_problems < 1 || n_problems > 0x7fffffffLL || T < 2 || T > kFusedMaxT ||
       (T & (T - 1)) || (T >> lam1) < 1 || Lx < 1 || Ly < 1 || d < 1 ||
-      smem < smem_bytes(MODE, order2 != 0, T, Ly << lam2, lam1, lam2, d))
+      smem < smem_bytes(order2 != 0, T, Ly << lam2, lam1, lam2, d))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
@@ -1235,63 +1199,55 @@ int dispatch(const float* a, const float* b, float* out, long long n_problems, i
 
 template <bool ORDER2, bool BF16, bool CPS, int R>
 cudaError_t launch_wave(const float* delta, float* out, float* cps, long long B, int Lx,
-                        int Ly, int T, int NW, int PB, int lam1, int lam2, long long smem,
+                        int Ly, int T, int NW, int lam1, int lam2, long long smem,
                         cudaStream_t stream) {
   auto kern = (lam1 | lam2) ? goursat_fwd<ORDER2, BF16, CPS, R, true>
                             : goursat_fwd<ORDER2, BF16, CPS, R, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const long long blocks = (B + PB - 1) / PB;
-  kern<<<(unsigned)blocks, 32 * NW * PB, (size_t)smem, stream>>>(delta, out, cps, B, Lx, Ly,
-                                                                T, NW, lam1, lam2);
+  kern<<<(unsigned)B, 32 * NW, (size_t)smem, stream>>>(delta, out, cps, Lx, Ly, T, lam1, lam2);
   return cudaGetLastError();
 }
 
 template <bool ORDER2, bool BF16, bool CPS>
 cudaError_t launch_wave_rows(int R, const float* delta, float* out, float* cps, long long B,
-                             int Lx, int Ly, int T, int NW, int PB, int lam1, int lam2,
-                             long long smem, cudaStream_t s) {
+                             int Lx, int Ly, int T, int NW, int lam1, int lam2, long long smem,
+                             cudaStream_t s) {
   switch (R) {
     case 1:
-      return launch_wave<ORDER2, BF16, CPS, 1>(delta, out, cps, B, Lx, Ly, T, NW, PB, lam1,
-                                               lam2, smem, s);
-    case 2:
-      return launch_wave<ORDER2, BF16, CPS, 2>(delta, out, cps, B, Lx, Ly, T, NW, PB, lam1,
-                                               lam2, smem, s);
-    case 4:
-      return launch_wave<ORDER2, BF16, CPS, 4>(delta, out, cps, B, Lx, Ly, T, NW, PB, lam1,
-                                               lam2, smem, s);
+      return launch_wave<ORDER2, BF16, CPS, 1>(delta, out, cps, B, Lx, Ly, T, NW, lam1, lam2,
+                                               smem, s);
     default:
-      return launch_wave<ORDER2, BF16, CPS, 8>(delta, out, cps, B, Lx, Ly, T, NW, PB, lam1,
-                                               lam2, smem, s);
+      return launch_wave<ORDER2, BF16, CPS, 2>(delta, out, cps, B, Lx, Ly, T, NW, lam1, lam2,
+                                               smem, s);
   }
 }
 
-// The precomputed-Delta forward at geometry (R, NW, PB); T sets the
-// checkpoint rows' layout only (CPS).
+// The precomputed-Delta forward at geometry (R, NW); T sets the checkpoint
+// rows' layout only (CPS).
 template <bool CPS>
 int dispatch_wave(const float* delta, float* out, float* cps, long long B, int Lx, int Ly,
-                  int T, int R, int NW, int PB, int lam1, int lam2, int order2, int bf16,
+                  int T, int R, int NW, int lam1, int lam2, int order2, int bf16,
                   long long smem, void* stream) {
   if (B < 1 || B > 0x7fffffffLL || Lx < 1 || Ly < 1 || lam1 < 0 || lam2 < 0 ||
-      (R != 1 && R != 2 && R != 4 && R != 8) || kChunk > 32 * R || NW < 1 || PB < 1 ||
-      32LL * NW * PB > wave_max_threads(R) || NW > wave_bands(Lx << lam1, R) ||
+      (R != 1 && R != 2) || NW < 1 || 32LL * NW > kMaxThreads ||
+      NW > wave_bands(Lx << lam1, R) ||
       (CPS && (T < 2 || T > kMaxThreads || (T & (T - 1)) || (T >> lam1) < 1 || R > T)) ||
-      smem < wave_smem_bytes(order2 != 0, R, NW, PB, Lx << lam1, Ly << lam2))
+      smem < wave_smem_bytes(order2 != 0, R, NW, Lx << lam1, Ly << lam2))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
   if (order2)
-    err = bf16 ? launch_wave_rows<true, true, CPS>(R, delta, out, cps, B, Lx, Ly, T, NW, PB,
-                                                   lam1, lam2, smem, s)
-               : launch_wave_rows<true, false, CPS>(R, delta, out, cps, B, Lx, Ly, T, NW, PB,
-                                                    lam1, lam2, smem, s);
+    err = bf16 ? launch_wave_rows<true, true, CPS>(R, delta, out, cps, B, Lx, Ly, T, NW, lam1,
+                                                   lam2, smem, s)
+               : launch_wave_rows<true, false, CPS>(R, delta, out, cps, B, Lx, Ly, T, NW, lam1,
+                                                    lam2, smem, s);
   else
-    err = bf16 ? launch_wave_rows<false, true, CPS>(R, delta, out, cps, B, Lx, Ly, T, NW, PB,
+    err = bf16 ? launch_wave_rows<false, true, CPS>(R, delta, out, cps, B, Lx, Ly, T, NW,
                                                     lam1, lam2, smem, s)
                : launch_wave_rows<false, false, CPS>(R, delta, out, cps, B, Lx, Ly, T, NW,
-                                                     PB, lam1, lam2, smem, s);
+                                                     lam1, lam2, smem, s);
   return (int)err;
 }
 
@@ -1316,21 +1272,21 @@ extern "C" {
 // cudaGetLastError() (0 on success).
 
 // The precomputed-Delta forward at geometry (R rows a lane, NW warps a
-// problem, PB problems a block; kernel.py / ops.py geometry).
+// problem, one problem a block; kernel.py / ops.py geometry).
 int sigkernel_pde_fwd(const float* delta, float* out, long long B, int Lx, int Ly, int R,
-                      int NW, int PB, int lam1, int lam2, int order2, int bf16,
-                      long long smem, void* stream) {
-  return dispatch_wave<false>(delta, out, nullptr, B, Lx, Ly, 0, R, NW, PB, lam1, lam2,
-                              order2, bf16, smem, stream);
+                      int NW, int lam1, int lam2, int order2, int bf16, long long smem,
+                      void* stream) {
+  return dispatch_wave<false>(delta, out, nullptr, B, Lx, Ly, 0, R, NW, lam1, lam2, order2,
+                              bf16, smem, stream);
 }
 
 // cps: (B, n_strips * rows, ny + T + 1), rows = 1 (order 1) or 2 (order 2),
 // strips of T refined rows.
 int sigkernel_pde_fwd_cps(const float* delta, float* out, float* cps, long long B, int Lx,
-                          int Ly, int T, int R, int NW, int PB, int lam1, int lam2,
-                          int order2, int bf16, long long smem, void* stream) {
-  return dispatch_wave<true>(delta, out, cps, B, Lx, Ly, T, R, NW, PB, lam1, lam2, order2,
-                             bf16, smem, stream);
+                          int Ly, int T, int R, int NW, int lam1, int lam2, int order2,
+                          int bf16, long long smem, void* stream) {
+  return dispatch_wave<true>(delta, out, cps, B, Lx, Ly, T, R, NW, lam1, lam2, order2, bf16,
+                             smem, stream);
 }
 
 int sigkernel_pde_fwd_fused(const float* dx, const float* dy, float* out, long long B,
@@ -1374,19 +1330,17 @@ int sigkernel_pde_bwd(const float* delta, const float* cps, const float* gbar, f
   return (int)err;
 }
 
-// Shared memory bytes a forward launch needs at strip height T (mode 0:
-// precomputed Delta, none; 1: fused pairs, 2: fused Gram), as dispatch checks
-// them.
-long long sigkernel_pde_smem_bytes(int mode, int order2, int T, int Ly, int lam1, int lam2,
-                                   int d) {
-  return smem_bytes(mode, order2 != 0, T, Ly << lam2, lam1, lam2, d);
+// Shared memory bytes a fused forward launch (pairs or Gram: one layout)
+// needs at strip height T, as dispatch checks them.
+long long sigkernel_pde_smem_bytes(int order2, int T, int Ly, int lam1, int lam2, int d) {
+  return smem_bytes(order2 != 0, T, Ly << lam2, lam1, lam2, d);
 }
 
-// Shared memory bytes of the precomputed-Delta forward at geometry (R, NW,
-// PB), as dispatch_wave checks them.
-long long sigkernel_pde_fwd_smem_bytes(int order2, int R, int NW, int PB, int Lx, int Ly,
-                                       int lam1, int lam2) {
-  return wave_smem_bytes(order2 != 0, R, NW, PB, Lx << lam1, Ly << lam2);
+// Shared memory bytes of the precomputed-Delta forward at geometry (R, NW),
+// as dispatch_wave checks them.
+long long sigkernel_pde_fwd_smem_bytes(int order2, int R, int NW, int Lx, int Ly, int lam1,
+                                       int lam2) {
+  return wave_smem_bytes(order2 != 0, R, NW, Lx << lam1, Ly << lam2);
 }
 
 const char* sigkernel_pde_error_string(int err) {

@@ -58,7 +58,8 @@ _SRC = Path(__file__).resolve().parent / "csrc" / "sigkernel_pde.cu"
 
 #: shared memory one block may use on an H100 (opt-in, 227 KB)
 SMEM_LIMIT = 232448
-#: threads per block; the most rows of a checkpoint strip (kMaxThreads)
+#: threads per block: the precomputed-Δ forward's launch bound, and the most
+#: rows of a checkpoint strip (kMaxThreads)
 MAX_THREADS = 1024
 #: strip height of the fused kernels (kFusedMaxT in the CUDA source: their
 #: blocks add producer warps to the T wavefront threads)
@@ -70,10 +71,11 @@ BWD_MAX_THREADS = 512
 #: CUDA source)
 GROUP = 8
 #: the precomputed-Δ forward (goursat_fwd in the CUDA source): rows a lane
-#: may own (R), wavefront steps a chunk (kChunk: Δ staged, band edges handed
-#: over), ring slots between two warps (kSlots), floats a staged line (kLine:
-#: 32 lanes and a pad) and staged chunks a warp keeps (kStages)
-FWD_ROWS = (1, 2, 4, 8)
+#: may own (R, its instantiations), wavefront steps a chunk (kChunk: Δ
+#: staged, band edges handed over), ring slots between two warps (kSlots),
+#: floats a staged line (kLine: 32 lanes and a pad) and staged chunks a warp
+#: keeps (kStages)
+FWD_ROWS = (1, 2)
 CHUNK = 16
 RING_SLOTS = 4
 STAGE_LINE = 33
@@ -107,22 +109,22 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-            lib.sigkernel_pde_fwd.argtypes = [p, p, ll, i, i, i, i, i, i, i, i, i, ll, p]
+            lib.sigkernel_pde_fwd.argtypes = [p, p, ll, i, i, i, i, i, i, i, i, ll, p]
             lib.sigkernel_pde_fwd_fused.argtypes = [p, p, p, ll, i, i, i, i, i, i,
                                                     i, i, ll, p]
             lib.sigkernel_pde_gram_fused.argtypes = [p, p, p, ll, ll, i, i, i, i,
                                                      i, i, i, i, ll, p]
             lib.sigkernel_pde_fwd_cps.argtypes = [p, p, p, ll, i, i, i, i, i, i, i, i,
-                                                  i, i, ll, p]
+                                                  i, ll, p]
             lib.sigkernel_pde_bwd.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, i, i,
                                               ll, p]
             for fn in (lib.sigkernel_pde_fwd, lib.sigkernel_pde_fwd_fused,
                        lib.sigkernel_pde_gram_fused, lib.sigkernel_pde_fwd_cps,
                        lib.sigkernel_pde_bwd):
                 fn.restype = ctypes.c_int
-            lib.sigkernel_pde_smem_bytes.argtypes = [i, i, i, i, i, i, i]
+            lib.sigkernel_pde_smem_bytes.argtypes = [i] * 6
             lib.sigkernel_pde_smem_bytes.restype = ll
-            lib.sigkernel_pde_fwd_smem_bytes.argtypes = [i] * 8
+            lib.sigkernel_pde_fwd_smem_bytes.argtypes = [i] * 7
             lib.sigkernel_pde_fwd_smem_bytes.restype = ll
             lib.sigkernel_pde_error_string.argtypes = [ctypes.c_int]
             lib.sigkernel_pde_error_string.restype = ctypes.c_char_p
@@ -156,17 +158,13 @@ def band_geometry(T: int, lam1: int, lam2: int, d: int) -> BandGeometry:
                         NY=(BAND >> lam2) + 1)
 
 
-def smem_bytes(fused: bool, scheme: str, T: int, Ly: int, lam1: int, lam2: int,
-               d: int = 0) -> int:
+def smem_bytes(scheme: str, T: int, Ly: int, lam1: int, lam2: int, d: int) -> int:
     """Shared memory one block of a fused kernel takes at strip height T:
     the carried boundary row(s) of length ny+T+1, three anti-diagonals of T
     floats, the strip's staged dx rows, the dy ring, two bands and a band's
     new dy rows, all float32 (:class:`BandGeometry`; mirrors ``smem_bytes``
-    in the CUDA source, which checks it).  The precomputed-Δ forward
-    (``fused=False``) holds no strip: its block follows its geometry
-    (:func:`fwd_smem_bytes`), so T sets none of its bytes and this is 0."""
-    if not fused:
-        return 0
+    in the CUDA source, which checks it).  The precomputed-Δ forward's block
+    follows its geometry instead: :func:`fwd_smem_bytes`."""
     rows = 2 if scheme == "order2" else 1
     g = band_geometry(T, lam1, lam2, d)
     return 4 * (rows * ((Ly << lam2) + T + 1) + 3 * T + (g.RP + g.NR) * g.S
@@ -175,18 +173,11 @@ def smem_bytes(fused: bool, scheme: str, T: int, Ly: int, lam1: int, lam2: int,
 
 class FwdGeometry(NamedTuple):
     """Launch geometry of the precomputed-Δ forward (``ops.geometry`` picks
-    it): R refined rows a lane (a warp covers a band of 32·R rows), ``warps``
-    warps a problem (they take bands w, w + warps, ...) and ``problems``
-    problems a block."""
+    it): R refined rows a lane (a warp covers a band of 32·R rows) and
+    ``warps`` warps a problem (they take bands w, w + warps, ...), one
+    problem a block."""
     R: int
     warps: int
-    problems: int
-
-
-def fwd_max_threads(R: int) -> int:
-    """Threads a block of the forward may have at R rows a lane (its launch
-    bound, ``wave_max_threads`` in the CUDA source: registers for R rows)."""
-    return 256 if R >= 8 else (512 if R >= 4 else 1024)
 
 
 def fwd_bands(nx: int, R: int) -> int:
@@ -205,29 +196,27 @@ def fwd_smem_bytes(scheme: str, geo: FwdGeometry, Lx: int, Ly: int, lam1: int,
                    lam2: int) -> int:
     """Shared memory one block of the forward takes (mirrors
     ``wave_smem_bytes`` in the CUDA source, which checks it): a chunk of
-    ones (2·CHUNK floats, what the first band reads above it); per problem,
-    two mbarriers (16 bytes) and CHUNK columns of the handed-over row(s) per
-    ring slot; per warp, STAGES staged chunks of R x CHUNK lines of
-    STAGE_LINE floats."""
+    ones (2·CHUNK floats, what the first band reads above it); two mbarriers
+    (16 bytes) and CHUNK columns of the handed-over row(s) per ring slot;
+    per warp, STAGES staged chunks of R x CHUNK lines of STAGE_LINE
+    floats."""
     nx, ny = Lx << lam1, Ly << lam2
     rows = 2 if scheme == "order2" else 1
     slots = (geo.warps - 1) * RING_SLOTS + fwd_last_slots(nx, ny, geo.R, geo.warps)
     stage = STAGES * geo.R * CHUNK * STAGE_LINE
-    return 8 * CHUNK + geo.problems * (slots * (16 + 4 * CHUNK * rows) + 4 * geo.warps * stage)
+    return 8 * CHUNK + slots * (16 + 4 * CHUNK * rows) + 4 * geo.warps * stage
 
 
 def check_fwd_geometry(geo: FwdGeometry, Lx: int, lam1: int, T=None) -> None:
     """Validate a forward geometry for the kernel (in the checkpoint mode at
     strip height T, a lane's rows hold at most one checkpoint row each:
     R <= T); raise ValueError otherwise."""
-    R, warps, problems = geo
-    if (R not in FWD_ROWS or warps < 1 or problems < 1
-            or 32 * warps * problems > fwd_max_threads(R)
+    R, warps = geo
+    if (R not in FWD_ROWS or warps < 1 or 32 * warps > MAX_THREADS
             or warps > fwd_bands(Lx << lam1, R) or (T is not None and R > T)):
         raise ValueError(
             f"forward geometry {geo} does not fit: R in {FWD_ROWS} (at most the "
-            f"checkpoint strip T={T}), at most "
-            f"{fwd_max_threads(R) if R in FWD_ROWS else '?'} threads a block and at "
+            f"checkpoint strip T={T}), at most {MAX_THREADS} threads a block and at "
             f"most one warp a band of {32 * R} rows")
 
 
@@ -295,13 +284,13 @@ def _launch(fn, out: torch.Tensor, *args) -> torch.Tensor:
     return out
 
 
-def _smem_checked(fused, scheme, T, Ly, lam1, lam2, d=0, backward=False) -> int:
+def _smem_checked(scheme, T, Ly, lam1, lam2, d=0, backward=False) -> int:
     if backward:
         check_strip(T, lam1, scheme, BWD_MAX_THREADS)
         smem = smem_bytes_bwd(scheme, T, Ly, lam1, lam2)
     else:
-        check_strip(T, lam1, scheme, FUSED_MAX_THREADS if fused else MAX_THREADS)
-        smem = smem_bytes(fused, scheme, T, Ly, lam1, lam2, d)
+        check_strip(T, lam1, scheme, FUSED_MAX_THREADS)
+        smem = smem_bytes(scheme, T, Ly, lam1, lam2, d)
     return _fits(smem, f"T={T}, ny={Ly << lam2}, scheme={scheme!r}")
 
 
@@ -313,30 +302,24 @@ def _fits(smem: int, what: str) -> int:
     return smem
 
 
-def _fwd_geometry(delta: torch.Tensor, geo, lam1: int, lam2: int, scheme: str, T=None):
-    """The forward's geometry and its shared memory: ``geo`` as given, or
-    ``ops.geometry``'s, under a ``LaunchConfig.pde_strip`` cap if ``geo`` is
-    an int (T: the checkpoint strip, if any)."""
-    B, Lx, Ly = delta.shape
-    if not isinstance(geo, FwdGeometry):
-        if geo is not None:
-            check_strip(geo, lam1, scheme)
-        from .ops import geometry
-        geo = geometry(B, Lx, Ly, lam1, lam2, scheme=scheme, max_t=geo, T=T)
+def _fwd_smem_checked(delta: torch.Tensor, geo: FwdGeometry, lam1: int, lam2: int,
+                      scheme: str, T=None) -> int:
+    """The forward's shared memory at geometry ``geo``, once the geometry is
+    checked (T: the checkpoint strip, if any)."""
+    _, Lx, Ly = delta.shape
     check_fwd_geometry(geo, Lx, lam1, T)
     stencil.check_scheme(scheme)
-    return geo, _fits(fwd_smem_bytes(scheme, geo, Lx, Ly, lam1, lam2), f"geometry {geo}")
+    return _fits(fwd_smem_bytes(scheme, geo, Lx, Ly, lam1, lam2), f"geometry {geo}")
 
 
-def fwd(delta: torch.Tensor, geo, lam1: int, lam2: int, scheme: str,
+def fwd(delta: torch.Tensor, geo: FwdGeometry, lam1: int, lam2: int, scheme: str,
         interior_dtype: str) -> torch.Tensor:
     """k̂[nx, ny] for Δ (B, Lx, Ly) on the card at geometry ``geo``
-    (:class:`FwdGeometry`; an int is taken as a ``LaunchConfig.pde_strip``
-    cap for ``ops.geometry``)."""
+    (``ops.geometry`` picks it)."""
     _check(delta, "delta", 3)
     stencil.check_interior_dtype(interior_dtype)
     B, Lx, Ly = delta.shape
-    geo, smem = _fwd_geometry(delta, geo, lam1, lam2, scheme)
+    smem = _fwd_smem_checked(delta, geo, lam1, lam2, scheme)
     out = torch.empty(B, device=delta.device, dtype=torch.float32)
     if B == 0:
         return out
@@ -359,7 +342,7 @@ def fwd_fused(dx: torch.Tensor, dy: torch.Tensor, T: int, lam1: int, lam2: int,
     if dy.shape[0] != B or dy.shape[2] != d or dy.device != dx.device:
         raise ValueError(f"dy {tuple(dy.shape)} does not pair with dx {tuple(dx.shape)}")
     Ly = dy.shape[1]
-    smem = _smem_checked(True, scheme, T, Ly, lam1, lam2, d)
+    smem = _smem_checked(scheme, T, Ly, lam1, lam2, d)
     out = torch.empty(B, device=dx.device, dtype=torch.float32)
     if B == 0:
         return out
@@ -382,7 +365,7 @@ def gram_fused(dX: torch.Tensor, dY: torch.Tensor, T: int, lam1: int, lam2: int,
     By, Ly = dY.shape[0], dY.shape[1]
     if dY.shape[2] != d or dY.device != dX.device:
         raise ValueError(f"dY {tuple(dY.shape)} does not pair with dX {tuple(dX.shape)}")
-    smem = _smem_checked(True, scheme, T, Ly, lam1, lam2, d)
+    smem = _smem_checked(scheme, T, Ly, lam1, lam2, d)
     out = torch.empty(Bx, By, device=dX.device, dtype=torch.float32)
     if Bx * By == 0:
         return out
@@ -395,19 +378,19 @@ def gram_fused(dX: torch.Tensor, dY: torch.Tensor, T: int, lam1: int, lam2: int,
 
 
 def fwd_cps(delta: torch.Tensor, T: int, lam1: int, lam2: int, scheme: str,
-            interior_dtype: str, geo=None):
+            interior_dtype: str, geo: FwdGeometry):
     """``(k, cps)`` for Δ (B, Lx, Ly) on the card: k̂[nx, ny] and the
     checkpoint rows (B, n_strips·rows, ny+T+1) at strip height T — for
     strip s, row s·rows holds k̂[s·T, ·] and (order2) row s·rows+1 holds
     k̂[s·T−1, ·], each as the carried row stood when the strip began, in
     the layout of the JAX kernel's ``save_cps=True`` output.  The kernel's
-    geometry is free of T but for R <= T: ``geo`` (default
-    ``ops.geometry``'s)."""
+    geometry ``geo`` (``ops.geometry(..., T=T)`` picks it) is free of T but
+    for R <= T."""
     _check(delta, "delta", 3)
     stencil.check_interior_dtype(interior_dtype)
     check_strip(T, lam1, scheme)
     B, Lx, Ly = delta.shape
-    geo, smem = _fwd_geometry(delta, geo, lam1, lam2, scheme, T)
+    smem = _fwd_smem_checked(delta, geo, lam1, lam2, scheme, T)
     out = torch.empty(B, device=delta.device, dtype=torch.float32)
     cps = torch.empty(B, n_strips(Lx, T, lam1) * cps_rows(scheme), (Ly << lam2) + T + 1,
                       device=delta.device, dtype=torch.float32)
@@ -431,7 +414,7 @@ def bwd(delta: torch.Tensor, cps: torch.Tensor, gbar: torch.Tensor, T: int, lam1
     _check(gbar, "gbar", 1)
     stencil.check_interior_dtype(interior_dtype)
     B, Lx, Ly = delta.shape
-    smem = _smem_checked(False, scheme, T, Ly, lam1, lam2, backward=True)
+    smem = _smem_checked(scheme, T, Ly, lam1, lam2, backward=True)
     ny = Ly << lam2
     want = (B, n_strips(Lx, T, lam1) * cps_rows(scheme), ny + T + 1)
     if tuple(cps.shape) != want or tuple(gbar.shape) != (B,) \
@@ -472,7 +455,7 @@ def launch_shapes() -> dict:
     """``{(launcher name, problems, Lx, Ly, d, T): launches}`` since the last
     reset (problems is (Bx, By) for ``gram_fused``; d = 0 for the kernels
     that read a precomputed Δ; for ``fwd``, which has no strip, T is its
-    geometry (R, warps, problems))."""
+    geometry (R, warps))."""
     return dict(_SHAPES)
 
 

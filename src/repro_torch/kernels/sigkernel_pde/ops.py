@@ -56,24 +56,21 @@ _MANY_PROBLEMS_FUSED_T = 128
 #: R = 1 leaves a lane one cell a step and R >= 4 adds 32 idle lane-steps a
 #: row to each band's skew and more copies to each warp's chunk.
 _ROWS = 2
-#: problems a block packs up to this many warps (small problems of one or
-#: two warps each; one problem a block led wherever a problem had four)
-_BLOCK_WARPS = 4
 
 
 def _pow2_ceil(n: int) -> int:
     return 1 << max(0, int(n) - 1).bit_length()
 
 
-def geometry(n_problems: int, Lx: int, Ly: int, lam1: int = 0, lam2: int = 0, *,
-             scheme: str = "order1", max_t=None, T=None) -> kernel.FwdGeometry:
-    """Launch geometry of the precomputed-Δ forward for one launch on an H100.
+def geometry(Lx: int, Ly: int, lam1: int = 0, lam2: int = 0, *, scheme: str = "order1",
+             max_t=None, T=None) -> kernel.FwdGeometry:
+    """Launch geometry of the precomputed-Δ forward on an H100, one problem
+    a block.
 
     R (rows a lane): ``_ROWS``, at most the refined rows rounded up over
     32.  Warps a problem: one a band of 32·R rows, within the block's
-    thread limit (:func:`kernel.fwd_max_threads`) and shared memory; fewer
-    warps loop over the bands.  Problems a block: packed up to
-    ``_BLOCK_WARPS`` warps.  ``max_t`` (a ``LaunchConfig.pde_strip`` cap)
+    thread limit (``kernel.MAX_THREADS``) and shared memory; fewer warps
+    loop over the bands.  ``max_t`` (a ``LaunchConfig.pde_strip`` cap)
     caps the rows a problem's warps cover at once at max(32, max_t); the
     checkpoint mode's strip height T caps R (a lane holds at most one
     checkpoint row).  The chunk of steps (staging, hand-over) is the CUDA
@@ -85,27 +82,21 @@ def geometry(n_problems: int, Lx: int, Ly: int, lam1: int = 0, lam2: int = 0, *,
     R = _ROWS
     while R > 1 and (32 * R > _pow2_ceil(nx) or (cap and 32 * R > cap) or (T and R > T)):
         R //= 2
-
-    def fits(g):
-        return (32 * g.warps * g.problems <= kernel.fwd_max_threads(g.R) and
-                kernel.fwd_smem_bytes(scheme, g, Lx, Ly, lam1, lam2) <= kernel.SMEM_LIMIT)
-
-    warps = min(kernel.fwd_bands(nx, R), kernel.fwd_max_threads(R) // 32)
+    warps = min(kernel.fwd_bands(nx, R), kernel.MAX_THREADS // 32)
     if cap:
         warps = min(warps, max(1, cap // (32 * R)))
-    while warps > 1 and not fits(kernel.FwdGeometry(R, warps, 1)):
+
+    def smem(w):
+        return kernel.fwd_smem_bytes(scheme, kernel.FwdGeometry(R, w), Lx, Ly, lam1, lam2)
+
+    while warps > 1 and smem(warps) > kernel.SMEM_LIMIT:
         warps -= 1
-    geo = kernel.FwdGeometry(R, warps, 1)
-    if not fits(geo):
+    if smem(warps) > kernel.SMEM_LIMIT:
         raise ValueError(
-            f"no forward geometry fits one H100 block: {geo} needs "
-            f"{kernel.fwd_smem_bytes(scheme, geo, Lx, Ly, lam1, lam2)} bytes of shared "
-            f"memory (limit {kernel.SMEM_LIMIT}; nx={nx}, ny={Ly << lam2}, "
-            f"scheme={scheme!r}) — lower lam1/lam2 or shorten the paths")
-    while (2 * geo.problems <= n_problems and 2 * geo.problems * warps <= _BLOCK_WARPS
-           and fits(geo._replace(problems=2 * geo.problems))):
-        geo = geo._replace(problems=2 * geo.problems)
-    return geo
+            f"no forward geometry fits one H100 block: {(R, warps)} needs {smem(warps)} "
+            f"bytes of shared memory (limit {kernel.SMEM_LIMIT}; nx={nx}, "
+            f"ny={Ly << lam2}, scheme={scheme!r}) — lower lam1/lam2 or shorten the paths")
+    return kernel.FwdGeometry(R, warps)
 
 
 def choose_T(Lx: int, Ly: int, lam1: int, lam2: int, n_problems: int, *,
@@ -133,7 +124,7 @@ def choose_T(Lx: int, Ly: int, lam1: int, lam2: int, n_problems: int, *,
 
     def need(T):
         if fused:
-            return kernel.smem_bytes(True, scheme, T, Ly, lam1, lam2, d)
+            return kernel.smem_bytes(scheme, T, Ly, lam1, lam2, d)
         return kernel.smem_bytes_bwd(scheme, T, Ly, lam1, lam2)
 
     T = max(t_min, min(cap, max_threads, _pow2_ceil(Lx << lam1)))
@@ -183,8 +174,8 @@ def solve(delta: torch.Tensor, lam1: int = 0, lam2: int = 0, launch=None,
     if device == "cpu":
         k = kernel.solve_plain(flat, lam1, lam2, scheme, interior_dtype)
     else:
-        B, Lx, Ly = flat.shape
-        geo = geometry(B, Lx, Ly, lam1, lam2, scheme=scheme, max_t=_max_t(launch))
+        _, Lx, Ly = flat.shape
+        geo = geometry(Lx, Ly, lam1, lam2, scheme=scheme, max_t=_max_t(launch))
         k = kernel.fwd(flat, geo, lam1, lam2, scheme, interior_dtype)
     return k.reshape(delta.shape[:-2])
 
@@ -202,7 +193,7 @@ def solve_with_grid(delta: torch.Tensor, lam1: int = 0, lam2: int = 0, launch=No
         k, cps = kernel.solve_with_grid_plain(flat, T, lam1, lam2, scheme, interior_dtype)
     else:
         k, cps = kernel.fwd_cps(flat, T, lam1, lam2, scheme, interior_dtype,
-                                geometry(B, Lx, Ly, lam1, lam2, scheme=scheme, T=T))
+                                geometry(Lx, Ly, lam1, lam2, scheme=scheme, T=T))
     return k.reshape(delta.shape[:-2]), cps, T
 
 

@@ -123,7 +123,7 @@ def test_smem_bytes_is_the_layout(T, Ly, lam1, lam2, d, scheme):
     rows = 2 if scheme == "order2" else 1
     layout = 4 * (g.RP * g.S + g.NR * g.S + 2 * R * g.BS + g.NY * d
                   + rows * ((Ly << lam2) + T + 1) + 3 * T)
-    assert kernel.smem_bytes(True, scheme, T, Ly, lam1, lam2, d) == layout
+    assert kernel.smem_bytes(scheme, T, Ly, lam1, lam2, d) == layout
     assert g.RP % 16 == 0 and g.RP >= R and g.S >= d + 4 and g.S % 8 == 4 and g.BS % 2 == 1
     # a row block's tiles cover its parallelogram, a band row its columns,
     # and the ring two consecutive bands' columns

@@ -42,9 +42,9 @@ def _Lx(nx, lam1):
 def _other_geometry(i, nx):
     """A second geometry per case, cycling R and looping over bands where
     there are several (fewer warps than bands)."""
-    R = (1, 2, 4, 8)[i % 4]
+    R = kernel.FWD_ROWS[i % len(kernel.FWD_ROWS)]
     bands = kernel.fwd_bands(nx, R)
-    return G(R, max(1, min(bands - 1, 3)) if bands > 1 else 1, 1)
+    return G(R, max(1, min(bands - 1, 3)) if bands > 1 else 1)
 
 
 @pytest.mark.parametrize("scheme, idt", [("order1", "float32"), ("order2", "bfloat16")])
@@ -55,7 +55,7 @@ def test_schedule_equals_solve_plain(nx, lam, scheme, idt):
     Lx, Ly = _Lx(nx, lam[0]), 5
     delta = _delta(nx + 7 * lam[0] + lam[1], 3, Lx, Ly)
     want = kernel.solve_plain(delta, *lam, scheme, idt)
-    for geo in (ops.geometry(3, Lx, Ly, *lam, scheme=scheme), _other_geometry(nx + lam[0], nx)):
+    for geo in (ops.geometry(Lx, Ly, *lam, scheme=scheme), _other_geometry(nx + lam[0], nx)):
         got = kernel.fwd_wavefront_plain(delta, geo, *lam, scheme, idt)
         assert torch.equal(got, want), (geo, float((got - want).abs().max()))
 
@@ -72,7 +72,7 @@ CPS_CASES = [(scheme, idt, lam) for scheme, idt, lam in
 def test_checkpoint_rows_equal_solve_with_grid_plain(nx, scheme, idt, lam, T):
     """k and every checkpoint row (the tails past ny included), written by
     the lanes that own rows sT-1 and sT-2, whatever the geometry's band
-    height; T = 2 puts several checkpoint rows in one lane at R > 2."""
+    height; at T = 2 and R = 2 every lane owns a checkpoint row."""
     if T < (1 << lam[0]):
         T = 1 << lam[0]
     Lx, Ly = _Lx(nx, lam[0]), 4
@@ -91,7 +91,7 @@ def test_schedule_agrees_with_the_pallas_forward(scheme, idt):
     mode, at the same strip height: k and the checkpoint rows."""
     lam, T = (1, 0), 8
     delta = _delta(5, 2, 13, 11)
-    k, cps = kernel.fwd_wavefront_plain(delta, G(1, 1, 1), *lam, scheme, idt, T=T)
+    k, cps = kernel.fwd_wavefront_plain(delta, G(1, 1), *lam, scheme, idt, T=T)
     jk, jcps = jops.solve_with_grid(jnp.asarray(delta.numpy()), *lam, JaxLaunch(pde_strip=T),
                                     scheme, idt)
     tol = {"float32": 5e-5, "bfloat16": 1e-2}[idt]
@@ -108,7 +108,7 @@ def test_the_wrap_ring_holds_a_row(monkeypatch):
     there the schedule deadlocks, with a whole row it completes."""
     delta = _delta(9, 1, 100, 300)
     want = kernel.solve_plain(delta, 0, 0, "order1", "float32")
-    geo = G(1, 2, 1)                                   # 4 bands, 2 warps
+    geo = G(1, 2)                                      # 4 bands, 2 warps
     assert torch.equal(kernel.fwd_wavefront_plain(delta, geo, 0, 0, "order1", "float32"), want)
     monkeypatch.setattr(kernel, "fwd_last_slots", lambda *a: kernel.RING_SLOTS)
     with pytest.raises(RuntimeError, match="deadlock"):
@@ -132,11 +132,11 @@ SMOKE_SHAPES = (
 
 @pytest.mark.parametrize("n, Lx, Ly, lam1, lam2, scheme, strip", SMOKE_SHAPES)
 def test_geometry_fits_every_smoke_shape(n, Lx, Ly, lam1, lam2, scheme, strip):
-    geo = ops.geometry(n, Lx, Ly, lam1, lam2, scheme=scheme, max_t=strip)
+    geo = ops.geometry(Lx, Ly, lam1, lam2, scheme=scheme, max_t=strip)
     kernel.check_fwd_geometry(geo, Lx, lam1)
     nx = Lx << lam1
-    assert geo.R in kernel.FWD_ROWS and geo.problems <= n
-    assert 32 * geo.warps * geo.problems <= kernel.fwd_max_threads(geo.R)
+    assert geo.R in kernel.FWD_ROWS
+    assert 32 * geo.warps <= kernel.MAX_THREADS
     assert kernel.fwd_smem_bytes(scheme, geo, Lx, Ly, lam1, lam2) <= kernel.SMEM_LIMIT
     bands = kernel.fwd_bands(nx, geo.R)
     assert bands * 32 * geo.R >= nx > (bands - 1) * 32 * geo.R  # all rows, no empty band
@@ -146,37 +146,34 @@ def test_geometry_fits_every_smoke_shape(n, Lx, Ly, lam1, lam2, scheme, strip):
 
 
 def test_geometry_at_the_main_path_shapes():
-    """The main paths' shapes take one pass of warps, R = _ROWS rows a lane
-    and one problem a block; a problem of one band packs several a block."""
-    for n, L in ((128, 1023), (2048, 255), (16384, 255), (64, 255)):
-        geo = ops.geometry(n, L, L)
-        assert geo.R == ops._ROWS and geo.problems == 1
+    """The main paths' shapes take one pass of warps and R = _ROWS rows a
+    lane; a problem of at most 32 rows one warp of one row a lane."""
+    for L in (1023, 255, 63, 40):
+        geo = ops.geometry(L, L)
+        assert geo.R == ops._ROWS
         assert geo.warps == kernel.fwd_bands(L, geo.R)        # one pass, no loop
-    small = ops.geometry(64, 40, 40)
-    assert small.warps == 1 and small.problems * small.warps == ops._BLOCK_WARPS
+    assert ops.geometry(31, 40) == G(1, 1)
 
 
 def test_geometry_honours_the_strip_cap():
     for strip in (2, 16, 32, 64, 256):
-        geo = ops.geometry(128, 1023, 1023, max_t=strip)
+        geo = ops.geometry(1023, 1023, max_t=strip)
         assert 32 * geo.R * geo.warps <= max(32, strip)
-    assert ops.geometry(8, 1023, 1023, max_t=2)[:2] == (1, 1)  # one warp of one row a lane
+    assert ops.geometry(1023, 1023, max_t=2) == G(1, 1)  # one warp of one row a lane
 
 
 @pytest.mark.parametrize("geo, scheme, Lx, Ly", [
-    (G(8, 4, 1), "order1", 1023, 1023), (G(2, 4, 1), "order2", 255, 255),
-    (G(1, 1, 4), "order1", 31, 40), (G(2, 3, 1), "order2", 300, 70)])
+    (G(2, 16), "order1", 1023, 1023), (G(2, 4), "order2", 255, 255),
+    (G(1, 1), "order1", 31, 40), (G(2, 3), "order2", 300, 70)])
 def test_fwd_smem_bytes_is_the_layout(geo, scheme, Lx, Ly):
-    """Per problem: full and empty mbarriers and CHUNK columns of the
-    handed-over row(s) per ring slot (RING_SLOTS between two warps, a whole
-    row from the last warp back to the first when the warps loop); per warp,
-    STAGES staged chunks of R x CHUNK lines of STAGE_LINE floats; a chunk of
-    ones per block."""
+    """Full and empty mbarriers and CHUNK columns of the handed-over row(s)
+    per ring slot (RING_SLOTS between two warps, a whole row from the last
+    warp back to the first when the warps loop); per warp, STAGES staged
+    chunks of R x CHUNK lines of STAGE_LINE floats; a chunk of ones."""
     rows = 2 if scheme == "order2" else 1
     loops = kernel.fwd_bands(Lx, geo.R) > geo.warps
     last = max(kernel.RING_SLOTS, -(-Ly // kernel.CHUNK)) if loops else 0
     slots = (geo.warps - 1) * kernel.RING_SLOTS + last
-    want = 2 * kernel.CHUNK * 4 + geo.problems * (
-        slots * (2 * 8 + 4 * kernel.CHUNK * rows)
-        + geo.warps * kernel.STAGES * geo.R * kernel.CHUNK * kernel.STAGE_LINE * 4)
+    want = (2 * kernel.CHUNK * 4 + slots * (2 * 8 + 4 * kernel.CHUNK * rows)
+            + geo.warps * kernel.STAGES * geo.R * kernel.CHUNK * kernel.STAGE_LINE * 4)
     assert kernel.fwd_smem_bytes(scheme, geo, Lx, Ly, 0, 0) == want

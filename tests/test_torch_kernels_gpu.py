@@ -92,7 +92,8 @@ def test_cps_and_bwd_match_plain(cuda, scheme, idt, lam, strip):
     gbar = _incs(6, 1, 1, 3, cuda).reshape(3)
     T = ops.choose_T(44, 29, *lam, 3, scheme=scheme, max_t=strip)
     before = (kernel.fwd_cps.launches, kernel.bwd.launches)
-    k, cps = kernel.fwd_cps(delta, T, *lam, scheme, idt)
+    k, cps = kernel.fwd_cps(delta, T, *lam, scheme, idt,
+                            ops.geometry(*delta.shape[1:], *lam, scheme=scheme, T=T))
     dd = kernel.bwd(delta, cps, gbar, T, *lam, scheme, idt)
     assert (kernel.fwd_cps.launches, kernel.bwd.launches) == (before[0] + 1, before[1] + 1)
     k_plain, cps_plain = kernel.solve_with_grid_plain(delta, T, *lam, scheme, idt)
@@ -107,7 +108,8 @@ def test_bwd_two_row_strips(cuda, scheme):
     """T = 2: lane 0 writes the carried products lane 1 reads in the same step."""
     delta = torch.einsum("bid,bjd->bij", _incs(7, 3, 9, 3, cuda), _incs(8, 3, 12, 3, cuda))
     gbar = torch.ones(3, device=cuda)
-    k, cps = kernel.fwd_cps(delta, 2, 0, 1, scheme, "float32")
+    k, cps = kernel.fwd_cps(delta, 2, 0, 1, scheme, "float32",
+                            ops.geometry(9, 12, 0, 1, scheme=scheme, T=2))
     dd = kernel.bwd(delta, cps, gbar, 2, 0, 1, scheme, "float32")
     _, cps_plain = kernel.solve_with_grid_plain(delta, 2, 0, 1, scheme, "float32")
     torch.testing.assert_close(cps, cps_plain, rtol=0, atol=0)
@@ -208,28 +210,27 @@ def test_fused_kernels_mid_size(cuda, which, record_property):
 @pytest.mark.gpu
 def test_smem_bytes_mirrors_the_cuda_layout(cuda):
     """kernel.smem_bytes (which choose_T reads) equals the CUDA source's
-    smem_bytes, which the launch checks, for every forward mode (the
-    precomputed-Δ forward's strip height sets none of its bytes), and
-    kernel.fwd_smem_bytes (which ops.geometry reads) the source's
-    wave_smem_bytes at every geometry: R rows a lane, one or several warps
-    and problems, one pass or a loop over bands (the wrap ring)."""
+    smem_bytes, which the fused launches check, and kernel.fwd_smem_bytes
+    (which ops.geometry reads) the source's wave_smem_bytes at every
+    geometry: R rows a lane, one or several warps, one pass or a loop over
+    bands (the wrap ring)."""
     lib = kernel.library()
     for T in (2, 4, 16, 32, 64, 256, 512):
         for lam1, lam2 in ((0, 0), (1, 2), (2, 0), (0, 3)):
             if T >> lam1 < 1:
                 continue
             for scheme in ("order1", "order2"):
-                for mode, d in ((0, 0), (1, 1), (1, 8), (1, 33), (2, 32)):
-                    want = lib.sigkernel_pde_smem_bytes(mode, scheme == "order2", T, 255,
-                                                        lam1, lam2, d)
-                    assert kernel.smem_bytes(mode > 0, scheme, T, 255, lam1, lam2, d) == want
+                for d in (1, 8, 32, 33):
+                    want = lib.sigkernel_pde_smem_bytes(scheme == "order2", T, 255, lam1,
+                                                        lam2, d)
+                    assert kernel.smem_bytes(scheme, T, 255, lam1, lam2, d) == want
     for R in kernel.FWD_ROWS:
-        for warps, problems in ((1, 1), (1, 4), (2, 2), (3, 1), (8, 1)):
+        for warps in (1, 2, 3, 8, 16):
             for Lx, Ly, lam1, lam2 in ((255, 255, 0, 0), (1023, 1023, 0, 0), (100, 300, 1, 2)):
                 for scheme in ("order1", "order2"):
-                    geo = kernel.FwdGeometry(R, warps, problems)
-                    want = lib.sigkernel_pde_fwd_smem_bytes(scheme == "order2", R, warps,
-                                                            problems, Lx, Ly, lam1, lam2)
+                    geo = kernel.FwdGeometry(R, warps)
+                    want = lib.sigkernel_pde_fwd_smem_bytes(scheme == "order2", R, warps, Lx,
+                                                            Ly, lam1, lam2)
                     assert kernel.fwd_smem_bytes(scheme, geo, Lx, Ly, lam1, lam2) == want
 
 
@@ -245,10 +246,10 @@ WAVE_CASES = ([(nx, "order1", "float32", (0, 0), 64) for nx in (31, 32, 33, 255,
                          ids=[f"nx{n}-{s}-{i}-lam{a}{b}-T{T}" for n, s, i, (a, b), T in WAVE_CASES])
 def test_wavefront_geometries_match_plain(cuda, nx, scheme, idt, lam, T):
     """The register-wavefront forward at every R the geometry can pick (one
-    pass of warps, a loop of one warp over the bands, and several problems
-    a block), both modes, against solve_plain and solve_with_grid_plain
-    exactly (k and the checkpoint rows); the backward on those checkpoint
-    rows against solve_grad_plain (1e-4, its fold's order)."""
+    pass of warps and a loop of one warp over the bands), both modes,
+    against solve_plain and solve_with_grid_plain exactly (k and the
+    checkpoint rows); the backward on those checkpoint rows against
+    solve_grad_plain (1e-4, its fold's order)."""
     Lx, Ly = nx >> lam[0], 40
     delta = torch.einsum("bid,bjd->bij", _incs(70 + nx, 3, Lx + 1, 4, cuda),
                          _incs(71 + nx, 3, Ly + 1, 4, cuda))
@@ -259,8 +260,8 @@ def test_wavefront_geometries_match_plain(cuda, nx, scheme, idt, lam, T):
     torch.testing.assert_close(kg, k_plain, rtol=0, atol=0)
     for R in kernel.FWD_ROWS:
         bands = kernel.fwd_bands(nx, R)
-        for geo in {kernel.FwdGeometry(R, min(bands, kernel.fwd_max_threads(R) // 32), 1),
-                    kernel.FwdGeometry(R, 1, 1), kernel.FwdGeometry(R, 1, 2)}:
+        for geo in {kernel.FwdGeometry(R, min(bands, kernel.MAX_THREADS // 32)),
+                    kernel.FwdGeometry(R, 1)}:
             assert torch.equal(kernel.fwd(delta, geo, *lam, scheme, idt), k_plain), geo
             if R > T:
                 continue
@@ -273,14 +274,15 @@ def test_wavefront_geometries_match_plain(cuda, nx, scheme, idt, lam, T):
 @pytest.mark.gpu
 def test_launcher_checks_its_inputs(cuda):
     delta = torch.zeros(2, 5, 5, device=cuda)
+    geo = ops.geometry(5, 5)
     with pytest.raises(TypeError, match="float32"):
-        kernel.fwd(delta.double(), 8, 0, 0, "order1", "float32")
+        kernel.fwd(delta.double(), geo, 0, 0, "order1", "float32")
     with pytest.raises(ValueError, match="contiguous"):
-        kernel.fwd(delta.transpose(1, 2), 8, 0, 0, "order1", "float32")
-    with pytest.raises(ValueError, match="pde_strip"):
-        kernel.fwd(delta, 3, 0, 0, "order1", "float32")
+        kernel.fwd(delta.transpose(1, 2), geo, 0, 0, "order1", "float32")
+    with pytest.raises(ValueError, match="geometry"):
+        kernel.fwd(delta, kernel.FwdGeometry(3, 1), 0, 0, "order1", "float32")
     with pytest.raises(ValueError, match="CUDA"):
-        kernel.fwd(delta.cpu(), 8, 0, 0, "order1", "float32")
+        kernel.fwd(delta.cpu(), geo, 0, 0, "order1", "float32")
 
 
 # ---------------------------------------------------------------------------

@@ -157,7 +157,12 @@ def test_choose_T_fits_one_block(Lx, Ly, lam1, lam2, n, d, scheme):
     T = ops.choose_T(Lx, Ly, lam1, lam2, n, d=d, scheme=scheme)
     kernel.check_strip(T, lam1, scheme)
     assert T % (1 << lam1) == 0
-    assert kernel.smem_bytes(d > 0, scheme, T, Ly, lam1, lam2, d) <= kernel.SMEM_LIMIT
+    if d:
+        assert kernel.smem_bytes(scheme, T, Ly, lam1, lam2, d) <= kernel.SMEM_LIMIT
+    else:  # the checkpoint forward at T and the backward it lines up with
+        geo = ops.geometry(Lx, Ly, lam1, lam2, scheme=scheme, T=T)
+        assert kernel.fwd_smem_bytes(scheme, geo, Lx, Ly, lam1, lam2) <= kernel.SMEM_LIMIT
+        assert kernel.smem_bytes_bwd(scheme, T, Ly, lam1, lam2) <= kernel.SMEM_LIMIT
     assert T <= max(2, 1 << lam1, 1 << (Lx << lam1).bit_length())
 
 
@@ -172,7 +177,8 @@ def test_backward_strip_fits_one_block(Lx, Ly, lam1, lam2, scheme):
     T = ops.choose_T(Lx, Ly, lam1, lam2, 128, scheme=scheme)
     kernel.check_strip(T, lam1, scheme, kernel.BWD_MAX_THREADS)
     assert kernel.smem_bytes_bwd(scheme, T, Ly, lam1, lam2) <= kernel.SMEM_LIMIT
-    assert kernel.smem_bytes(False, scheme, T, Ly, lam1, lam2) <= kernel.SMEM_LIMIT
+    geo = ops.geometry(Lx, Ly, lam1, lam2, scheme=scheme, T=T)
+    assert kernel.fwd_smem_bytes(scheme, geo, Lx, Ly, lam1, lam2) <= kernel.SMEM_LIMIT
     assert kernel.ws_stride(T) >= T and kernel.ws_stride(T) % 4 == 0
     if (Lx, Ly) == (1023, 1023):
         assert T == 512  # the gradient path's strip

@@ -39,12 +39,12 @@ thread, and a 16-step band.
 ``ablate-fwd`` times variants of the precomputed-Δ forward of ``DIR``
 (``--old src/repro_torch/kernels/sigkernel_pde/csrc``), both modes, at
 every shape B1 and B1-cps launch at (``WAVE_SHAPES``), over R in {1, 2, 4,
-8} rows a lane and 1, 2 or 4 problems a block: as it is, its copies
-without the L2 prefetch hint, three staged chunks, a chunk's copies in one
-burst instead of spread over the steps,
-32-step chunks, Δ in registers instead of staged, and no copies at all
-(timing only); each checked bit for bit against the source as it is (a
-variant the source has no part for is skipped).
+8} rows a lane (R = 4 and 8 instantiated by a text patch into every
+variant): as it is, its copies without the L2 prefetch hint, three staged
+chunks, a chunk's copies in one burst at its start instead of spread over
+the steps, 32-step chunks, Δ in each lane's registers (its own loads
+kGroup steps ahead) instead of staged, and no copies at all (timing only);
+each checked bit for bit against the source as it is.
 
 ``compare`` times the Goursat kernels of ``DIR`` (the parent's
 ``sigkernel_pde.cu``, whose C interfaces it calls; built under another
@@ -235,10 +235,10 @@ def _bwd_call(lib, delta, gbar, T, original):
     version) and returns dΔ; ``original``: the original source's shared
     memory, else the repo's."""
     import torch
-    from repro_torch.kernels.sigkernel_pde import kernel
+    from repro_torch.kernels.sigkernel_pde import kernel, ops
     B, Lx, Ly = delta.shape
     stream = torch.cuda.current_stream().cuda_stream
-    cps = kernel.fwd_cps(delta, T, 0, 0, "order1", "float32")[1]
+    cps = kernel.fwd_cps(delta, T, 0, 0, "order1", "float32", ops.geometry(Lx, Ly, T=T))[1]
     ws = torch.zeros(B * (Ly + T - 1) * max(T, 4), device=delta.device)
     dd = torch.zeros_like(delta)
     smem = _bwd_smem(T, Ly, original)
@@ -469,7 +469,7 @@ def ablate_fused(src_dir: Path, out: Path):
     libs = {}
     for name in jobs:
         lib = _fused_lib(jobs[name][1])
-        lib.sigkernel_pde_smem_bytes.argtypes = [ctypes.c_int] * 7
+        lib.sigkernel_pde_smem_bytes.argtypes = [ctypes.c_int] * 6
         lib.sigkernel_pde_smem_bytes.restype = ctypes.c_longlong
         libs[name] = lib
     rng = np.random.default_rng(3)
@@ -478,11 +478,10 @@ def ablate_fused(src_dir: Path, out: Path):
         n = B[0] * B[1] if which == "gram_fused" else B
         Lx, Ly = dx.shape[1], dy.shape[1]
         T = ops.choose_T(Lx, Ly, 0, 0, n, d=d)
-        mode = 2 if which == "gram_fused" else 1
         runs = {name: _fused_call(lib, which, dx, dy, T,
-                                  lib.sigkernel_pde_smem_bytes(mode, 0, T, Ly, 0, 0, d))
+                                  lib.sigkernel_pde_smem_bytes(0, T, Ly, 0, 0, d))
                 for name, lib in libs.items()
-                if lib.sigkernel_pde_smem_bytes(mode, 0, T, Ly, 0, 0, d) <= 232448}
+                if lib.sigkernel_pde_smem_bytes(0, T, Ly, 0, 0, d) <= 232448}
         ref = runs["as_is"]().clone()
         errs = {}
         for name, run in runs.items():
@@ -551,9 +550,9 @@ def _fused_lib(lib_path, wave=False):
     lib.sigkernel_pde_fwd_fused.argtypes = [p, p, p, ll, i, i, i, i, i, i, i, i, ll, p]
     lib.sigkernel_pde_gram_fused.argtypes = [p, p, p, ll, ll, i, i, i, i, i, i, i, i, ll, p]
     if wave:
-        lib.sigkernel_pde_fwd.argtypes = [p, p, ll, i, i, i, i, i, i, i, i, i, ll, p]
-        lib.sigkernel_pde_fwd_cps.argtypes = [p, p, p, ll, i, i, i, i, i, i, i, i, i, i, ll, p]
-        lib.sigkernel_pde_fwd_smem_bytes.argtypes = [i] * 8
+        lib.sigkernel_pde_fwd.argtypes = [p, p, ll, i, i, i, i, i, i, i, i, ll, p]
+        lib.sigkernel_pde_fwd_cps.argtypes = [p, p, p, ll, i, i, i, i, i, i, i, i, i, ll, p]
+        lib.sigkernel_pde_fwd_smem_bytes.argtypes = [i] * 7
         lib.sigkernel_pde_fwd_smem_bytes.restype = ll
     else:
         lib.sigkernel_pde_fwd.argtypes = [p, p, ll, i, i, i, i, i, i, i, ll, p]
@@ -613,7 +612,7 @@ def compare(old: Path, out: Path):
         n = B[0] * B[1] if which == "gram_fused" else B
         Lx, Ly = dx.shape[1], dy.shape[1]
         T = ops.choose_T(Lx, Ly, 0, 0, n, d=d)  # the parent's too: the layout did not move
-        smem = kernel.smem_bytes(True, "order1", T, Ly, 0, 0, d)
+        smem = kernel.smem_bytes("order1", T, Ly, 0, 0, d)
         _turns(rows, card, which, _fused_call(lib_old, which, dx, dy, T, smem),
                _fused_call(lib_new, which, dx, dy, T, smem), shape=[B, Lx, Ly, d], T=T)
         del dx, dy
@@ -627,7 +626,7 @@ def compare(old: Path, out: Path):
         Lx = Ly = Lp - 1
         T_cps = ops.choose_T(Lx, Ly, 0, 0, B)
         T_old = min(64 if B > 4 * 132 else 512, 1 << (Lx - 1).bit_length())
-        geo = ops.geometry(B, Lx, Ly)
+        geo = ops.geometry(Lx, Ly)
         for what in ("fwd", "fwd_cps"):
             T = T_old if what == "fwd" else T_cps
             old_run = _wave_old_call(lib_old, delta, what, T)
@@ -710,17 +709,32 @@ def _wave_new_call(lib, delta, what, T, geo, scheme="order1"):
     return run
 
 
-# the precomputed-Δ forward (WAVE_SHAPES): staging, chunk length, stages
+# the precomputed-Δ forward (WAVE_SHAPES): rows a lane, staging, chunk
+# length, stages; each a text patch of the shipped source
 def _const(name, value):
     return lambda src: _patch(src, f"constexpr {name} = ", f"constexpr {name} = {value};  // ",
                               after="constexpr int kChunk")
 
 
+def _rows_4_8(src):
+    """R = 4 and 8 instantiated beside 1 and 2, each at the launch bound its
+    registers allow (512 and 256 threads)."""
+    src = _patch(src, "__launch_bounds__(kMaxThreads)\ngoursat_fwd(",
+                 "__launch_bounds__(R >= 8 ? 256 : (R >= 4 ? 512 : kMaxThreads))\ngoursat_fwd(")
+    src = _patch(src, "(R != 1 && R != 2) ||",
+                 "(R != 1 && R != 2 && R != 4 && R != 8) || 32LL * NW * R > 2 * kMaxThreads ||",
+                 after="int dispatch_wave(")
+    call = "(delta, out, cps, B, Lx, Ly, T, NW, lam1, lam2, smem, s);\n"
+    return _patch(src, "    default:\n", "".join(
+        f"    case {r}:\n      return launch_wave<ORDER2, BF16, CPS, {r}>{call}" for r in (4, 8))
+        + "    default:\n", after="cudaError_t launch_wave_rows(")
+
+
 def _no_copies(src):
     """Δ never staged (the wavefront, its shuffles and hand-overs alone, on
     whatever the buffers hold: wrong values, timing only)."""
-    src = _patch(src, "          stage_one<R, REF>(stage + s * SB,",
-                 "          if (Lx < 0) stage_one<R, REF>(stage + s * SB,")
+    src = _patch(src, "        stage_one<R, REF>(stage + s * SB,",
+                 "        if (Lx < 0) stage_one<R, REF>(stage + s * SB,")
     return _patch(src, "stage_one<R, REF>(nbuf,", "if (Lx < 0) stage_one<R, REF>(nbuf,")
 
 
@@ -729,38 +743,67 @@ def _no_l2_prefetch(src):
     return _patch(src, "cp.async.ca.shared.global.L2::128B [%0]", "cp.async.ca.shared.global [%0]")
 
 
+def _burst(src):
+    """A chunk's copies all at the first step of the chunk before it."""
+    return _patch(src, "for (int j = 0; j < R; ++j)  // this step's share of chunk mn's copies, "
+                  "issued first\n          stage_one<R, REF>(nbuf, delta, sp, k * R + j,",
+                  "for (int j = 0; j < (k == 0 ? R * K : 0); ++j)  // ablation: a burst\n"
+                  "          stage_one<R, REF>(nbuf, delta, sp, j,")
+
+
+def _registers(src):
+    """Δ in registers: each lane loads its own entries kGroup steps ahead
+    (one warp load touching 32 rows), nothing staged."""
+    src = _no_copies(src)
+    src = _patch(src, "const int64_t stage = (int64_t)kStages * R * kChunk * kLine;",
+                 "const int64_t stage = 0;  // ablation: nothing staged")
+    src = _patch(src, "    float u1p = 1.0f;    // row lR-1 at step t-2\n", """\
+    float u1p = 1.0f;    // row lR-1 at step t-2
+    auto fetch = [&](int i, int t) {  // ablation: Delta kGroup steps ahead in registers
+      const int rho = base + lr + i, c = t - lr - i;
+      return rho < nx && c >= 0 && c < ny
+                 ? __ldg(delta + (int64_t)(rho >> lam1) * Ly + (c >> lam2)) : 0.0f;
+    };
+    float pre[R][kGroup];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int g = 0; g < kGroup; ++g) pre[i][g] = fetch(i, g);
+""")
+    return _patch(src, "const float p = sb[(i * K + k) * kLine];",
+                  "const float p = pre[i][k % kGroup];\n"
+                  "          pre[i][k % kGroup] = fetch(i, t + kGroup);")
+
+
 WAVE_VARIANTS = {"as_is": (), "no_l2_prefetch": (_no_l2_prefetch,),
                  "stages_3": (_const("int kStages", 3),),
-                 "burst": (_const("bool kSpread", "false"),),
+                 "burst": (_burst,),
                  "chunk_32": (_const("int kChunk", 32),),
-                 "registers": (_const("bool kStageDelta", "false"),),
+                 "registers": (_registers,),
                  "no_copies": (_no_copies,)}
 
 
+def _rows_max_threads(R):
+    return 256 if R >= 8 else (512 if R >= 4 else 1024)
+
+
 def ablate_fwd(src_dir: Path, out: Path):
-    """Variants of the precomputed-Δ forward of ``DIR`` (WAVE_VARIANTS) at
-    WAVE_SHAPES, both modes, over R in {1, 2, 4, 8} (one pass of warps) and
-    1, 2 or 4 problems a block, in turns; each variant's shared memory is its
-    own library's.  Results are checked against the variant as it is (but
-    ``no_copies``)."""
+    """Variants of the precomputed-Δ forward of ``DIR`` (WAVE_VARIANTS, each
+    with R = 4 and 8 patched in) at WAVE_SHAPES, both modes, over R in {1,
+    2, 4, 8} with one pass of warps, in turns; each variant's shared memory
+    is its own library's.  Results are checked against the variant as it is
+    (but ``no_copies``)."""
     import torch
     from repro_torch.kernels.sigkernel_pde import kernel, ops
     rows = []
     card = _card()
     print(f"card: {card}", flush=True)
-    base = (src_dir / "sigkernel_pde.cu").read_text()
+    base = _rows_4_8((src_dir / "sigkernel_pde.cu").read_text())
     jobs = {}
     for name, patches in WAVE_VARIANTS.items():
         src = base
-        try:
-            for f in patches:
-                src = f(src)
-        except ValueError:  # the source has no such part (e.g. no kSpread)
-            _emit(rows, {"variant_skipped": name})
-            continue
-        if name != "as_is" and src == base:
-            _emit(rows, {"variant_skipped": name, "why": "the source is already so"})
-            continue
+        for f in patches:
+            src = f(src)
         d = WORK / "ablate_fwd" / name
         d.mkdir(parents=True, exist_ok=True)
         (d / "sigkernel_pde.cu").write_text(src)
@@ -776,23 +819,15 @@ def ablate_fwd(src_dir: Path, out: Path):
         delta = _wave_delta(rng, B, Lp)
         Lx = Ly = Lp - 1
         T = ops.choose_T(Lx, Ly, 0, 0, B)
-        geos = []
-        for R in kernel.FWD_ROWS:
-            warps = min(kernel.fwd_bands(Lx, R), kernel.fwd_max_threads(R) // 32)
-            geos += [kernel.FwdGeometry(R, warps, pb) for pb in (1, 2, 4)
-                     if pb <= B and 32 * warps * pb <= kernel.fwd_max_threads(R)]
+        geos = [kernel.FwdGeometry(R, min(kernel.fwd_bands(Lx, R), _rows_max_threads(R) // 32))
+                for R in (1, 2, 4, 8)]
         for what in ("fwd", "fwd_cps"):
             ms, equal = {}, {}
             for geo in geos:
                 runs = {}
                 for name, lib in libs.items():  # the geometries each library takes
                     if lib.sigkernel_pde_fwd_smem_bytes(0, *geo, Lx, Ly, 0, 0) <= 232448:
-                        run = _wave_new_call(lib, delta, what, T, geo)
-                        try:
-                            run()
-                        except AssertionError:
-                            continue
-                        runs[name] = run
+                        runs[name] = _wave_new_call(lib, delta, what, T, geo)
                 ref = runs["as_is"]().clone() if "as_is" in runs else None
                 times = {name: [] for name in runs}
                 for turn in range(2):
@@ -804,7 +839,7 @@ def ablate_fwd(src_dir: Path, out: Path):
                     if ref is not None and name != "no_copies":
                         equal.setdefault(name, {})[key] = bool(torch.equal(runs[name](), ref))
             _emit(rows, {"fwd_ablation": what, "shape": [B, Lx, Ly], "T": T,
-                         "geometry": list(ops.geometry(B, Lx, Ly)), "ms": ms,
+                         "geometry": list(ops.geometry(Lx, Ly)), "ms": ms,
                          "equal_to_as_is": equal, "card": card})
         del delta
         torch.cuda.empty_cache()
