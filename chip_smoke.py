@@ -61,7 +61,29 @@ Phases (any failure exits non-zero; nothing runs without CUDA):
    B3 also against their plain versions, rel <= 1e-4, with a strip sweep),
    and print one JSON line per kernel, the
    ``kernels`` line, the card's name and power limit, and the final ``ok``
-   line.
+   line;
+8. ``stream_path``: the streaming ``Path`` at the JAX bench's "full" cells,
+   (L, d, N) = (1024, 4, 5) and (4096, 3, 4) for 128 paths each (and
+   lead-lag at (1024, 4, 5) on a batch that fits): ``from_points``, 16
+   one-point and 8 eight-point ``update``s, 1,024 random interval queries,
+   ``rolling(64, stride=16)``, ``logsignature``, a ``retention=1024`` run;
+   the full signature against a fresh ``signature`` on the card (the Horner
+   kernel) at rel <= 5e-5; no scan step over the queries, the chunk buckets'
+   steps over the updates;
+9. ``features_path``: the RFF (linear and RBF lift) and Nyström Grams on
+   32 x 32 paths of (129, 8) at ranks 32, 128, 512, each against the exact
+   Gram of the same call (relative Frobenius error and ms); RFF issues no
+   pair solve; ``torch.autograd.grad`` of ``mmd2(..., features=)`` finite
+   for both methods; ``sig_aux_loss`` on hidden (32, 128, 256) with proj
+   (256, 8), exact and with each method; Goursat launches by shape;
+10. ``serve_path``: ``SigFeatureServer(depth=5)`` with 128 streams of
+   d = 4 opened with 1,024 points, 32 flush rounds of 1 to 8 points a
+   stream, after each ``signature``, ``logsignature``, ``rolling(64)`` and
+   ``features(window=256)`` (RFF, rank 128) on 8 streams; every stream's
+   signature against a fresh ``signature`` of its raw points at rel <= 5e-5.
+
+Phases 8-10 run after phase 7's timing and before the ``kernels`` line;
+each sets the launch counts to 0 just before it and reads them just after.
 """
 
 from __future__ import annotations
@@ -110,6 +132,26 @@ SIG_SHAPES = ((128, 256, 4, 6), (128, 512, 8, 5), (128, 1024, 16, 4))
 #: (B, sig_dim) float32 buffers: O(1) in L (10-11.5 measured on an H100 at
 #: the three shapes)
 SIG_BWD_MAX_BUFFERS = 16
+
+#: the JAX bench's "full" streaming-Path cells, (L, d, N), for PATH_BATCH
+#: paths each (src/repro/bench/workloads.py:852-856), and its gate against a
+#: fresh recompute (:900)
+PATH_CELLS = ((1024, 4, 5), (4096, 3, 4))
+PATH_BATCH = 128
+PATH_REL = 5e-5
+#: lead-lag doubles d to 8 at (1024, 4, 5): sig_dim 37,448 and 2,046 stored
+#: rows a store, 613 MB a path for both stores; the build's scan and inverse
+#: hold about five times the stores at once
+LEAD_LAG_BATCH = 16
+#: the JAX approximation frontier's "full" cell: Bx = By = 32 paths of 129
+#: points (128 increments), d = 8, ranks 32, 128, 512
+#: (src/repro/bench/workloads.py:672-677, bench/autotune.py:496-507)
+FRONTIER = (32, 129, 8)
+FRONTIER_RANKS = (32, 128, 512)
+#: the served streams: count, initial points, d, depth; flush rounds, the
+#: streams queried after each, the rolling window and the feature window
+SERVE = (128, 1024, 4, 5)
+SERVE_ROUNDS, SERVE_QUERIED, SERVE_WINDOW, SERVE_FEATURE_WINDOW = 32, 8, 64, 256
 
 
 class SmokeFailure(RuntimeError):
@@ -795,12 +837,253 @@ def main() -> int:
               "launches_at_this_shape": by_shape.get(f"d={d_}, N={N_}", 0), **row,
               "card": name, "power_limit": power})
 
+    stream_phase(rt, dev, rng, reset_all, sig_kernel, name, power)
+    features_phase(rt, dev, rng, reset_all, kernel, name, power)
+    serve_phase(rt, dev, rng, reset_all, sig_kernel, name, power)
+
     emit({"kernels": rows})
     print(card)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def synced_ms(fn):
+    """(result, host ms) of one call that ends in a synchronise."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def rel_rows(a, b) -> float:
+    """The largest relative error of a row (path) of ``a`` against ``b``."""
+    scale = b.abs().amax(dim=-1).clamp_min(1e-30)
+    return float(((a - b).abs().amax(dim=-1) / scale).max())
+
+
+def stream_phase(rt, dev, rng, reset_all, sig_kernel, name, power) -> None:
+    """Phase 8: the streaming Path at the JAX bench's full cells."""
+    import torch
+    from repro_torch.core import dispatch
+    from repro_torch.stream import Path
+    reset_all()
+    t_phase = time.time()
+    cells = []
+    for L_, d_, N_ in PATH_CELLS:
+        walk = torch.from_numpy(random_paths(rng, PATH_BATCH, L_ + 16 + 64, d_)).to(dev)
+        x = walk[:, :L_]
+        # the first build pays the allocator's growth; the second is timed warm
+        p, build_ms_cold = synced_ms(lambda: Path.from_points(x, N_))
+        del p
+        torch.cuda.reset_peak_memory_stats()
+        p, build_ms = synced_ms(lambda: Path.from_points(x, N_))
+        store_bytes = (p.prefix.numel() + p.inv_prefix.numel()) * p.prefix.element_size()
+        upd_ms, chunk_steps = [], 0
+        with dispatch.count_scan_steps() as sc_upd:
+            for i in range(16):
+                p, ms = synced_ms(lambda: p.update(walk[:, L_ + i:L_ + i + 1]))
+                upd_ms.append(ms)
+                chunk_steps += 1
+            for j in range(8):
+                a = L_ + 16 + 8 * j
+                p, ms = synced_ms(lambda: p.update(walk[:, a:a + 8]))
+                upd_ms.append(ms)
+                chunk_steps += 8
+        check(len(p) == walk.shape[1], f"stream {L_, d_, N_}: length {len(p)}")
+        check(sc_upd.total == chunk_steps,
+              f"stream {L_, d_, N_}: updates scanned {sc_upd.total} steps, "
+              f"the chunk buckets hold {chunk_steps}")
+        n_pts = len(p)
+        i_q = rng.integers(0, n_pts - 1, size=1024)
+        j_q = np.array([rng.integers(i + 2, n_pts + 1) for i in i_q])
+        with dispatch.count_scan_steps() as sc_q, dispatch.count_combines() as cc_q:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = [p.signature(int(i), int(j)) for i, j in zip(i_q, j_q)]
+            torch.cuda.synchronize()
+            query_ms = (time.perf_counter() - t0) * 1e3 / len(outs)
+        check(sc_q.total == 0, f"stream {L_, d_, N_}: queries scanned {sc_q.total} steps")
+        check(cc_q.total == int((i_q > 0).sum()),
+              f"stream {L_, d_, N_}: {cc_q.total} combines for {len(outs)} queries")
+        # interval queries against fresh signatures of the intervals (B5)
+        interval_rel = max(rel_rows(outs[q], rt.signature(walk[:, i_q[q]:j_q[q]], N_))
+                           for q in range(0, 1024, 128))
+        roll, roll_ms = synced_ms(lambda: p.rolling(64, stride=16))
+        check(roll.shape[-2] == (n_pts - 64) // 16 + 1, f"rolling shape {tuple(roll.shape)}")
+        w = roll.shape[-2] - 1              # the last window, starting at point 16·w
+        roll_rel = rel_rows(roll[:, w], rt.signature(walk[:, 16 * w:16 * w + 64], N_))
+        logsig, logsig_ms = synced_ms(lambda: p.logsignature(mode="lyndon"))
+        fresh, fresh_ms = synced_ms(lambda: rt.signature(walk, N_))
+        full_rel = rel_rows(p.signature(), fresh)
+        logsig_rel = rel_rows(logsig, rt.logsignature(walk, N_))
+        peak = torch.cuda.max_memory_allocated()
+        del p, outs, roll
+        # retention: 24 updates on a path capped at L_ points
+        keep = Path.from_points(x, N_, retention=L_)
+        for i in range(16):
+            keep = keep.update(walk[:, L_ + i:L_ + i + 1])
+        for j in range(8):
+            a = L_ + 16 + 8 * j
+            keep = keep.update(walk[:, a:a + 8])
+        check(len(keep) == L_, f"retention kept {len(keep)} points")
+        retention_rel = rel_rows(keep.signature(), rt.signature(walk[:, -L_:], N_))
+        del keep
+        rels = {"full_signature": full_rel, "retention": retention_rel}
+        for what, err in rels.items():
+            check(err <= PATH_REL, f"stream {L_, d_, N_}: {what} rel err {err:.3g} > {PATH_REL}")
+        for what, err in (("intervals", interval_rel), ("rolling", roll_rel),
+                          ("logsignature", logsig_rel)):
+            check(err <= 1e-3, f"stream {L_, d_, N_}: {what} rel err {err:.3g} > 1e-3")
+        cells.append({"L": L_, "d": d_, "N": N_, "batch": PATH_BATCH, "store_bytes": store_bytes,
+                      "peak_bytes": peak, "build_ms_cold": build_ms_cold, "build_ms": build_ms,
+                      "update_1pt_ms": upd_ms[:16], "update_8pt_ms": upd_ms[16:],
+                      "update_scan_steps": sc_upd.total, "query_ms": query_ms,
+                      "query_scan_steps": sc_q.total, "query_combines": cc_q.total,
+                      "rolling_ms": roll_ms, "rolling_windows": (n_pts - 64) // 16 + 1,
+                      "logsignature_ms": logsig_ms, "fresh_signature_ms": fresh_ms,
+                      "rel_err": {**rels, "intervals": interval_rel, "rolling": roll_rel,
+                                  "logsignature": logsig_rel}})
+        del walk, x
+        torch.cuda.empty_cache()
+    # lead-lag at (1024, 4, 5) on a batch that fits
+    L_, d_, N_ = PATH_CELLS[0]
+    ll = rt.TransformPipeline(lead_lag=True)
+    x = torch.from_numpy(random_paths(rng, LEAD_LAG_BATCH, L_, d_)).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    p, build_ms = synced_ms(lambda: Path.from_points(x, N_, transforms=ll))
+    store_bytes = (p.prefix.numel() + p.inv_prefix.numel()) * p.prefix.element_size()
+    i_q = rng.integers(0, L_ - 1, size=64)
+    j_q = np.array([rng.integers(i + 2, L_ + 1) for i in i_q])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [p.signature(int(i), int(j)) for i, j in zip(i_q, j_q)]
+    torch.cuda.synchronize()
+    query_ms = (time.perf_counter() - t0) * 1e3 / len(outs)
+    full_rel = rel_rows(p.signature(), rt.signature(x, N_, transforms=ll))
+    check(full_rel <= PATH_REL, f"stream lead-lag: full signature rel err {full_rel:.3g}")
+    cells.append({"L": L_, "d": d_, "N": N_, "lead_lag": True, "batch": LEAD_LAG_BATCH,
+                  "sig_dim": p.sig_dim, "store_bytes": store_bytes,
+                  "bytes_for_128_paths": store_bytes * PATH_BATCH // LEAD_LAG_BATCH,
+                  "peak_bytes": torch.cuda.max_memory_allocated(), "build_ms": build_ms,
+                  "query_ms": query_ms, "rel_err": {"full_signature": full_rel}})
+    del p, outs, x
+    torch.cuda.empty_cache()
+    counts = sig_kernel.launch_counts()
+    check(counts["horner"] > 0, "stream path: the fresh recompute never launched horner")
+    emit({"stream_path": cells, "launches": counts, "seconds": round(time.time() - t_phase, 3),
+          "card": name, "power_limit": power})
+
+
+def features_phase(rt, dev, rng, reset_all, kernel, name, power) -> None:
+    """Phase 9: the RFF / Nyström feature maps, their gradients and
+    sig_aux_loss at the JAX frontier's full cell."""
+    import torch
+    from repro_torch.core import dispatch
+    from repro_torch.core.losses import sig_aux_loss
+    Bf, Lf, df = FRONTIER
+    X = torch.from_numpy((rng.normal(size=(Bf, Lf, df)) * 0.1).astype(np.float32)).to(dev)
+    Y = torch.from_numpy((rng.normal(size=(Bf, Lf, df)) * 0.1).astype(np.float32)).to(dev)
+    reset_all()
+    t_phase = time.time()
+    maps = []
+    for lift, kern in (("linear", rt.Linear()), ("rbf", rt.RBF(1.0))):
+        rt.sigkernel_gram(X, Y, static_kernel=kern)            # warm
+        K, exact_ms = synced_ms(lambda: rt.sigkernel_gram(X, Y, static_kernel=kern))
+        for method in ("rff", "nystroem"):
+            for rank in FRONTIER_RANKS:
+                f = rt.FeatureConfig(method, rank=rank)
+                rt.sigkernel_gram(X, Y, static_kernel=kern, features=f)      # warm
+                with dispatch.count_pair_solves() as c:
+                    Ka, ms = synced_ms(lambda: rt.sigkernel_gram(X, Y, static_kernel=kern,
+                                                                 features=f))
+                check(bool(torch.isfinite(Ka).all()), f"{method} {lift} r={rank}: non-finite")
+                if method == "rff":
+                    check(c.total == 0, f"rff {lift} r={rank}: {c.total} pair solves")
+                maps.append({"method": method, "lift": lift, "rank": rank,
+                             "feature_dim": f.feature_dim(Bf), "pair_solves": c.total,
+                             "rel_fro_err": float(torch.linalg.norm(Ka - K)
+                                                  / torch.linalg.norm(K)),
+                             "ms": ms, "exact_ms": exact_ms})
+    grad_rows = []
+    for method in ("rff", "nystroem"):
+        for lift, kern in (("linear", rt.Linear()), ("rbf", rt.RBF(1.0))):
+            f = rt.FeatureConfig(method, rank=32)
+            (g,), ms = synced_ms(lambda: grads(
+                lambda a: rt.mmd2(a, Y, static_kernel=kern, features=f), X))
+            check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0,
+                  f"grad mmd2(features={method}, {lift}): not finite or zero")
+            grad_rows.append({"method": method, "lift": lift, "rank": 32, "ms": ms})
+    H = torch.from_numpy((rng.normal(size=(32, 128, 256)) * 0.1).astype(np.float32)).to(dev)
+    P = torch.from_numpy((rng.normal(size=(256, 8)) * 0.1).astype(np.float32)).to(dev)
+    T = torch.from_numpy(random_paths(rng, 32, 128, 8)).to(dev)
+    aux = {}
+    for method in (None, "rff", "nystroem"):
+        f = None if method is None else rt.FeatureConfig(method, rank=32)
+        v, ms = synced_ms(lambda: sig_aux_loss(H, T, proj=P, features=f))
+        check(bool(torch.isfinite(v)), f"sig_aux_loss({method}): non-finite")
+        aux[method or "exact"] = {"value": float(v), "ms": ms}
+    counts = kernel.launch_counts()
+    for kname in ("fwd", "fwd_cps", "bwd", "fwd_fused", "gram_fused"):
+        check(counts[kname] > 0, f"features path never launched {kname}")
+    emit({"features_path": maps, "grads": grad_rows, "sig_aux_loss": aux, "launches": counts,
+          "launches_by_shape": shape_rows(kernel.launch_shapes()),
+          "seconds": round(time.time() - t_phase, 3), "card": name, "power_limit": power})
+
+
+def serve_phase(rt, dev, rng, reset_all, sig_kernel, name, power) -> None:
+    """Phase 10: SigFeatureServer with 128 streams, 32 flush rounds."""
+    import torch
+    from repro_torch.serve import SigFeatureServer
+    from repro_torch.stream import reset_trace_counts
+    n_streams, L0, d_, N_ = SERVE
+    walks = torch.from_numpy(random_paths(rng, n_streams, L0 + SERVE_ROUNDS * 8, d_)).to(dev)
+    reset_all()
+    reset_trace_counts()
+    t_phase = time.time()
+    srv = SigFeatureServer(N_, features=rt.FeatureConfig("rff", rank=128))
+    check(srv.device.type == "cuda", f"server on {srv.device}")
+    names = [f"s{s}" for s in range(n_streams)]
+    _, open_ms = synced_ms(lambda: [srv.open_stream(nm, walks[s, :L0])
+                                    for s, nm in enumerate(names)])
+    pos = np.full(n_streams, L0)
+    flush_ms, q_ms = [], {"signature": [], "logsignature": [], "rolling": [], "features": []}
+    for rnd in range(SERVE_ROUNDS):
+        ks = rng.integers(1, 9, size=n_streams)
+        for s, nm in enumerate(names):
+            srv.append(nm, walks[s, pos[s]:pos[s] + ks[s]])
+        pos += ks
+        n, ms = synced_ms(srv.flush)
+        check(n == n_streams, f"flush {rnd} updated {n} streams")
+        flush_ms.append(ms)
+        for s in rng.choice(n_streams, size=SERVE_QUERIED, replace=False):
+            for what, fn in (("signature", lambda: srv.signature(names[s])),
+                             ("logsignature", lambda: srv.logsignature(names[s])),
+                             ("rolling", lambda: srv.rolling(names[s], SERVE_WINDOW)),
+                             ("features", lambda: srv.features(
+                                 names[s], window=SERVE_FEATURE_WINDOW))):
+                out, ms = synced_ms(fn)
+                check(bool(torch.isfinite(out).all()), f"serve {what}: non-finite")
+                q_ms[what].append(ms)
+    served = torch.stack([srv.signature(nm) for nm in names])
+    fresh, fresh_ms = synced_ms(lambda: rt.signature(
+        walks[:, :int(pos.max())], N_, lengths=torch.from_numpy(pos)))
+    serve_rel = rel_rows(served, fresh)
+    check(serve_rel <= PATH_REL, f"serve: signatures rel err {serve_rel:.3g} > {PATH_REL}")
+    counts = sig_kernel.launch_counts()
+    check(counts["horner"] > 0, "serve path: the fresh recompute never launched horner")
+    emit({"serve_path": {"streams": n_streams, "initial_points": L0, "d": d_, "depth": N_,
+                         "rounds": SERVE_ROUNDS, "open_ms": open_ms, "flush_ms": flush_ms,
+                         "flush_ms_median": float(np.median(flush_ms)),
+                         "query_ms_median": {k: float(np.median(v)) for k, v in q_ms.items()},
+                         "query_ms_max": {k: float(np.max(v)) for k, v in q_ms.items()},
+                         "fresh_signature_ms": fresh_ms, "rel_err": serve_rel,
+                         "stats": srv.stats()},
+          "launches": counts, "seconds": round(time.time() - t_phase, 3), "card": name,
+          "power_limit": power})
 
 
 if __name__ == "__main__":

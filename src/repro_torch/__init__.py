@@ -12,9 +12,17 @@ entry point is differentiable: signatures by the O(1)-memory time-reversed
 backward (§2.4), signature kernels by the exact one-pass backward (§3.4),
 which on the card runs the checkpoint mode of the forward kernel and the
 backward kernel.
+
+:class:`FeatureConfig` switches the Gram entry points and losses to the
+RFF / Nyström feature maps.  :class:`Path` (with :class:`RollingConfig`) is
+the streaming prefix store: O(1) interval queries and O(chunk) appends;
+:mod:`repro_torch.stream` holds it and :mod:`repro_torch.serve` the feature
+server built on it.
 """
 
 from .api import LogSignature, SigKernel, Signature
+from .core.features import FeatureConfig
+from .stream import Path, RollingConfig
 from .core import (GridConfig, LaunchConfig, Linear, RBF, TransformPipeline,
                    bucket_length, configs_from_reference, logsignature,
                    logsignature_combine, logsignature_dim, mmd2, pad_ragged,
@@ -24,8 +32,9 @@ from .core import (GridConfig, LaunchConfig, Linear, RBF, TransformPipeline,
 __version__ = "0.1.0"
 
 __all__ = [
-    "GridConfig", "LaunchConfig", "Linear", "LogSignature", "RBF", "SigKernel",
-    "Signature", "TransformPipeline", "bucket_length", "configs_from_reference",
+    "FeatureConfig", "GridConfig", "LaunchConfig", "Linear", "LogSignature", "Path",
+    "RBF", "RollingConfig", "SigKernel", "Signature", "TransformPipeline", "bucket_length",
+    "configs_from_reference",
     "logsignature", "logsignature_combine", "logsignature_dim", "mmd2",
     "pad_ragged", "scoring_rule", "sigkernel", "sigkernel_gram",
     "sigkernel_gram_reduce", "signature", "signature_combine",

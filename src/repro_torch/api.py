@@ -17,23 +17,31 @@ from torch import nn
 from .core import gram as _gram
 from .core import losses as _losses
 from .core.config import resolve_kernel_configs
+from .core.features import resolve_features
 from .core.logsignature import logsignature as _logsignature
 from .core.signature import signature as _signature
 from .core.sigkernel import sigkernel as _sigkernel
 
 
+def card_device(device, owner: str) -> torch.device:
+    """The device of a class-level entry point: ``None`` means ``"cuda"``,
+    and a CUDA device raises when CUDA is missing (no fallback to the CPU;
+    ``device="cpu"`` asks for it)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{owner} runs on the card by default and CUDA is not "
+            f"available; pass device='cpu' for the plain CPU versions")
+    return device
+
+
 class _OnDevice(nn.Module):
-    """A module bound to one device: ``device=None`` means ``"cuda"`` and
-    raises if CUDA is missing; inputs are moved there."""
+    """A module bound to one device (:func:`card_device`); inputs are moved
+    there."""
 
     def __init__(self, device):
         super().__init__()
-        device = torch.device("cuda" if device is None else device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"{type(self).__name__} runs on the card by default and CUDA is not "
-                f"available; pass device='cpu' for the plain CPU versions")
-        self.device = device
+        self.device = card_device(device, type(self).__name__)
 
     def _on(self, t):
         return None if t is None else torch.as_tensor(t, device=self.device)
@@ -80,9 +88,11 @@ class SigKernel(_OnDevice):
     """Signature kernel with a swappable static-kernel lift.
 
     ``SigKernel(static_kernel=Linear()|RBF(...), transforms=..., grid=...,
-    backend="auto", device=None)`` exposes ``forward(x, y)`` (k for batched
+    backend="auto", features=None, device=None)`` exposes ``forward(x, y)`` (k for batched
     path pairs), ``gram(X, Y=None)``, ``mmd2(X, Y)`` and
-    ``scoring_rule(X, y)``.
+    ``scoring_rule(X, y)``.  ``features=`` (a :class:`FeatureConfig`)
+    switches ``gram``, ``mmd2`` and ``scoring_rule`` to the approximate
+    feature map it names; ``forward`` stays exact.
 
     ``device=None`` means ``"cuda"`` and raises if CUDA is missing; pass
     ``device="cpu"`` to run the plain solvers on the CPU.  All are
@@ -92,11 +102,12 @@ class SigKernel(_OnDevice):
     """
 
     def __init__(self, static_kernel=None, transforms=None, grid=None,
-                 backend: str = "auto", device=None):
+                 backend: str = "auto", features=None, device=None):
         super().__init__(device)
         self.transforms, self.grid, self.static_kernel = resolve_kernel_configs(
             transforms, grid, static_kernel)
         self.backend = backend
+        self.features = resolve_features(features)
 
     def _kw(self):
         return dict(transforms=self.transforms, grid=self.grid,
@@ -111,18 +122,21 @@ class SigKernel(_OnDevice):
              lengths_y=None) -> torch.Tensor:
         return _gram.sigkernel_gram(self._on(X), self._on(Y), row_block=row_block,
                                     symmetric=symmetric, lengths=lengths,
-                                    lengths_y=lengths_y, **self._kw())
+                                    lengths_y=lengths_y, features=self.features,
+                                    **self._kw())
 
     def mmd2(self, X, Y, *, unbiased: bool = True, row_block: Optional[int] = None,
              streaming: Optional[bool] = None, lengths=None,
              lengths_y=None) -> torch.Tensor:
         return _losses.mmd2(self._on(X), self._on(Y), unbiased=unbiased,
                             row_block=row_block, streaming=streaming,
-                            lengths=lengths, lengths_y=lengths_y, **self._kw())
+                            lengths=lengths, lengths_y=lengths_y,
+                            features=self.features, **self._kw())
 
     def scoring_rule(self, X, y, *, row_block: Optional[int] = None,
                      streaming: Optional[bool] = None, lengths=None,
                      length_y=None) -> torch.Tensor:
         return _losses.scoring_rule(self._on(X), self._on(y), row_block=row_block,
                                     streaming=streaming, lengths=lengths,
-                                    length_y=length_y, **self._kw())
+                                    length_y=length_y, features=self.features,
+                                    **self._kw())

@@ -18,6 +18,12 @@ need).  Registered backends:
     The CUDA kernels that build Δ from increments inside the kernel (the
     counterpart of ``"pallas_fused"``); linear lift only.  CUDA tensors
     only.
+``"rff"`` / ``"nystroem"``
+    The feature-map approximations of the Gram
+    (:mod:`repro_torch.core.features`), flagged ``approximate=True``:
+    :func:`resolve` refuses them for an exact request even when named, and
+    ``"auto"`` never returns one.  The Gram entry points opt in with
+    ``features=``.  Any device.
 ``"auto"``
     CUDA tensors: ``"gpu"`` for ``signature``, ``logsignature`` and
     ``sigkernel``; ``"gpu_fused"`` for Grams
@@ -26,7 +32,11 @@ need).  Registered backends:
     the kernel ops ``"antidiag"`` from ``_ANTIDIAG_MIN_CELLS`` refined
     cells, ``"reference"`` below.
 
-There is no autotune cache and no approximate backend in this slice.
+There is no autotune cache, so ``error_budget=`` is not ported.
+
+The op counters (:class:`count_pair_solves`, :class:`count_scan_steps`,
+:class:`count_combines`) count on every call: the port has no trace cache,
+so a repeated call counts again (the JAX package's count at trace time).
 """
 
 from __future__ import annotations
@@ -59,6 +69,9 @@ class BackendSpec:
     needs_cuda: bool
     #: Goursat stencils this backend implements
     schemes: FrozenSet[str] = frozenset(SCHEMES)
+    #: feature-map inner products, not the exact kernel: refused unless the
+    #: caller opted in (``allow_approximate=True``)
+    approximate: bool = False
 
 
 _REGISTRY: Dict[str, BackendSpec] = {}
@@ -91,6 +104,11 @@ register(BackendSpec("reference", frozenset(OPS), needs_cuda=False))
 register(BackendSpec("antidiag", frozenset(PDE_OPS), needs_cuda=False))
 register(BackendSpec("gpu", frozenset(OPS), needs_cuda=True))
 register(BackendSpec("gpu_fused", frozenset(PDE_OPS), needs_cuda=True))
+# the feature maps implement the order-1 discretisation only
+register(BackendSpec("rff", frozenset({"gram"}), needs_cuda=False,
+                     schemes=frozenset({"order1"}), approximate=True))
+register(BackendSpec("nystroem", frozenset({"gram"}), needs_cuda=False,
+                     schemes=frozenset({"order1"}), approximate=True))
 
 
 def check_scheme(backend: str, scheme: str, *, op: str) -> str:
@@ -117,12 +135,25 @@ def canonicalize(backend: str, *, op: str) -> str:
 
 
 def resolve(backend: str, *, op: str, device: torch.device, grid_cells=None,
-            allow_fused: bool = True, scheme: str = "order1") -> str:
+            allow_fused: bool = True, allow_approximate: bool = False,
+            scheme: str = "order1") -> str:
     """Resolve ``"auto"`` for tensors on ``device``; check a named backend
-    against the device and the scheme."""
+    against the device and the scheme.
+
+    ``allow_approximate=False`` (the default) means the caller wants the
+    exact kernel: a backend flagged ``approximate=True`` is refused even
+    when named.  The Gram entry points pass True once ``features=`` opted
+    in.  ``"auto"`` never returns an approximate backend."""
     device = torch.device(device)
     if backend != "auto":
         name = canonicalize(backend, op=op)
+        if get(name).approximate and not allow_approximate:
+            raise ValueError(
+                f"backend {name!r} is flagged approximate=True (feature-map "
+                f"inner products, not the exact PDE kernel) and an exact "
+                f"result was requested; pass features=FeatureConfig(...) to "
+                f"opt in, or pick an exact backend: "
+                f"{tuple(n for n in backends_for(op) if not get(n).approximate)}")
         if get(name).needs_cuda and device.type != "cuda":
             raise ValueError(
                 f"backend {name!r} runs the hand-written CUDA kernels and needs "
@@ -139,31 +170,67 @@ def resolve(backend: str, *, op: str, device: torch.device, grid_cells=None,
 
 
 # ---------------------------------------------------------------------------
-# op accounting: the symmetric Gram's pair-solve saving is audited with it
+# op accounting: the symmetric Gram's pair-solve saving and the streaming
+# Path's scan-free queries are audited with these
 # ---------------------------------------------------------------------------
 
 _count_state = threading.local()
 
 
-class count_pair_solves:
-    """Context manager counting Goursat pair solves in this thread:
-    ``with count_pair_solves() as c: ...; c.total``."""
+class _op_counter:
+    """Context manager counting one op kind in this thread:
+    ``with count_...() as c: ...; c.total``.  Counts every call."""
+
+    _slot: str = ""
 
     def __init__(self):
         self.total = 0
 
     def __enter__(self):
-        self._prev = getattr(_count_state, "pair", None)
-        _count_state.pair = self
+        self._prev = getattr(_count_state, self._slot, None)
+        setattr(_count_state, self._slot, self)
         return self
 
     def __exit__(self, *exc):
-        _count_state.pair = self._prev
+        setattr(_count_state, self._slot, self._prev)
         return False
+
+
+def _record(slot: str, n: int) -> None:
+    active = getattr(_count_state, slot, None)
+    if active is not None:
+        active.total += int(n)
+
+
+class count_pair_solves(_op_counter):
+    """Counts Goursat pair solves (the problems each solver call is given)."""
+
+    _slot = "pair"
+
+
+class count_scan_steps(_op_counter):
+    """Counts Horner scan steps of the plain scans (one per increment
+    folded); the Horner kernel (one launch, not a scan) reports none."""
+
+    _slot = "scan"
+
+
+class count_combines(_op_counter):
+    """Counts Chen combines issued by the streaming ``Path``."""
+
+    _slot = "combine"
 
 
 def record_pair_solves(n: int) -> None:
     """Report ``n`` pair solves to the active counter (no-op otherwise)."""
-    active = getattr(_count_state, "pair", None)
-    if active is not None:
-        active.total += int(n)
+    _record("pair", n)
+
+
+def record_scan_steps(n: int) -> None:
+    """Report ``n`` Horner scan steps to the active counter."""
+    _record("scan", n)
+
+
+def record_combines(n: int) -> None:
+    """Report ``n`` Chen combines to the active counter."""
+    _record("combine", n)

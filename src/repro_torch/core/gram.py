@@ -13,9 +13,14 @@ Counterpart of the single-device engine in ``repro/core/gram.py``:
 
 :func:`sigkernel_gram_reduce` is the streaming layer: ``Σ K`` without the
 Gram, at most one block of solves alive in the forward and the backward.
-Every variant is differentiable with the exact one-pass backward.  The
-sharded Gram and the approximate feature-map backends are not ported yet
-(ROADMAP).
+Every variant is differentiable with the exact one-pass backward.
+
+``features=`` (a :class:`repro_torch.core.features.FeatureConfig`)
+switches every entry point to an approximate feature map (``"rff"`` /
+``"nystroem"``): the Gram becomes ``phi(X) @ phi(Y).T`` and the reduction
+``⟨Σ phi(X), Σ phi(Y)⟩``, O(B·rank) memory, differentiable by autograd.
+Without it the approximate backends are refused, even when named.  The
+sharded Gram and ``error_budget=`` are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import dispatch
+from . import features as ft
 from . import transforms as tf
 from .config import (_maybe_scale, delta_from_gram, resolve_kernel_configs,
                      resolve_launch)
@@ -122,8 +128,13 @@ def _symmetric_gram(sX: torch.Tensor, kernel, backend: str,
 
 
 def _resolve_engine(X, Y, symmetric, lengths, lengths_y, transforms, grid,
-                    static_kernel, backend, launch):
-    """Shared front end: validation, configs, ragged padding, dispatch."""
+                    static_kernel, backend, launch, features=None):
+    """Shared front end: validation, configs, ragged padding, dispatch.
+
+    Returns the padded batches, configs, the resolved backend, and the
+    active :class:`FeatureConfig` (None for the exact engine).  An
+    approximation is active only with ``features=``: a named approximate
+    backend without it is refused by :func:`dispatch.resolve`."""
     if X.dim() != 3 or (Y is not None and Y.dim() != 3):
         raise ValueError(
             f"sigkernel_gram expects (B, L, d) paths, got X {tuple(X.shape)}"
@@ -150,19 +161,77 @@ def _resolve_engine(X, Y, symmetric, lengths, lengths_y, transforms, grid,
             "backend='gpu_fused' builds Δ from increments inside the kernel and "
             f"only supports the linear lift, got static_kernel="
             f"{type(kernel).__name__}; pass backend='auto'")
+    feats = ft.resolve_features(features)
+    if feats is not None:
+        if backend not in ("auto", feats.method):
+            raise ValueError(
+                f"features=FeatureConfig(method={feats.method!r}) conflicts "
+                f"with backend={backend!r}; pass backend='auto' or "
+                f"backend={feats.method!r}")
+        backend = dispatch.resolve(feats.method, op="gram", device=X.device,
+                                   allow_approximate=True, scheme=g.scheme)
+        return X, Y, lengths, lengths_y, cfg, g, kernel, backend, symmetric, launch, feats
     Lx = cfg.transformed_steps(X.shape[1])
     Ly = Lx if Y is None else cfg.transformed_steps(Y.shape[1])
     backend = dispatch.resolve(backend, op="gram", device=X.device,
                                grid_cells=(Lx << g.lam1) * (Ly << g.lam2),
                                allow_fused=kernel.lifts_increments, scheme=g.scheme)
-    return X, Y, lengths, lengths_y, cfg, g, kernel, backend, symmetric, launch
+    return X, Y, lengths, lengths_y, cfg, g, kernel, backend, symmetric, launch, None
+
+
+# ---------------------------------------------------------------------------
+# approximate feature maps — phi(X) whose inner products approximate K
+# ---------------------------------------------------------------------------
+
+def _nystroem_maps(sX, sY, feats, kernel, backend: str, g, launch, pool_idx=None):
+    """Nyström features from prepared streams: phi = K(·, Z)·L_w^{-T}.
+
+    The landmarks Z are pivoted-Cholesky picks from the pool ``pool_idx``
+    (default :func:`features.nystroem_pool` of ``feats`` on the streams'
+    device): pool² exact solves for the pool Gram, then ``rank`` a path.
+    The pivots are chosen without gradient; everything gathered at them
+    stays differentiable."""
+    Bx = sX.shape[0]
+    if pool_idx is None:
+        pool_idx = ft.nystroem_pool(feats, Bx, device=sX.device)
+    pool = pool_idx.shape[0]
+    rank = min(feats.rank, pool)
+    sP = sX[pool_idx]
+    dispatch.record_pair_solves(
+        pool * pool + Bx * rank + (0 if sY is None else sY.shape[0] * rank))
+    G_pool = _gram_block(sP, sP, kernel, backend, g, launch)
+    piv, _ = ft.pivoted_cholesky(G_pool, rank)
+    sZ = sP[piv]
+    Lw = ft.nystroem_factor(G_pool[piv][:, piv], feats.jitter)
+    phiX = ft.nystroem_phi(_gram_rows(sX, sZ, kernel, backend, g, None, launch), Lw)
+    if sY is None:
+        return phiX, None
+    return phiX, ft.nystroem_phi(_gram_rows(sY, sZ, kernel, backend, g, None, launch), Lw)
+
+
+def _feature_maps(X, Y, feats, cfg, g, kernel, lengths, lengths_y, launch):
+    """phi(X), phi(Y) under ONE shared draw (phi(Y) is None when Y is):
+    sharing the draw is what makes ⟨phi(X), phi(Y)⟩ a kernel estimate."""
+    if feats.method == "rff":
+        draws = ft.rff_draws(feats, kernel, cfg.transformed_dim(X.shape[-1]),
+                             dtype=X.dtype, device=X.device)
+        phiX = ft.rff_features(X, feats, cfg, kernel, lengths, draws)
+        phiY = None if Y is None else ft.rff_features(Y, feats, cfg, kernel,
+                                                      lengths_y, draws)
+        return phiX, phiY
+    # the pool and cross Grams run the exact engine's "auto" backend
+    exact = dispatch.resolve("auto", op="gram", device=X.device,
+                             allow_fused=kernel.lifts_increments, scheme=g.scheme)
+    sX = _prepare(X, cfg, kernel, lengths)
+    sY = None if Y is None else _prepare(Y, cfg, kernel, lengths_y)
+    return _nystroem_maps(sX, sY, feats, kernel, exact, g, launch)
 
 
 def sigkernel_gram(X: torch.Tensor, Y: Optional[torch.Tensor] = None, *,
                    backend: str = "auto", row_block: Optional[int] = None,
                    symmetric: Optional[bool] = None, lengths=None,
                    lengths_y=None, transforms=None, grid=None,
-                   static_kernel=None, launch=None) -> torch.Tensor:
+                   static_kernel=None, launch=None, features=None) -> torch.Tensor:
     """Signature-kernel Gram matrix ``K[a, b] = k(X_a, Y_b)``.
 
     Args:
@@ -176,12 +245,19 @@ def sigkernel_gram(X: torch.Tensor, Y: Optional[torch.Tensor] = None, *,
       symmetric: force/forbid the symmetric path (default: ``Y is None``).
       lengths / lengths_y: per-path true point counts (ragged batches).
       transforms / grid / static_kernel / launch: the configs.
+      features: a :class:`FeatureConfig` switching to the approximate
+        feature map it names: ``phi(X) @ phi(Y).T`` with no Bx·By solve grid.
+        Without it ``backend="rff"``/``"nystroem"`` is refused.
 
     Returns the (Bx, By) Gram (f32 on the card), differentiable in X and Y.
     """
     (X, Y, lengths, lengths_y, cfg, g, kernel, backend, symmetric,
-     launch) = _resolve_engine(X, Y, symmetric, lengths, lengths_y, transforms,
-                               grid, static_kernel, backend, launch)
+     launch, feats) = _resolve_engine(X, Y, symmetric, lengths, lengths_y, transforms,
+                                      grid, static_kernel, backend, launch, features)
+    if feats is not None:
+        phiX, phiY = _feature_maps(X, Y, feats, cfg, g, kernel, lengths, lengths_y,
+                                   launch)
+        return phiX @ (phiX if phiY is None else phiY).T
     if row_block is None:
         row_block = launch.gram_row_block
     sX = _prepare(X, cfg, kernel, lengths)
@@ -201,7 +277,8 @@ def sigkernel_gram_reduce(X: torch.Tensor, Y: Optional[torch.Tensor] = None, *,
                           row_block: Optional[int] = None,
                           symmetric: Optional[bool] = None, lengths=None,
                           lengths_y=None, transforms=None, grid=None,
-                          static_kernel=None, launch=None) -> torch.Tensor:
+                          static_kernel=None, launch=None,
+                          features=None) -> torch.Tensor:
     """Streaming ``Σ_{a,b} K[a, b]`` — the Gram-sum without the Gram.
 
     The workhorse of ``mmd2``/``scoring_rule`` with ``streaming=`` on: the
@@ -220,17 +297,30 @@ def sigkernel_gram_reduce(X: torch.Tensor, Y: Optional[torch.Tensor] = None, *,
       row_block: at most ``row_block`` Gram rows (or ``row_block · Bx``
         symmetric pairs) in flight.  Default: ``launch.gram_row_block``,
         else the largest block that fits the pair-gather budget.
+      features: as in :func:`sigkernel_gram`; the reduction is then feature
+        algebra, ``⟨Σ_a phi(X)_a, Σ_b phi(Y)_b⟩`` (less ``Σ_a ‖phi_a‖²``
+        without the diagonal), and never forms a Gram.
 
     Returns a 0-d tensor, differentiable with the exact one-pass backward.
-    The feature-map branch of the JAX package and its jaxpr shape guard are
-    not ported; a ``gpu``-marked test holds the peak memory instead.
+    The JAX package's jaxpr shape guard is not ported; a ``gpu``-marked
+    test holds the peak memory instead.
     """
     if not include_diag and not (symmetric or (symmetric is None and Y is None)):
         raise ValueError("include_diag=False requires the symmetric "
                          "reduction (Y=None)")
     (X, Y, lengths, lengths_y, cfg, g, kernel, backend, symmetric,
-     launch) = _resolve_engine(X, Y, symmetric, lengths, lengths_y, transforms,
-                               grid, static_kernel, backend, launch)
+     launch, feats) = _resolve_engine(X, Y, symmetric, lengths, lengths_y, transforms,
+                                      grid, static_kernel, backend, launch, features)
+    if feats is not None:
+        phiX, phiY = _feature_maps(X, None if symmetric else Y, feats, cfg, g, kernel,
+                                   lengths, lengths_y, launch)
+        if symmetric:
+            s = phiX.sum(dim=0)
+            total = s @ s
+            if not include_diag:   # ΣK − tr(K), in feature space
+                total = total - (phiX * phiX).sum()
+            return total
+        return phiX.sum(dim=0) @ phiY.sum(dim=0)
     if row_block is None:
         row_block = launch.gram_row_block
     sX = _prepare(X, cfg, kernel, lengths)

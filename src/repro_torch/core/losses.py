@@ -7,7 +7,9 @@ Counterpart of ``repro/core/losses.py``.  Each Gram term goes through
 on (auto-enabled whenever ``row_block=`` is set) every term goes through
 :func:`repro_torch.core.gram.sigkernel_gram_reduce` instead, which sums per
 row block under ``torch.utils.checkpoint`` in the forward and the backward,
-so the (B, B) Grams never exist.
+so the (B, B) Grams never exist.  ``features=`` (a
+:class:`repro_torch.core.features.FeatureConfig`) reduces every term in
+feature space instead, O(B·rank), streaming by default.
 """
 
 from __future__ import annotations
@@ -20,25 +22,28 @@ from .config import resolve_kernel_configs
 from .gram import sigkernel_gram, sigkernel_gram_reduce
 
 
-def _use_streaming(streaming: Optional[bool], row_block: Optional[int]) -> bool:
+def _use_streaming(streaming: Optional[bool], row_block: Optional[int],
+                   approx: bool = False) -> bool:
     """``streaming=None`` means auto: stream iff the caller bounded memory
-    with ``row_block=``.  Explicit True/False always wins."""
+    with ``row_block=``, or an approximation is active (its feature-space
+    reduction never forms a Gram).  Explicit True/False always wins."""
     if streaming is None:
-        return row_block is not None
+        return row_block is not None or approx
     return bool(streaming)
 
 
 def mmd2(X: torch.Tensor, Y: torch.Tensor, *, transforms=None, grid=None,
          static_kernel=None, unbiased: bool = True, backend: str = "auto",
          row_block: Optional[int] = None, streaming: Optional[bool] = None,
-         lengths=None, lengths_y=None) -> torch.Tensor:
+         lengths=None, lengths_y=None, features=None) -> torch.Tensor:
     """Squared MMD between two path distributions under the signature kernel.
 
     X: (Bx, L, d) samples from P; Y: (By, L', d) samples from Q.  The
     unbiased estimator needs at least two samples per side.  ``streaming``
-    (default: on when ``row_block=`` is set) sums the three Gram terms per
-    block through :func:`sigkernel_gram_reduce`, so peak memory follows
-    ``row_block`` instead of the batch, in the value and the gradient.
+    (default: on when ``row_block=`` or ``features=`` is set) sums the three
+    Gram terms per block through :func:`sigkernel_gram_reduce`, so peak
+    memory follows ``row_block`` instead of the batch, in the value and the
+    gradient.  ``features=`` takes the approximate feature map it names.
     """
     bx, by = X.shape[0], Y.shape[0]
     if unbiased and min(bx, by) < 2:
@@ -48,8 +53,8 @@ def mmd2(X: torch.Tensor, Y: torch.Tensor, *, transforms=None, grid=None,
             "pass unbiased=False")
     cfg, g, kernel = resolve_kernel_configs(transforms, grid, static_kernel)
     kw = dict(transforms=cfg, grid=g, static_kernel=kernel, backend=backend,
-              row_block=row_block)
-    if _use_streaming(streaming, row_block):
+              row_block=row_block, features=features)
+    if _use_streaming(streaming, row_block, features is not None):
         sxx_sum = sigkernel_gram_reduce(X, lengths=lengths, include_diag=not unbiased,
                                         **kw)
         syy_sum = sigkernel_gram_reduce(Y, lengths=lengths_y,
@@ -78,10 +83,10 @@ def mmd2(X: torch.Tensor, Y: torch.Tensor, *, transforms=None, grid=None,
 def scoring_rule(X: torch.Tensor, y: torch.Tensor, *, transforms=None, grid=None,
                  static_kernel=None, backend: str = "auto",
                  row_block: Optional[int] = None, streaming: Optional[bool] = None,
-                 lengths=None, length_y=None) -> torch.Tensor:
+                 lengths=None, length_y=None, features=None) -> torch.Tensor:
     """Signature-kernel score E[k(X,X')]/2 − E[k(X,y)] for one observation
     y (L, d); ``E[k(X,X')]`` averages over distinct pairs.  ``streaming``
-    as in :func:`mmd2`."""
+    and ``features`` as in :func:`mmd2`."""
     b = X.shape[0]
     if b < 2:
         raise ValueError(
@@ -89,9 +94,9 @@ def scoring_rule(X: torch.Tensor, y: torch.Tensor, *, transforms=None, grid=None
             "the 1/(b·(b-1)) normaliser is NaN at b=1")
     cfg, g, kernel = resolve_kernel_configs(transforms, grid, static_kernel)
     kw = dict(transforms=cfg, grid=g, static_kernel=kernel, backend=backend,
-              row_block=row_block)
+              row_block=row_block, features=features)
     ly = None if length_y is None else torch.as_tensor(length_y).reshape(1)
-    if _use_streaming(streaming, row_block):
+    if _use_streaming(streaming, row_block, features is not None):
         exx_sum = sigkernel_gram_reduce(X, lengths=lengths, include_diag=False, **kw)
         exy_sum = sigkernel_gram_reduce(X, y[None], lengths=lengths, lengths_y=ly, **kw)
         return 0.5 * exx_sum / (b * (b - 1)) - exy_sum / b
@@ -99,3 +104,28 @@ def scoring_rule(X: torch.Tensor, y: torch.Tensor, *, transforms=None, grid=None
     exx = (Kxx.sum() - torch.trace(Kxx)) / (b * (b - 1))
     Kxy = sigkernel_gram(X, y[None], lengths=lengths, lengths_y=ly, **kw)
     return 0.5 * exx - Kxy.mean()
+
+
+def sig_aux_loss(hidden: torch.Tensor, target: torch.Tensor, *, proj: torch.Tensor,
+                 transforms=None, grid=None, static_kernel=None, backend: str = "auto",
+                 row_block: Optional[int] = None, streaming: Optional[bool] = None,
+                 lengths=None, lengths_target=None, features=None) -> torch.Tensor:
+    """Auxiliary signature-kernel loss between a model's hidden trajectory
+    and a target path distribution: the biased :func:`mmd2` between
+    ``hidden @ proj / sqrt(H)`` and ``target``.
+
+    hidden: (B, L, H) hidden states; proj: (H, d) projection into a
+    low-dimensional path space; target: (B', L', d) reference paths.
+    ``lengths`` / ``lengths_target`` make either side ragged;
+    ``streaming=``, ``row_block=`` and ``features=`` pass through to
+    :func:`mmd2` (an approximation makes the loss O(B·rank)).
+    """
+    cfg, g, kernel = resolve_kernel_configs(transforms, grid, static_kernel)
+    path = hidden @ proj
+    # scale by the width so the PDE stays well-conditioned for wide layers
+    path = path / torch.sqrt(torch.tensor(proj.shape[0], dtype=path.dtype,
+                                          device=path.device))
+    return mmd2(path, target, transforms=cfg, grid=g, static_kernel=kernel,
+                unbiased=False, backend=backend, row_block=row_block,
+                streaming=streaming, lengths=lengths, lengths_y=lengths_target,
+                features=features)

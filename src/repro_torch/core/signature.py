@@ -105,6 +105,7 @@ def _horner_step(levels: List[torch.Tensor], z: torch.Tensor,
 
 def _signature_scan(z: torch.Tensor, d: int, depth: int, step_fn) -> torch.Tensor:
     """Fold a per-step update over the increment stream z (..., L-1, d)."""
+    dispatch.record_scan_steps(z.shape[-2])
     batch_shape = z.shape[:-2]
     levels = [z.new_zeros((*batch_shape, s)) for s in ta.level_sizes(d, depth)]
     for t in range(z.shape[-2]):
@@ -226,6 +227,7 @@ def signature(path: torch.Tensor, depth: int, *, transforms=None, backend: str =
 
 def _signature_stream_from_increments(z: torch.Tensor, depth: int) -> torch.Tensor:
     """All prefix signatures (..., L-1, sig_dim); differentiable by autograd."""
+    dispatch.record_scan_steps(z.shape[-2])
     d = z.shape[-1]
     levels = [z.new_zeros((*z.shape[:-2], s)) for s in ta.level_sizes(d, depth)]
     prefixes = []

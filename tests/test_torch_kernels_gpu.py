@@ -7,6 +7,11 @@ no JAX, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
+The last tests drive the streaming ``Path``, ``coalesced_update``, the
+feature maps (with draws made once and shared) and ``SigFeatureServer`` on
+CUDA tensors, and hold them to the same calls on CPU tensors within the
+float32 gates: 5e-5 for values, 2e-5 for gradients.
+
 Tolerances, relative to the largest plain value: float32 1e-4, bf16
 interiors 2e-2.  (The kernels round each operation as the plain versions do
 and form the fused dot products in float64, so in practice they agree
@@ -404,3 +409,139 @@ def test_horner_launcher_checks_its_inputs(cuda):
         sig_kernel.horner(z.cpu(), 3, 1, 3, 1, 4, 32)
     with pytest.raises(ValueError, match="stream=True"):
         rt.signature(z, 3, stream=True, backend="gpu")
+
+
+# ---------------------------------------------------------------------------
+# the streaming Path, the feature maps and the server: card against CPU
+# ---------------------------------------------------------------------------
+
+def _points(seed, *shape, scale=0.3):
+    x = np.random.default_rng(seed).normal(size=shape) * scale
+    return torch.from_numpy(x.astype(np.float32))
+
+
+def _rel(got, want):
+    torch.cuda.synchronize()
+    got, want = got.detach().cpu(), want.detach().cpu()
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lead_lag", [False, True], ids=["plain", "lead_lag"])
+def test_path_on_the_card_matches_cpu(cuda, lead_lag):
+    from repro_torch.stream import Path
+    tp = rt.TransformPipeline(lead_lag=lead_lag)
+    x, more = _points(0, 3, 37, 3), _points(1, 3, 5, 3)
+    on = {dev: Path.from_points(x.to(dev), 4, transforms=tp) for dev in ("cpu", cuda)}
+    assert on[cuda].prefix.is_cuda
+    for q in (lambda p: p.signature(), lambda p: p.signature(0, 20),
+              lambda p: p.signature(3, 31), lambda p: p.rolling(8, stride=3),
+              lambda p: p.logsignature(2, 30),
+              lambda p: p.update(more.to(p.points.device)).signature(30, 42),
+              lambda p: p.evict(before=9).signature(),
+              lambda p: p.update(more.to(p.points.device)).evict(before=12).signature(2, 20)):
+        assert _rel(q(on[cuda]), q(on["cpu"])) <= 5e-5
+    # against a fresh signature on the card (the Horner kernel)
+    before = sig_kernel.horner.launches
+    fresh = rt.signature(x.to(cuda), 4, transforms=tp)
+    assert sig_kernel.horner.launches == before + 1
+    assert _rel(on[cuda].signature(), fresh) <= 5e-5
+
+
+@pytest.mark.gpu
+def test_coalesced_update_and_retention_on_the_card(cuda):
+    from repro_torch.stream import Path, coalesced_update
+    xs = [_points(10 + i, 9 + i, 2) for i in range(3)]
+    chunks = [_points(20 + i, 1 + i, 2) for i in range(3)]
+    out = {dev: coalesced_update([Path.from_points(x.to(dev), 3, retention=11) for x in xs],
+                                 [c.to(dev) for c in chunks]) for dev in ("cpu", cuda)}
+    for a, b in zip(out[cuda], out["cpu"]):
+        assert len(a) == len(b) and a.prefix.is_cuda
+        assert _rel(a.signature(), b.signature()) <= 5e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lift", ["linear", "rbf"])
+def test_rff_features_on_the_card_match_cpu(cuda, lift):
+    from repro_torch.core import features as ft
+    kern = rt.Linear() if lift == "linear" else rt.RBF(0.8)
+    f = rt.FeatureConfig("rff", rank=32, depth=4, lift_dim=32)
+    draws = ft.rff_draws(f, kern, 3, dtype=torch.float32)
+    on_card = ft.RFFDraws(*(None if v is None else v.to(cuda) for v in
+                            (draws.w, draws.b, draws.proj)))
+    X = _points(30, 6, 40, 3)
+    got = {}
+    for dev, dr in (("cpu", draws), (cuda, on_card)):
+        leaf = X.to(dev).requires_grad_()
+        phi = ft.rff_features(leaf, f, rt.TransformPipeline(), kern, draws=dr)
+        got[dev] = (phi, torch.autograd.grad((phi @ phi.T).sum(), leaf)[0])
+    assert _rel(got[cuda][0], got["cpu"][0]) <= 5e-5
+    assert _rel(got[cuda][1], got["cpu"][1]) <= 2e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lift", ["linear", "rbf"])
+def test_nystroem_on_the_card_matches_cpu(cuda, lift):
+    """The same pool through the Goursat kernels (card) and the plain
+    solvers (CPU); the pool and cross Grams launch B3 (linear) or B1."""
+    from repro_torch.core import gram as tgram
+    kern = rt.Linear() if lift == "linear" else rt.RBF(1.0)
+    f = rt.FeatureConfig("nystroem", rank=3)
+    X, Y = _points(40, 8, 33, 3), _points(41, 5, 29, 3)
+    pool = torch.randperm(8, generator=torch.Generator().manual_seed(0))
+    launcher = kernel.gram_fused if lift == "linear" else kernel.fwd
+    products = {}
+    for dev in ("cpu", cuda):
+        backend = tgram.dispatch.resolve("auto", op="gram", device=dev,
+                                         allow_fused=kern.lifts_increments)
+        prep = [tgram._prepare(v.to(dev), rt.TransformPipeline(), kern) for v in (X, Y)]
+        before = launcher.launches
+        phiX, phiY = tgram._nystroem_maps(*prep, f, kern, backend, rt.GridConfig(),
+                                          rt.LaunchConfig(), pool_idx=pool.to(dev))
+        if dev == cuda:
+            assert launcher.launches > before
+        products[dev] = phiX @ phiY.T
+    assert _rel(products[cuda], products["cpu"]) <= 5e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["rff", "nystroem"])
+def test_feature_losses_on_the_card(cuda, method):
+    from repro_torch.core.losses import sig_aux_loss
+    f = rt.FeatureConfig(method, rank=4)
+    X, Y = _points(50, 12, 33, 3).to(cuda), _points(51, 10, 33, 3).to(cuda)
+    leaf = X.clone().requires_grad_()
+    (g,) = torch.autograd.grad(rt.mmd2(leaf, Y, features=f), leaf)
+    assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+    H, P = _points(52, 12, 33, 16).to(cuda), _points(53, 16, 3).to(cuda)
+    assert bool(torch.isfinite(sig_aux_loss(H, Y, proj=P, features=f)))
+    with pytest.raises(ValueError, match="approximate=True"):
+        rt.sigkernel_gram(X, Y, backend=method)
+
+
+@pytest.mark.gpu
+def test_server_on_the_card_matches_cpu(cuda):
+    from repro_torch.core import features as ft
+    from repro_torch.serve import SigFeatureServer
+    f = rt.FeatureConfig("rff", rank=8, depth=3)
+    srv = {dev: SigFeatureServer(3, features=f, device=dev) for dev in ("cpu", None)}
+    assert srv[None].device.type == "cuda"
+    for i in range(5):
+        for s in srv.values():
+            s.open_stream(f"s{i}", _points(60 + i, 12 + 3 * i, 2))
+    for rnd in range(3):
+        for i in range(5):
+            for s in srv.values():
+                s.append(f"s{i}", _points(70 + 10 * rnd + i, 1 + (i + rnd) % 4, 2))
+        assert srv[None].flush() == srv["cpu"].flush() == 5
+    for i in range(5):
+        assert _rel(srv[None].signature(f"s{i}"), srv["cpu"].signature(f"s{i}")) <= 5e-5
+        assert _rel(srv[None].rolling(f"s{i}", 5), srv["cpu"].rolling(f"s{i}", 5)) <= 5e-5
+        p = srv[None].path(f"s{i}")
+        want = ft.rff_features(p.points[len(p) - 6:len(p)][None], f, srv[None].transforms,
+                               srv[None].static_kernel)[0]
+        assert torch.equal(srv[None].features(f"s{i}", window=6), want)
+    st_card, st_cpu = srv[None].stats(), srv["cpu"].stats()
+    for k in ("update_groups", "solo_updates", "coalesced_streams", "flushes"):
+        assert st_card[k] == st_cpu[k]
