@@ -148,6 +148,8 @@ LEAD_LAG_BATCH = 16
 #: (src/repro/bench/workloads.py:672-677, bench/autotune.py:496-507)
 FRONTIER = (32, 129, 8)
 FRONTIER_RANKS = (32, 128, 512)
+#: a Nyström map whose pool is the whole batch reproduces the exact Gram
+NYSTROEM_FULL_RANK_REL = 1e-4
 #: the served streams: count, initial points, d, depth; flush rounds, the
 #: streams queried after each, the rolling window and the feature window
 SERVE = (128, 1024, 4, 5)
@@ -658,7 +660,6 @@ def main() -> int:
         "fwd_fused": lambda T: kernel.fwd_fused(dx, dy, T, 0, 0, "order1", "float32"),
         "gram_fused": lambda T: kernel.gram_fused(dX, dY, T, 0, 0, "order1", "float32"),
     }
-    launchers_fused = {"fwd_fused": kernel.fwd_fused, "gram_fused": kernel.gram_fused}
     plains = {
         "fwd": lambda: kernel.solve_plain(delta, 0, 0, "order1", "float32"),
         "fwd_cps": lambda: kernel.solve_with_grid_plain(delta, T_grad, 0, 0, "order1",
@@ -720,69 +721,13 @@ def main() -> int:
               **row, "card": name, "power_limit": power})
 
     # every Goursat kernel at every shape it launched at on the forward and
-    # gradient paths (GridConfig() defaults: order 1, float32 interiors,
-    # lam = 0): time and bound, the per-shape gaps of PERF.md's ranking; B4
-    # and B3 also against their plain versions and with a strip sweep
+    # gradient paths, each against its plain version (shape_check)
     path_shapes = {}
     for path, log in (("forward", shapes_fwd), ("gradient", shapes_grad)):
         for key, n in log.items():
             path_shapes.setdefault(key, {})[path] = n
-    for (kname, P, Lx_, Ly_, d_, T_), by_path in sorted(path_shapes.items(), key=str):
-        gram = kname == "gram_fused"
-        fused = kname in ("fwd_fused", "gram_fused")
-        Bx_, By_ = P if gram else (P, P)
-        row = {"timing_by_shape": kname, "problems": list(P) if gram else P, "Lx": Lx_,
-               "Ly": Ly_, "d": d_, "T": list(T_) if isinstance(T_, tuple) else T_,
-               "launches": by_path}
-        if fused:
-            a_ = torch.from_numpy(np.diff(random_paths(rng, Bx_, Lx_ + 1, d_), axis=1)).to(dev)
-            b_ = torch.from_numpy(np.diff(random_paths(rng, By_, Ly_ + 1, d_), axis=1)).to(dev)
-            a_, b_ = a_.contiguous(), b_.contiguous()
-            run = lambda: launchers_fused[kname](a_, b_, T_, 0, 0, "order1", "float32")
-            plain = {"fwd_fused": kernel.solve_fused_plain,
-                     "gram_fused": kernel.gram_fused_plain}[kname]
-            plain_ms = time_ms(lambda: plain(a_, b_, 0, 0, "order1", "float32"), 2)
-            got, want = run(), plain(a_, b_, 0, 0, "order1", "float32")
-            torch.cuda.synchronize()
-            err = rel_err(got, want)
-            check(err <= RTOL["float32"],
-                  f"{kname} at {(P, Lx_, Ly_, d_)} T={T_}: rel err {err:.3g}")
-            n_prob = Bx_ * By_ if gram else P
-            nbytes = (a_.numel() + b_.numel() + n_prob) * 4
-            nflops = n_prob * (2 * d_ + CELL_FLOPS) * Lx_ * Ly_
-            row["strip_sweep_ms"] = {
-                Ts: round(time_ms(lambda: launchers_fused[kname](a_, b_, Ts, 0, 0, "order1",
-                                                                 "float32"), 3), 4)
-                for Ts in (32, 64, 128, 256, 512) if Ts <= kernel.FUSED_MAX_THREADS
-                and kernel.smem_bytes("order1", Ts, Ly_, 0, 0, d_) <= kernel.SMEM_LIMIT}
-            row.update(plain_ms=plain_ms, max_abs_err=float((got - want).abs().max()),
-                       rel_err=err)
-            del got, want
-        else:
-            dl_ = delta_matrix(torch.from_numpy(random_paths(rng, P, Lx_ + 1, 8)).to(dev),
-                               torch.from_numpy(random_paths(rng, P, Ly_ + 1, 8)).to(dev))
-            dl_ = dl_.contiguous()
-            if kname == "fwd":  # T_: the geometry it launched at
-                run = lambda: kernel.fwd(dl_, kernel.FwdGeometry(*T_), 0, 0, "order1",
-                                         "float32")
-                extra, cell = 0, CELL_FLOPS
-            else:
-                cps_ = fwd_cps(dl_, T_)[1]
-                g_ = torch.ones(P, device=dev)
-                run = {"fwd_cps": lambda: fwd_cps(dl_, T_),
-                       "bwd": lambda: kernel.bwd(dl_, cps_, g_, T_, 0, 0, "order1",
-                                                 "float32")}[kname]
-                extra = cps_.numel() + (dl_.numel() if kname == "bwd" else 0)
-                cell = BWD_CELL_FLOPS if kname == "bwd" else CELL_FLOPS
-            nbytes = (dl_.numel() + extra + P) * 4
-            nflops = P * Lx_ * Ly_ * cell
-        row["ms"] = time_ms(run, 5)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nflops / FP32_FLOPS_PER_S * 1e3
-        row.update(bound_ms=max(t_bytes, t_ops),
-                   bound_by="bytes" if t_bytes >= t_ops else "operations", card=name,
-                   power_limit=power)
-        emit(row)
-        torch.cuda.empty_cache()
+    for key, by_path in sorted(path_shapes.items(), key=str):
+        shape_check(key, by_path, kernel, fwd_cps, dev, rng, name, power)
 
     # the Horner kernel at the signature path's three shapes (the kernels
     # line takes the largest, (128, 1024, 16, 4)) and at the two pipelines'
@@ -838,7 +783,13 @@ def main() -> int:
               "card": name, "power_limit": power})
 
     stream_phase(rt, dev, rng, reset_all, sig_kernel, name, power)
-    features_phase(rt, dev, rng, reset_all, kernel, name, power)
+    shapes_feat = features_phase(rt, dev, rng, reset_all, kernel, name, power)
+    # the features path's own shapes (its many-problem strips among them),
+    # each against its plain version; shapes the paths above share were
+    # checked there
+    for key, n in sorted(shapes_feat.items(), key=str):
+        if key not in path_shapes:
+            shape_check(key, {"features": n}, kernel, fwd_cps, dev, rng, name, power)
     serve_phase(rt, dev, rng, reset_all, sig_kernel, name, power)
 
     emit({"kernels": rows})
@@ -847,6 +798,82 @@ def main() -> int:
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def shape_check(key, by_path, kernel, fwd_cps, dev, rng, name, power) -> None:
+    """One Goursat kernel at one shape it launched at (key as in
+    kernel.launch_shapes(); GridConfig() defaults: order 1, float32
+    interiors, lam = 0), on fresh random inputs: held against its plain
+    version, timed beside its bound (the per-shape gaps of PERF.md's
+    ranking); B4 and B3 also with a strip sweep.  ``by_path``: its launches
+    on each driven path."""
+    import torch
+    from repro_torch.core.sigkernel import delta_matrix
+    launchers_fused = {"fwd_fused": kernel.fwd_fused, "gram_fused": kernel.gram_fused}
+    kname, P, Lx_, Ly_, d_, T_ = key
+    gram = kname == "gram_fused"
+    fused = kname in ("fwd_fused", "gram_fused")
+    Bx_, By_ = P if gram else (P, P)
+    row = {"timing_by_shape": kname, "problems": list(P) if gram else P, "Lx": Lx_,
+           "Ly": Ly_, "d": d_, "T": list(T_) if isinstance(T_, tuple) else T_,
+           "launches": by_path}
+    if fused:
+        a_ = torch.from_numpy(np.diff(random_paths(rng, Bx_, Lx_ + 1, d_), axis=1)).to(dev)
+        b_ = torch.from_numpy(np.diff(random_paths(rng, By_, Ly_ + 1, d_), axis=1)).to(dev)
+        a_, b_ = a_.contiguous(), b_.contiguous()
+        run = lambda: launchers_fused[kname](a_, b_, T_, 0, 0, "order1", "float32")
+        plain_fn = {"fwd_fused": kernel.solve_fused_plain,
+                    "gram_fused": kernel.gram_fused_plain}[kname]
+        plain = lambda: plain_fn(a_, b_, 0, 0, "order1", "float32")
+        n_prob = Bx_ * By_ if gram else P
+        nbytes = (a_.numel() + b_.numel() + n_prob) * 4
+        nflops = n_prob * (2 * d_ + CELL_FLOPS) * Lx_ * Ly_
+        row["strip_sweep_ms"] = {
+            Ts: round(time_ms(lambda: launchers_fused[kname](a_, b_, Ts, 0, 0, "order1",
+                                                             "float32"), 3), 4)
+            for Ts in (32, 64, 128, 256, 512) if Ts <= kernel.FUSED_MAX_THREADS
+            and kernel.smem_bytes("order1", Ts, Ly_, 0, 0, d_) <= kernel.SMEM_LIMIT}
+    else:
+        dl_ = delta_matrix(torch.from_numpy(random_paths(rng, P, Lx_ + 1, 8)).to(dev),
+                           torch.from_numpy(random_paths(rng, P, Ly_ + 1, 8)).to(dev))
+        dl_ = dl_.contiguous()
+        if kname == "fwd":  # T_: the geometry it launched at
+            run = lambda: kernel.fwd(dl_, kernel.FwdGeometry(*T_), 0, 0, "order1",
+                                     "float32")
+            plain = lambda: kernel.solve_plain(dl_, 0, 0, "order1", "float32")
+            extra, cell = 0, CELL_FLOPS
+        else:
+            cps_ = fwd_cps(dl_, T_)[1]
+            g_ = torch.ones(P, device=dev)
+            run, plain = {
+                "fwd_cps": (lambda: fwd_cps(dl_, T_),
+                            lambda: kernel.solve_with_grid_plain(dl_, T_, 0, 0, "order1",
+                                                                 "float32")),
+                "bwd": (lambda: kernel.bwd(dl_, cps_, g_, T_, 0, 0, "order1", "float32"),
+                        lambda: kernel.solve_grad_plain(dl_, cps_, g_, T_, 0, 0, "order1",
+                                                        "float32"))}[kname]
+            extra = cps_.numel() + (dl_.numel() if kname == "bwd" else 0)
+            cell = BWD_CELL_FLOPS if kname == "bwd" else CELL_FLOPS
+        nbytes = (dl_.numel() + extra + P) * 4
+        nflops = P * Lx_ * Ly_ * cell
+    plain_ms = time_ms(plain, 2)
+    flat = lambda out: (torch.cat([v.reshape(-1) for v in out])  # fwd_cps: (k, cps)
+                        if isinstance(out, tuple) else out)
+    got, want = flat(run()), flat(plain())
+    torch.cuda.synchronize()
+    err = rel_err(got, want)
+    check(err <= RTOL["float32"],
+          f"{kname} at {(P, Lx_, Ly_, d_)} T={T_}: rel err {err:.3g}")
+    row.update(plain_ms=plain_ms, max_abs_err=float((got - want).abs().max()),
+               rel_err=err)
+    del got, want
+    row["ms"] = time_ms(run, 5)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nflops / FP32_FLOPS_PER_S * 1e3
+    row.update(bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations", card=name,
+               power_limit=power)
+    emit(row)
+    torch.cuda.empty_cache()
 
 
 def synced_ms(fn):
@@ -978,9 +1005,10 @@ def stream_phase(rt, dev, rng, reset_all, sig_kernel, name, power) -> None:
           "card": name, "power_limit": power})
 
 
-def features_phase(rt, dev, rng, reset_all, kernel, name, power) -> None:
+def features_phase(rt, dev, rng, reset_all, kernel, name, power) -> dict:
     """Phase 9: the RFF / Nyström feature maps, their gradients and
-    sig_aux_loss at the JAX frontier's full cell."""
+    sig_aux_loss at the JAX frontier's full cell.  Returns the phase's
+    Goursat launches by shape."""
     import torch
     from repro_torch.core import dispatch
     from repro_torch.core.losses import sig_aux_loss
@@ -993,6 +1021,11 @@ def features_phase(rt, dev, rng, reset_all, kernel, name, power) -> None:
     for lift, kern in (("linear", rt.Linear()), ("rbf", rt.RBF(1.0))):
         rt.sigkernel_gram(X, Y, static_kernel=kern)            # warm
         K, exact_ms = synced_ms(lambda: rt.sigkernel_gram(X, Y, static_kernel=kern))
+        # the kernels' exact Gram against the plain wavefront on the same inputs
+        K_plain = rt.sigkernel_gram(X, Y, static_kernel=kern, backend="antidiag")
+        exact_rel = rel_err(K, K_plain)
+        check(exact_rel <= RTOL["float32"],
+              f"exact {lift} Gram: rel err {exact_rel:.3g} against the plain wavefront")
         for method in ("rff", "nystroem"):
             for rank in FRONTIER_RANKS:
                 f = rt.FeatureConfig(method, rank=rank)
@@ -1003,11 +1036,15 @@ def features_phase(rt, dev, rng, reset_all, kernel, name, power) -> None:
                 check(bool(torch.isfinite(Ka).all()), f"{method} {lift} r={rank}: non-finite")
                 if method == "rff":
                     check(c.total == 0, f"rff {lift} r={rank}: {c.total} pair solves")
+                fro = float(torch.linalg.norm(Ka - K) / torch.linalg.norm(K))
+                if method == "nystroem" and f.feature_dim(Bf) == Bf:
+                    # the pool is all of X, so the Nyström Gram is the exact one
+                    check(fro <= NYSTROEM_FULL_RANK_REL,
+                          f"full-rank nystroem {lift} r={rank}: rel fro err {fro:.3g}")
                 maps.append({"method": method, "lift": lift, "rank": rank,
                              "feature_dim": f.feature_dim(Bf), "pair_solves": c.total,
-                             "rel_fro_err": float(torch.linalg.norm(Ka - K)
-                                                  / torch.linalg.norm(K)),
-                             "ms": ms, "exact_ms": exact_ms})
+                             "rel_fro_err": fro, "ms": ms, "exact_ms": exact_ms,
+                             "exact_rel_err_vs_plain": exact_rel})
     grad_rows = []
     for method in ("rff", "nystroem"):
         for lift, kern in (("linear", rt.Linear()), ("rbf", rt.RBF(1.0))):
@@ -1027,11 +1064,13 @@ def features_phase(rt, dev, rng, reset_all, kernel, name, power) -> None:
         check(bool(torch.isfinite(v)), f"sig_aux_loss({method}): non-finite")
         aux[method or "exact"] = {"value": float(v), "ms": ms}
     counts = kernel.launch_counts()
+    shapes = kernel.launch_shapes()
     for kname in ("fwd", "fwd_cps", "bwd", "fwd_fused", "gram_fused"):
         check(counts[kname] > 0, f"features path never launched {kname}")
     emit({"features_path": maps, "grads": grad_rows, "sig_aux_loss": aux, "launches": counts,
-          "launches_by_shape": shape_rows(kernel.launch_shapes()),
+          "launches_by_shape": shape_rows(shapes),
           "seconds": round(time.time() - t_phase, 3), "card": name, "power_limit": power})
+    return shapes
 
 
 def serve_phase(rt, dev, rng, reset_all, sig_kernel, name, power) -> None:

@@ -19,8 +19,7 @@ Counterpart of ``repro/core/features.py``.  Each map gives features
 
 Randomness: the JAX package draws from a ``jax.random`` key; here
 :class:`FeatureConfig` holds an integer ``seed`` and every draw comes from
-a ``torch.Generator`` seeded with it on the paths' device (or one the
-caller passes).  Each map is split in two: a function that makes the draws
+a ``torch.Generator`` seeded with it on the paths' device.  Each map is split in two: a function that makes the draws
 (:func:`rff_draws`, :func:`nystroem_pool`) and one that takes them as
 tensors (:func:`rff_features` with ``draws=``, the Gram engine's
 ``_nystroem_maps`` with ``pool_idx=``), so a caller can feed draws made
@@ -128,13 +127,12 @@ class RFFDraws:
     proj: torch.Tensor
 
 
-def rff_draws(feats: FeatureConfig, kernel, d: int, *, dtype=torch.float32,
-              device="cpu", generator: Optional[torch.Generator] = None) -> RFFDraws:
+def rff_draws(feats: FeatureConfig, kernel, d: int, *, device,
+              dtype=torch.float32) -> RFFDraws:
     """Make the draws of the RFF map of ``feats`` for ``d``-channel
-    (transformed) points: from ``generator``, else a fresh generator
-    seeded with ``feats.seed`` on ``device``."""
-    gen = _generator(feats, device) if generator is None else generator
-    kw = dict(generator=gen, dtype=dtype, device=device)
+    (transformed) points, from a generator seeded with ``feats.seed`` on
+    ``device``."""
+    kw = dict(generator=_generator(feats, device), dtype=dtype, device=device)
     if isinstance(kernel, Linear):
         w = b = None
         m = d
@@ -218,12 +216,11 @@ def rff_features(paths: torch.Tensor, feats: FeatureConfig, pipeline, kernel,
 # Nyström: landmark selection (pivoted Cholesky) and the feature solve
 # ---------------------------------------------------------------------------
 
-def nystroem_pool(feats: FeatureConfig, batch: int, *, device="cpu",
-                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+def nystroem_pool(feats: FeatureConfig, batch: int, *, device) -> torch.Tensor:
     """The Nyström candidate pool: ``pool_size(batch)`` indices of a random
-    permutation of the batch, from ``generator`` or ``feats.seed``."""
-    gen = _generator(feats, device) if generator is None else generator
-    perm = torch.randperm(batch, generator=gen, device=device)
+    permutation of the batch, from a generator seeded with ``feats.seed`` on
+    ``device``."""
+    perm = torch.randperm(batch, generator=_generator(feats, device), device=device)
     return perm[:feats.pool_size(batch)]
 
 

@@ -344,14 +344,18 @@ def test_feature_seed_reproducibility():
     K7 = rt.sigkernel_gram(X, Y, features=rt.FeatureConfig("rff", rank=64, seed=7))
     assert torch.equal(K0, K0b)
     assert rel_fro(K7, K0) > 1e-4
-    gen = torch.Generator().manual_seed(7)
-    draws = ft.rff_draws(rt.FeatureConfig("rff", rank=64, seed=7), rt.Linear(), D,
-                         dtype=torch.float64, generator=gen)
-    again = ft.rff_draws(rt.FeatureConfig("rff", rank=64, seed=7), rt.Linear(), D,
-                         dtype=torch.float64)
-    assert torch.equal(draws.proj, again.proj)
-    assert torch.equal(ft.nystroem_pool(rt.FeatureConfig("nystroem", rank=2), 12),
-                       ft.nystroem_pool(rt.FeatureConfig("nystroem", rank=2), 12))
+    draws = ft.rff_draws(rt.FeatureConfig("rff", rank=64, seed=7), rt.RBF(0.5), D,
+                         dtype=torch.float64, device="cpu")
+    again = ft.rff_draws(rt.FeatureConfig("rff", rank=64, seed=7), rt.RBF(0.5), D,
+                         dtype=torch.float64, device="cpu")
+    other = ft.rff_draws(rt.FeatureConfig("rff", rank=64, seed=8), rt.RBF(0.5), D,
+                         dtype=torch.float64, device="cpu")
+    for a, b, c in zip((draws.w, draws.b, draws.proj), (again.w, again.b, again.proj),
+                       (other.w, other.b, other.proj)):
+        assert torch.equal(a, b) and not torch.equal(a, c)
+    pool = [ft.nystroem_pool(rt.FeatureConfig("nystroem", rank=2, seed=s), 12, device="cpu")
+            for s in (0, 0, 1)]
+    assert torch.equal(pool[0], pool[1]) and not torch.equal(pool[0], pool[2])
 
 
 def test_rff_gram_approximates_exact():

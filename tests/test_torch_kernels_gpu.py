@@ -467,7 +467,7 @@ def test_rff_features_on_the_card_match_cpu(cuda, lift):
     from repro_torch.core import features as ft
     kern = rt.Linear() if lift == "linear" else rt.RBF(0.8)
     f = rt.FeatureConfig("rff", rank=32, depth=4, lift_dim=32)
-    draws = ft.rff_draws(f, kern, 3, dtype=torch.float32)
+    draws = ft.rff_draws(f, kern, 3, dtype=torch.float32, device="cpu")
     on_card = ft.RFFDraws(*(None if v is None else v.to(cuda) for v in
                             (draws.w, draws.b, draws.proj)))
     X = _points(30, 6, 40, 3)
