@@ -82,8 +82,21 @@ Phases (any failure exits non-zero; nothing runs without CUDA):
    ``features(window=256)`` (RFF, rank 128) on 8 streams; every stream's
    signature against a fresh ``signature`` of its raw points at rel <= 5e-5.
 
-Phases 8-10 run after phase 7's timing and before the ``kernels`` line;
-each sets the launch counts to 0 just before it and reads them just after.
+11. ``sharded_path``: ``sigkernel_gram_sharded`` on NCCL groups of 1 rank
+   and, where the cards exist, 2 and 4 (one rank a card, started by
+   ``repro_torch.launch.spawn_ranks``), on the Table 2 Gram (128, 256, 8):
+   linear and RBF (``row_block=16``), each asymmetric and symmetric, ragged
+   ``lengths=``, and ``torch.autograd.grad`` of ``(K * W).sum()``; each
+   rank holds every result against the dense Gram on its card (values 1e-6,
+   the gradient 1e-5 relative), rank 0 returns its launch counts and
+   shapes, and every shape no earlier path launched goes through
+   ``shape_check``.
+
+Phases 8-11 run after phase 7's timing and before the ``kernels`` line;
+each sets the launch counts to 0 just before it and reads them just after
+(phase 11 in each rank).  ``python3 chip_smoke.py --sharded-only`` builds
+the Goursat kernels and runs phase 11 alone, with a shape check for every
+shape it launched (the four-card measurement).
 """
 
 from __future__ import annotations
@@ -154,6 +167,15 @@ NYSTROEM_FULL_RANK_REL = 1e-4
 #: streams queried after each, the rolling window and the feature window
 SERVE = (128, 1024, 4, 5)
 SERVE_ROUNDS, SERVE_QUERIED, SERVE_WINDOW, SERVE_FEATURE_WINDOW = 32, 8, 64, 256
+#: the sharded Gram: the Table 2 Gram (src/repro/bench/workloads.py:194-199)
+#: at these world sizes, where the cards exist; its inputs' seed; its gates
+#: against the dense Gram on the same card (values, the gradient)
+SHARDED = (128, 256, 8)
+SHARDED_WORLDS = (1, 2, 4)
+SHARDED_SEED = 11
+SHARDED_REL, SHARDED_GRAD_REL = 1e-6, 1e-5
+#: the kernels the sharded path must launch on each rank
+SHARDED_PATH = ("fwd", "fwd_cps", "bwd", "fwd_fused", "gram_fused")
 
 
 class SmokeFailure(RuntimeError):
@@ -240,7 +262,15 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def main() -> int:
+def fwd_cps(delta, T, lam1=0, lam2=0, scheme="order1", idt="float32"):
+    """The checkpoint forward at strip T and the geometry ops.geometry picks
+    for it (as ops.solve_with_grid launches it)."""
+    from repro_torch.kernels.sigkernel_pde import kernel, ops
+    geo = ops.geometry(*delta.shape[1:], lam1, lam2, scheme=scheme, T=T)
+    return kernel.fwd_cps(delta, T, lam1, lam2, scheme, idt, geo)
+
+
+def main(sharded_only: bool = False) -> int:
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -263,12 +293,6 @@ def main() -> int:
         return 1
     dev = torch.device("cuda")
 
-    def fwd_cps(delta, T, lam1=0, lam2=0, scheme="order1", idt="float32"):
-        """The checkpoint forward at strip T and the geometry ops.geometry
-        picks for it (as ops.solve_with_grid launches it)."""
-        geo = ops.geometry(*delta.shape[1:], lam1, lam2, scheme=scheme, T=T)
-        return kernel.fwd_cps(delta, T, lam1, lam2, scheme, idt, geo)
-
     def reset_all():
         """Every kernel's launch count to 0, just before a driven path."""
         kernel.reset_launch_counts()
@@ -288,6 +312,11 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print("  ptxas:", line.strip())
+    if sharded_only:
+        for key, by_world in sorted(sharded_phase(name, power).items(), key=str):
+            shape_check(key, by_world, kernel, fwd_cps, dev, np.random.default_rng(0), name,
+                        power)
+        return finish(card)
 
     # ---- 2. the main path at full width ------------------------------------
     rng = np.random.default_rng(0)
@@ -791,8 +820,19 @@ def main() -> int:
         if key not in path_shapes:
             shape_check(key, {"features": n}, kernel, fwd_cps, dev, rng, name, power)
     serve_phase(rt, dev, rng, reset_all, sig_kernel, name, power)
+    shapes_sh = sharded_phase(name, power)
+    # the sharded path's per-rank shapes that no path above launched
+    for key, by_world in sorted(shapes_sh.items(), key=str):
+        if key not in path_shapes and key not in shapes_feat:
+            shape_check(key, by_world, kernel, fwd_cps, dev, rng, name, power)
 
     emit({"kernels": rows})
+    return finish(card)
+
+
+def finish(card) -> int:
+    """The card's line and the final ``ok`` line."""
+    import torch
     print(card)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -1125,5 +1165,112 @@ def serve_phase(rt, dev, rng, reset_all, sig_kernel, name, power) -> None:
           "power_limit": power})
 
 
+def sharded_rank(rank, world, seed) -> dict:
+    """Phase 11 on one NCCL rank (on ``cuda:rank``): the cases once with the
+    launch counts set to 0 just before and read just after, then each
+    against the dense Gram on this card, then timed."""
+    import torch
+    import torch.distributed as dist
+    import repro_torch as rt
+    from repro_torch.core import dispatch
+    from repro_torch.kernels.sigkernel_pde import kernel
+    from repro_torch.launch import make_gram_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", rank)
+    rng = np.random.default_rng(seed)
+    B, L, d = SHARDED
+    X = torch.from_numpy(random_paths(rng, B, L, d)).to(dev)
+    Y = torch.from_numpy(random_paths(rng, B, L, d)).to(dev)
+    lx = torch.from_numpy(rng.integers(2, L + 1, size=B)).to(dev)
+    ly = torch.from_numpy(rng.integers(2, L + 1, size=B)).to(dev)
+    W = torch.from_numpy(rng.normal(size=(B, B)).astype(np.float32)).to(dev)
+    mesh = make_gram_mesh()
+    rbf = rt.RBF(1.0)
+    cases = {
+        "linear": ((X, Y), {}),
+        "linear_symmetric": ((X,), {}),
+        "rbf_row_block16": ((X, Y), {"static_kernel": rbf, "row_block": 16}),
+        "rbf_symmetric": ((X,), {"static_kernel": rbf}),
+        "linear_ragged": ((X, Y), {"lengths": lx, "lengths_y": ly}),
+    }
+
+    def sharded(args, kw):
+        return rt.sigkernel_gram_sharded(*args, mesh=mesh, **kw)
+
+    def grad_x(gram):
+        return grads(lambda a: (gram(a, Y) * W).sum(), X)[0]
+
+    kernel.reset_launch_counts()
+    t_path = time.time()
+    got, pairs = {}, {}
+    for case, (args, kw) in cases.items():
+        with dispatch.count_pair_solves() as c:
+            got[case] = sharded(args, kw)
+        pairs[case] = c.total
+    g = grad_x(lambda a, b: sharded((a, b), {}))
+    torch.cuda.synchronize()
+    path_s = time.time() - t_path
+    counts, shapes = kernel.launch_counts(), kernel.launch_shapes()
+
+    finite = all(bool(torch.isfinite(v).all()) for v in (*got.values(), g))
+    rel = {case: rel_err(got[case], rt.sigkernel_gram(*args, **kw))
+           for case, (args, kw) in cases.items()}
+    grad_rel = rel_err(g, grad_x(rt.sigkernel_gram))
+    ms = {case: time_ms(lambda: sharded(args, kw), 5) for case, (args, kw) in cases.items()}
+    ms["grad_linear"] = time_ms(lambda: grad_x(lambda a, b: sharded((a, b), {})), 3)
+    dense_ms = None
+    if world == 1:
+        dense_ms = {case: time_ms(lambda: rt.sigkernel_gram(*args, **kw), 5)
+                    for case, (args, kw) in cases.items()}
+        dense_ms["grad_linear"] = time_ms(lambda: grad_x(rt.sigkernel_gram), 3)
+    return {"backend": dist.get_backend(), "mesh": list(mesh.shape), "seconds": path_s,
+            "finite": finite, "rel_err": rel, "grad_rel_err": grad_rel, "ms": ms,
+            "dense_ms": dense_ms, "pairs": pairs, "launches": counts, "shapes": shapes}
+
+
+def sharded_phase(name, power) -> dict:
+    """Phase 11: the sharded Gram on NCCL groups of 1, 2 and 4 ranks (as
+    many as there are cards).  Returns rank 0's Goursat launches by shape,
+    each with its launches at each world size."""
+    import torch
+    from repro_torch.launch import spawn_ranks
+    torch.cuda.empty_cache()
+    t_phase = time.time()
+    B = SHARDED[0]
+    n_pairs = B * (B + 1) // 2
+    rows, shapes, runs = [], {}, {}
+    for world in (w for w in SHARDED_WORLDS if w <= torch.cuda.device_count()):
+        t_group = time.time()
+        outs = runs[world] = spawn_ranks(sharded_rank, world, (SHARDED_SEED,), backend="nccl",
+                                         timeout=600)
+        r0 = outs[0]
+        for key, n in r0["shapes"].items():
+            shapes.setdefault(key, {})[f"sharded_{world}"] = n
+        rows.append({"ranks": world, "backend": r0["backend"], "mesh": r0["mesh"],
+                     "group_seconds": round(time.time() - t_group, 3),
+                     "path_seconds": round(r0["seconds"], 3), "ms": r0["ms"],
+                     "dense_ms": r0["dense_ms"],
+                     "max_rel_err": {c: max(o["rel_err"][c] for o in outs) for c in r0["rel_err"]},
+                     "max_grad_rel_err": max(o["grad_rel_err"] for o in outs),
+                     "pairs": r0["pairs"], "launches_rank0": r0["launches"],
+                     "launches_by_shape_rank0": shape_rows(r0["shapes"])})
+    emit({"sharded_path": rows, "sizes": list(SHARDED), "seconds": round(time.time() - t_phase, 3),
+          "card": name, "power_limit": power})
+    for world, outs in runs.items():
+        for r, o in enumerate(outs):
+            at = f"sharded, {world} ranks, rank {r}"
+            check(o["backend"] == "nccl", f"{at}: backend {o['backend']}")
+            check(o["finite"], f"{at}: non-finite values")
+            for case, err in o["rel_err"].items():
+                check(err <= SHARDED_REL, f"{at}: {case} rel err {err:.3g} against dense")
+            check(o["grad_rel_err"] <= SHARDED_GRAD_REL,
+                  f"{at}: gradient rel err {o['grad_rel_err']:.3g} against dense")
+            check(o["pairs"]["linear_symmetric"] == n_pairs + (-n_pairs) % world,
+                  f"{at}: symmetric pair budget {o['pairs']['linear_symmetric']}")
+        for kname in SHARDED_PATH:
+            check(outs[0]["launches"][kname] > 0, f"sharded, {world} ranks: never launched {kname}")
+    return shapes
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sharded_only=sys.argv[1:] == ["--sharded-only"]))

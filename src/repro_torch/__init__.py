@@ -27,7 +27,7 @@ from .core import (GridConfig, LaunchConfig, Linear, RBF, TransformPipeline,
                    bucket_length, configs_from_reference, logsignature,
                    logsignature_combine, logsignature_dim, mmd2, pad_ragged,
                    scoring_rule, sigkernel, sigkernel_gram, sigkernel_gram_reduce,
-                   signature, signature_combine)
+                   sigkernel_gram_sharded, signature, signature_combine)
 
 __version__ = "0.1.0"
 
@@ -37,5 +37,5 @@ __all__ = [
     "configs_from_reference",
     "logsignature", "logsignature_combine", "logsignature_dim", "mmd2",
     "pad_ragged", "scoring_rule", "sigkernel", "sigkernel_gram",
-    "sigkernel_gram_reduce", "signature", "signature_combine",
+    "sigkernel_gram_reduce", "sigkernel_gram_sharded", "signature", "signature_combine",
 ]

@@ -6,7 +6,7 @@ from .config import (GridConfig, LaunchConfig, Linear, RBF, StaticKernel,
                      TransformPipeline, configs_from_reference, delta_from_gram)
 from .dispatch import count_combines, count_pair_solves, count_scan_steps
 from .features import FeatureConfig
-from .gram import sigkernel_gram, sigkernel_gram_reduce
+from .gram import sigkernel_gram, sigkernel_gram_reduce, sigkernel_gram_sharded
 from .logsignature import logsignature, logsignature_combine, logsignature_dim
 from .losses import mmd2, scoring_rule, sig_aux_loss
 from .sigkernel import (delta_matrix, sigkernel, solve_goursat,
@@ -20,6 +20,6 @@ __all__ = [
     "count_pair_solves", "count_scan_steps", "delta_from_gram", "delta_matrix", "logsignature",
     "logsignature_combine", "logsignature_dim", "mmd2", "pad_ragged",
     "scoring_rule", "sig_aux_loss", "sigkernel", "sigkernel_gram", "sigkernel_gram_reduce",
-    "signature", "signature_combine", "signature_direct", "solve_goursat",
+    "sigkernel_gram_sharded", "signature", "signature_combine", "signature_direct", "solve_goursat",
     "solve_goursat_antidiag", "solve_goursat_grad",
 ]

@@ -19,16 +19,21 @@ Every variant is differentiable with the exact one-pass backward.
 switches every entry point to an approximate feature map (``"rff"`` /
 ``"nystroem"``): the Gram becomes ``phi(X) @ phi(Y).T`` and the reduction
 ``⟨Σ phi(X), Σ phi(Y)⟩``, O(B·rank) memory, differentiable by autograd.
-Without it the approximate backends are refused, even when named.  The
-sharded Gram and ``error_budget=`` are not ported yet (ROADMAP).
+Without it the approximate backends are refused, even when named.
+``error_budget=`` is not ported yet (ROADMAP).
+
+:func:`sigkernel_gram_sharded` tiles the Gram over the ranks of a
+``torch.distributed`` DeviceMesh (NCCL on the card, gloo on the CPU).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from . import dispatch
@@ -38,6 +43,8 @@ from .config import (_maybe_scale, delta_from_gram, resolve_kernel_configs,
                      resolve_launch)
 from .sigkernel import _sigkernel_from_delta
 from repro_torch.kernels.sigkernel_pde import ops as pde_ops
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel.sharding import block_cyclic_perm
 
 
 def _prepare(paths: torch.Tensor, cfg, kernel, lengths=None) -> torch.Tensor:
@@ -121,6 +128,11 @@ def _symmetric_gram(sX: torch.Tensor, kernel, backend: str,
     chunk = None if row_block is None else max(1, int(row_block)) * Bx
     dispatch.record_pair_solves(n_pairs)
     k = _solve_pairs_chunked(sX, a_np, b_np, kernel, backend, g, chunk, launch)
+    return _mirror(k, a_np, b_np, Bx)
+
+
+def _mirror(k: torch.Tensor, a_np, b_np, Bx: int) -> torch.Tensor:
+    """The (Bx, Bx) Gram from its upper-triangle values ``k`` at (a, b)."""
     a_idx = torch.as_tensor(a_np, device=k.device)
     b_idx = torch.as_tensor(b_np, device=k.device)
     K = k.new_zeros(Bx, Bx).index_put((a_idx, b_idx), k)
@@ -266,6 +278,173 @@ def sigkernel_gram(X: torch.Tensor, Y: Optional[torch.Tensor] = None, *,
     sY = _prepare(Y, cfg, kernel, lengths_y)
     dispatch.record_pair_solves(sX.shape[0] * sY.shape[0])
     return _gram_rows(sX, sY, kernel, backend, g, row_block, launch)
+
+
+# ---------------------------------------------------------------------------
+# sharded Gram — the (Bx, By) tile grid over the ranks of a DeviceMesh
+# ---------------------------------------------------------------------------
+
+def _mesh_groups(mesh, row_axis: str, col_axis: str, device: torch.device):
+    """The row and column process groups of ``mesh``, checked."""
+    names = tuple(mesh.mesh_dim_names or ())
+    for ax in (row_axis, col_axis):
+        if ax not in names:
+            raise ValueError(f"mesh has no {ax!r} axis (axes: {names}); pass "
+                             "row_axis=/col_axis= matching your mesh")
+    if row_axis == col_axis:
+        raise ValueError(f"row_axis and col_axis are both {row_axis!r}")
+    if mesh.device_type != device.type:
+        raise ValueError(f"the mesh is on {mesh.device_type!r} but the paths lie on "
+                         f"{device.type!r}: NCCL meshes take card tensors, gloo "
+                         "meshes CPU tensors")
+    groups = mesh.get_group(row_axis), mesh.get_group(col_axis)
+    if device.type == "cuda" and any("nccl" not in dist.get_backend(gr) for gr in groups):
+        raise ValueError("card tensors need an NCCL mesh: gloo moves them through the host")
+    return groups
+
+
+def _deal(s: torch.Tensor, n_shards: int, index: int, tile: int):
+    """Shard ``index`` of the zero-padded, block-cyclically dealt rows of
+    ``s``; returns (its rows, the inverse permutation, the padded count).
+    Zero rows give k = 1 tiles, which the caller slices off."""
+    B = s.shape[0]
+    t = max(1, min(int(tile), -(-B // n_shards)))
+    n_blocks = -(-B // t)
+    n_blocks += (-n_blocks) % n_shards
+    padded = n_blocks * t
+    if padded > B:
+        s = torch.cat([s, s.new_zeros((padded - B,) + tuple(s.shape[1:]))])
+    perm, inv = block_cyclic_perm(padded, n_shards, t)
+    share = padded // n_shards
+    idx = torch.as_tensor(perm[index * share:(index + 1) * share], device=s.device)
+    return s[idx], torch.as_tensor(inv, device=s.device), padded
+
+
+def _shared_params(kernel, groups):
+    """The lift with each of its differentiable tensors (``RBF.sigma``,
+    ``Linear.scale``) through :func:`collectives.sum_grads`: each rank's
+    tiles give only their share of its gradient."""
+    wrapped = {}
+    for f in dataclasses.fields(kernel):
+        v = getattr(kernel, f.name)
+        if isinstance(v, torch.Tensor) and v.requires_grad:
+            wrapped[f.name] = coll.sum_grads(v, groups)
+    return dataclasses.replace(kernel, **wrapped) if wrapped else kernel
+
+
+def sigkernel_gram_sharded(X: torch.Tensor, Y: Optional[torch.Tensor] = None, *,
+                           mesh=None, row_axis: str = "data", col_axis: str = "model",
+                           tile: int = 8, backend: str = "auto",
+                           row_block: Optional[int] = None,
+                           symmetric: Optional[bool] = None, lengths=None,
+                           lengths_y=None, transforms=None, grid=None,
+                           static_kernel=None, launch=None,
+                           features=None) -> torch.Tensor:
+    """:func:`sigkernel_gram` tiled over the ranks of a DeviceMesh.
+
+    **Contract.**  Every rank of ``mesh`` calls this with the same ``X``,
+    ``Y``, lengths and configs, and every rank gets the whole (Bx, By)
+    Gram back (as the JAX function returns one global array); it is
+    differentiable on every rank, and ``torch.autograd.grad`` of the same
+    loss of it gives every rank the whole gradient, equal to the dense
+    Gram's.  The collectives run on the mesh's groups: NCCL for card
+    tensors (one process a card), gloo for CPU tensors.
+
+    The (Bx, By) tile grid is 2-D **block-cyclic**: row tiles of ``tile``
+    paths dealt round-robin over ``mesh[row_axis]``, column tiles over
+    ``mesh[col_axis]`` (zero-padded to whole rounds; padding rows give
+    k = 1 and are sliced off).  Each rank solves its (rows × columns) tile
+    from the replicated prepared streams with no collective, then the tiles
+    are gathered over the column and the row groups and the deal undone.
+    On the card the linear lift's tiles go to the fused Gram kernel, other
+    lifts' to the precomputed-Δ forward.
+
+    The symmetric fast path (``Y`` omitted) stays global: the
+    ``Bx·(Bx+1)/2`` upper-triangle pairs, padded to a multiple of the rank
+    count ``D``, are dealt round-robin over **all** ranks (rank ``r``
+    solves pairs ``r, r + D, …``), solved locally, gathered and mirrored
+    once.  The cyclic deal keeps the triangle balanced.
+
+    The gradient: the gather's backward hands each rank its own slice of
+    the cotangent, and the replicated prepared streams (and the lift's
+    differentiable tensors) sum their gradients over the mesh in the
+    backward (:mod:`repro_torch.parallel.collectives`).  Each tile belongs
+    to one rank, so the sum is the whole gradient.
+
+    :func:`count_pair_solves` records the **global** budget on every rank,
+    as the JAX function's counter does: ``n_pairs + pad`` symmetric,
+    ``padded_Bx · padded_By`` otherwise; a rank's own share is that budget
+    over the rank count.
+
+    Args (beyond :func:`sigkernel_gram`'s; ``error_budget=`` is not ported):
+      mesh: a ``torch.distributed.device_mesh.DeviceMesh`` with ``row_axis``
+        and ``col_axis`` dimensions, on the paths' device type.  Default:
+        :func:`repro_torch.launch.make_gram_mesh` over the default group.
+      tile: block-cyclic tile granularity (rows and columns).
+      row_block: at most ``row_block`` local Gram rows (or ``row_block·Bx``
+        symmetric pairs) in flight on each rank.
+      features: with a :class:`FeatureConfig` there is no solve grid to
+        tile: every rank computes the feature maps, then its share of the
+        rows of ``phi(X) @ phi(Y).T`` (shares over all ranks, uneven where
+        Bx does not divide), and the shares are gathered.
+
+    Ragged ``lengths=`` work unchanged: the end-aligned prepared streams
+    carry the padding before the tiles are dealt.  Values equal the dense
+    Gram's pair for pair (only the concatenation order differs).
+    """
+    (X, Y, lengths, lengths_y, cfg, g, kernel, backend, symmetric,
+     launch, feats) = _resolve_engine(X, Y, symmetric, lengths, lengths_y, transforms,
+                                      grid, static_kernel, backend, launch, features)
+    if mesh is None:
+        from repro_torch.launch import make_gram_mesh
+        mesh = make_gram_mesh()
+    rows, cols = _mesh_groups(mesh, row_axis, col_axis, X.device)
+    groups = (rows, cols)
+    nd, nm = dist.get_world_size(rows), dist.get_world_size(cols)
+    i, j = dist.get_rank(rows), dist.get_rank(cols)
+    D, r = nd * nm, i * nm + j           # rank r of the flat deal
+
+    def gather_flat(v, sizes):
+        """Every flat rank's dim-0 share, in flat order (sizes by flat rank)."""
+        v = coll.gather(v, cols, sizes[i * nm:(i + 1) * nm])
+        return coll.gather(v, rows, [sum(sizes[a * nm:(a + 1) * nm]) for a in range(nd)])
+
+    if feats is not None:
+        phiX, phiY = _feature_maps(X, Y, feats, cfg, g, kernel, lengths, lengths_y, launch)
+        phiX = coll.sum_grads(phiX, groups)
+        phiY = phiX if phiY is None else coll.sum_grads(phiY, groups)
+        sizes = [len(s) for s in np.array_split(np.arange(phiX.shape[0]), D)]
+        start = sum(sizes[:r])
+        return gather_flat(phiX[start:start + sizes[r]] @ phiY.T, sizes)
+
+    if row_block is None:
+        row_block = launch.gram_row_block
+    kernel = _shared_params(kernel, groups)
+    sX = coll.sum_grads(_prepare(X, cfg, kernel, lengths), groups)
+    Bx = sX.shape[0]
+    if symmetric:
+        a_np, b_np = np.triu_indices(Bx)
+        n_pairs = a_np.size
+        pad = (-n_pairs) % D
+        a_pad = np.concatenate([a_np, np.zeros(pad, a_np.dtype)])
+        b_pad = np.concatenate([b_np, np.zeros(pad, b_np.dtype)])
+        n_loc = (n_pairs + pad) // D
+        dispatch.record_pair_solves(n_pairs + pad)
+        chunk = None if row_block is None else max(1, int(row_block)) * Bx
+        k_loc = _solve_pairs_chunked(sX, a_pad[r::D], b_pad[r::D], kernel, backend, g,
+                                     chunk, launch)
+        # undo the deal: global pair t·D + r sits at rank r, slot t
+        k = gather_flat(k_loc, [n_loc] * D).reshape(D, n_loc).T.reshape(-1)[:n_pairs]
+        return _mirror(k, a_np, b_np, Bx)
+
+    sY = coll.sum_grads(_prepare(Y, cfg, kernel, lengths_y), groups)
+    By = sY.shape[0]
+    sx, inv_r, px = _deal(sX, nd, i, tile)
+    sy, inv_c, py = _deal(sY, nm, j, tile)
+    dispatch.record_pair_solves(px * py)
+    Kt = _gram_rows(sx, sy, kernel, backend, g, row_block, launch)
+    Kp = coll.gather(coll.gather(Kt, cols, [py // nm] * nm, dim=1), rows, [px // nd] * nd)
+    return Kp[inv_r][:, inv_c][:Bx, :By]
 
 
 # ---------------------------------------------------------------------------

@@ -269,8 +269,11 @@ class _GramFused(torch.autograd.Function):
         xw, yw = _working(dX, dX.device.type), _working(dY, dY.device.type)
         dd = _rebuilt_grad(stencil.delta_einsum("aid,bjd->abij", xw, yw), gbar,
                            *ctx.args)
-        ddX = torch.einsum("abij,bjd->aid", dd, yw)
-        ddY = torch.einsum("abij,aid->bjd", dd, xw)
+        # a dot product a pair (over j, or i), then the sum over the other
+        # side's paths in float64: the rows' gradients do not depend on how
+        # many rows share the launch (row blocks, sharded tiles)
+        ddX = (dd @ yw).double().sum(1)
+        ddY = (dd.transpose(-1, -2) @ xw[:, None]).double().sum(0)
         return ddX.to(dX.dtype), ddY.to(dY.dtype), None, None, None, None, None
 
 

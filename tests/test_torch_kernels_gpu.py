@@ -11,6 +11,9 @@ The last tests drive the streaming ``Path``, ``coalesced_update``, the
 feature maps (with draws made once and shared) and ``SigFeatureServer`` on
 CUDA tensors, and hold them to the same calls on CPU tensors within the
 float32 gates: 5e-5 for values, 2e-5 for gradients.
+The sharded Gram runs on up to two NCCL ranks, one a card
+(``repro_torch.launch.spawn_ranks``), against the dense Gram on the card:
+values 1e-6, gradients 1e-5 relative.
 
 Tolerances, relative to the largest plain value: float32 1e-4, bf16
 interiors 2e-2.  (The kernels round each operation as the plain versions do
@@ -545,3 +548,51 @@ def test_server_on_the_card_matches_cpu(cuda):
     st_card, st_cpu = srv[None].stats(), srv["cpu"].stats()
     for k in ("update_groups", "solo_updates", "coalesced_streams", "flushes"):
         assert st_card[k] == st_cpu[k]
+
+
+@pytest.mark.gpu
+def test_fused_gram_gradient_does_not_depend_on_the_row_block(cuda):
+    """A row's gradient through the fused Gram is the same whether it is
+    solved with all rows or in blocks (as a sharded tile is): one dot
+    product a pair, the sum over the columns in float64 (1e-6 relative; a
+    single float32 GEMM over all columns missed 1e-5 at 64 of 128 rows)."""
+    X = torch.cumsum(_incs(40, 128, 256, 8, cuda), dim=1)
+    Y = torch.cumsum(_incs(41, 128, 256, 8, cuda), dim=1)
+    W = torch.from_numpy(np.random.default_rng(42).normal(size=(128, 128))
+                         .astype(np.float32)).to(cuda)
+
+    def grad_x(**kw):
+        a = X.clone().requires_grad_()
+        return torch.autograd.grad((rt.sigkernel_gram(a, Y, **kw) * W).sum(), a)[0]
+
+    full = grad_x()
+    for rb in (64, 32):
+        _close(grad_x(row_block=rb), full, 1e-6)
+
+
+#: the sharded Gram's cases on the card (tests/torch_sharded_ranks.py)
+NCCL_CASES = ("linear", "linear_sym", "ragged", "rbf", "rbf_sym")
+
+
+@pytest.mark.gpu
+def test_sharded_gram_on_nccl_equals_dense(cuda):
+    """Up to two NCCL ranks, one a card: every rank's sharded Gram and its
+    gradient against the dense ones on that card (values 1e-6, gradients
+    1e-5 relative)."""
+    import torch_sharded_ranks as ranks
+    from repro_torch.launch import spawn_ranks
+    world = min(2, torch.cuda.device_count())
+    outs = spawn_ranks(ranks.nccl_rank, world, (NCCL_CASES,), backend="nccl", timeout=600)
+    for o in outs:
+        for case in NCCL_CASES:
+            _close(o[case]["sharded"], o[case]["dense"], 1e-6)
+            _close(o[case]["sharded_grads"]["X"], o[case]["dense_grads"]["X"], 1e-5)
+
+
+@pytest.mark.gpu
+def test_nccl_refuses_more_ranks_than_cards(cuda):
+    import torch_sharded_ranks as ranks
+    from repro_torch.launch import spawn_ranks
+    with pytest.raises(ValueError, match="more ranks than cards"):
+        spawn_ranks(ranks.nccl_rank, torch.cuda.device_count() + 1, (NCCL_CASES,),
+                    backend="nccl")
