@@ -54,7 +54,7 @@ class _SumGrads(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
+        g = g.clone(memory_format=torch.contiguous_format)
         for group in ctx.groups:
             dist.all_reduce(g, group=group)
         return g, None
