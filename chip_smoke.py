@@ -94,9 +94,7 @@ Phases (any failure exits non-zero; nothing runs without CUDA):
 
 Phases 8-11 run after phase 7's timing and before the ``kernels`` line;
 each sets the launch counts to 0 just before it and reads them just after
-(phase 11 in each rank).  ``python3 chip_smoke.py --sharded-only`` builds
-the Goursat kernels and runs phase 11 alone, with a shape check for every
-shape it launched (the four-card measurement).
+(phase 11 in each rank).  The script takes no arguments.
 """
 
 from __future__ import annotations
@@ -167,7 +165,7 @@ NYSTROEM_FULL_RANK_REL = 1e-4
 #: streams queried after each, the rolling window and the feature window
 SERVE = (128, 1024, 4, 5)
 SERVE_ROUNDS, SERVE_QUERIED, SERVE_WINDOW, SERVE_FEATURE_WINDOW = 32, 8, 64, 256
-#: the sharded Gram: the Table 2 Gram (src/repro/bench/workloads.py:194-199)
+#: the sharded Gram: the Table 2 Gram (src/repro/bench/workloads.py:145-152)
 #: at these world sizes, where the cards exist; its inputs' seed; its gates
 #: against the dense Gram on the same card (values, the gradient)
 SHARDED = (128, 256, 8)
@@ -270,7 +268,7 @@ def fwd_cps(delta, T, lam1=0, lam2=0, scheme="order1", idt="float32"):
     return kernel.fwd_cps(delta, T, lam1, lam2, scheme, idt, geo)
 
 
-def main(sharded_only: bool = False) -> int:
+def main() -> int:
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -312,11 +310,6 @@ def main(sharded_only: bool = False) -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print("  ptxas:", line.strip())
-    if sharded_only:
-        for key, by_world in sorted(sharded_phase(name, power).items(), key=str):
-            shape_check(key, by_world, kernel, fwd_cps, dev, np.random.default_rng(0), name,
-                        power)
-        return finish(card)
 
     # ---- 2. the main path at full width ------------------------------------
     rng = np.random.default_rng(0)
@@ -1273,4 +1266,6 @@ def sharded_phase(name, power) -> dict:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sharded_only=sys.argv[1:] == ["--sharded-only"]))
+    if sys.argv[1:]:
+        sys.exit(f"chip_smoke: takes no arguments, got {sys.argv[1:]}")
+    sys.exit(main())

@@ -384,9 +384,10 @@ def sigkernel_gram_sharded(X: torch.Tensor, Y: Optional[torch.Tensor] = None, *,
       row_block: at most ``row_block`` local Gram rows (or ``row_block·Bx``
         symmetric pairs) in flight on each rank.
       features: with a :class:`FeatureConfig` there is no solve grid to
-        tile: every rank computes the feature maps, then its share of the
-        rows of ``phi(X) @ phi(Y).T`` (shares over all ranks, uneven where
-        Bx does not divide), and the shares are gathered.
+        tile: every rank computes the feature maps and the (Bx, rank) @
+        (rank, By) product ``phi(X) @ phi(Y).T`` whole, with no collective
+        (the JAX function's result is replicated in effect), and no mesh is
+        needed.
 
     Ragged ``lengths=`` work unchanged: the end-aligned prepared streams
     carry the padding before the tiles are dealt.  Values equal the dense
@@ -395,6 +396,9 @@ def sigkernel_gram_sharded(X: torch.Tensor, Y: Optional[torch.Tensor] = None, *,
     (X, Y, lengths, lengths_y, cfg, g, kernel, backend, symmetric,
      launch, feats) = _resolve_engine(X, Y, symmetric, lengths, lengths_y, transforms,
                                       grid, static_kernel, backend, launch, features)
+    if feats is not None:
+        phiX, phiY = _feature_maps(X, Y, feats, cfg, g, kernel, lengths, lengths_y, launch)
+        return phiX @ (phiX if phiY is None else phiY).T
     if mesh is None:
         from repro_torch.launch import make_gram_mesh
         mesh = make_gram_mesh()
@@ -403,19 +407,6 @@ def sigkernel_gram_sharded(X: torch.Tensor, Y: Optional[torch.Tensor] = None, *,
     nd, nm = dist.get_world_size(rows), dist.get_world_size(cols)
     i, j = dist.get_rank(rows), dist.get_rank(cols)
     D, r = nd * nm, i * nm + j           # rank r of the flat deal
-
-    def gather_flat(v, sizes):
-        """Every flat rank's dim-0 share, in flat order (sizes by flat rank)."""
-        v = coll.gather(v, cols, sizes[i * nm:(i + 1) * nm])
-        return coll.gather(v, rows, [sum(sizes[a * nm:(a + 1) * nm]) for a in range(nd)])
-
-    if feats is not None:
-        phiX, phiY = _feature_maps(X, Y, feats, cfg, g, kernel, lengths, lengths_y, launch)
-        phiX = coll.sum_grads(phiX, groups)
-        phiY = phiX if phiY is None else coll.sum_grads(phiY, groups)
-        sizes = [len(s) for s in np.array_split(np.arange(phiX.shape[0]), D)]
-        start = sum(sizes[:r])
-        return gather_flat(phiX[start:start + sizes[r]] @ phiY.T, sizes)
 
     if row_block is None:
         row_block = launch.gram_row_block
@@ -434,7 +425,8 @@ def sigkernel_gram_sharded(X: torch.Tensor, Y: Optional[torch.Tensor] = None, *,
         k_loc = _solve_pairs_chunked(sX, a_pad[r::D], b_pad[r::D], kernel, backend, g,
                                      chunk, launch)
         # undo the deal: global pair t·D + r sits at rank r, slot t
-        k = gather_flat(k_loc, [n_loc] * D).reshape(D, n_loc).T.reshape(-1)[:n_pairs]
+        k = coll.gather(coll.gather(k_loc, cols), rows)
+        k = k.reshape(D, n_loc).T.reshape(-1)[:n_pairs]
         return _mirror(k, a_np, b_np, Bx)
 
     sY = coll.sum_grads(_prepare(Y, cfg, kernel, lengths_y), groups)
@@ -443,7 +435,7 @@ def sigkernel_gram_sharded(X: torch.Tensor, Y: Optional[torch.Tensor] = None, *,
     sy, inv_c, py = _deal(sY, nm, j, tile)
     dispatch.record_pair_solves(px * py)
     Kt = _gram_rows(sx, sy, kernel, backend, g, row_block, launch)
-    Kp = coll.gather(coll.gather(Kt, cols, [py // nm] * nm, dim=1), rows, [px // nd] * nd)
+    Kp = coll.gather(coll.gather(Kt, cols, dim=1), rows)
     return Kp[inv_r][:, inv_c][:Bx, :By]
 
 

@@ -18,8 +18,6 @@ gradient the right way:
 
 from __future__ import annotations
 
-from typing import Sequence
-
 import torch
 import torch.distributed as dist
 
@@ -27,22 +25,16 @@ import torch.distributed as dist
 class _Gather(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, group, sizes, dim):
-        ctx.group, ctx.sizes, ctx.dim = group, sizes, dim
-        top = max(sizes)
-        if x.shape[dim] < top:       # uneven shares travel padded to the largest
-            buf = x.new_zeros(x.shape[:dim] + (top,) + x.shape[dim + 1:])
-            buf.narrow(dim, 0, x.shape[dim]).copy_(x)
-            x = buf
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
         x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in sizes]
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
         dist.all_gather(parts, x, group=group)
-        return torch.cat([p.narrow(dim, 0, s) for p, s in zip(parts, sizes)], dim)
+        return torch.cat(parts, dim)
 
     @staticmethod
     def backward(ctx, g):
-        r = dist.get_rank(ctx.group)
-        return g.narrow(ctx.dim, sum(ctx.sizes[:r]), ctx.sizes[r]), None, None, None
+        return g.narrow(ctx.dim, dist.get_rank(ctx.group) * ctx.n, ctx.n), None, None
 
 
 class _SumGrads(torch.autograd.Function):
@@ -60,16 +52,11 @@ class _SumGrads(torch.autograd.Function):
         return g, None
 
 
-def gather(x: torch.Tensor, group, sizes: Sequence[int], dim: int = 0) -> torch.Tensor:
+def gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """Concatenate along ``dim`` the shares of every rank of ``group``, in
-    group-rank order; ``sizes[q]`` is rank q's share length (shares may be
-    uneven or empty).  Every rank of the group must call it."""
-    sizes = [int(s) for s in sizes]
-    r = dist.get_rank(group)
-    if len(sizes) != dist.get_world_size(group) or x.shape[dim] != sizes[r]:
-        raise ValueError(f"gather: rank {r} holds {x.shape[dim]} of shares {sizes} "
-                         f"over {dist.get_world_size(group)} ranks")
-    return _Gather.apply(x, group, sizes, dim)
+    group-rank order.  Every rank of the group must call it, each with a
+    share of the same shape."""
+    return _Gather.apply(x, group, dim)
 
 
 def sum_grads(x: torch.Tensor, groups) -> torch.Tensor:

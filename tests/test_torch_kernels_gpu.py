@@ -11,7 +11,7 @@ The last tests drive the streaming ``Path``, ``coalesced_update``, the
 feature maps (with draws made once and shared) and ``SigFeatureServer`` on
 CUDA tensors, and hold them to the same calls on CPU tensors within the
 float32 gates: 5e-5 for values, 2e-5 for gradients.
-The sharded Gram runs on up to two NCCL ranks, one a card
+The sharded Gram runs on 1, 2 and 4 NCCL ranks, one a card
 (``repro_torch.launch.spawn_ranks``), against the dense Gram on the card:
 values 1e-6, gradients 1e-5 relative.
 
@@ -575,13 +575,15 @@ NCCL_CASES = ("linear", "linear_sym", "ragged", "rbf", "rbf_sym")
 
 
 @pytest.mark.gpu
-def test_sharded_gram_on_nccl_equals_dense(cuda):
-    """Up to two NCCL ranks, one a card: every rank's sharded Gram and its
-    gradient against the dense ones on that card (values 1e-6, gradients
-    1e-5 relative)."""
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_sharded_gram_on_nccl_equals_dense(cuda, world):
+    """1, 2 and 4 NCCL ranks, one a card (skipped without the cards): every
+    rank's sharded Gram and its gradient against the dense ones on that card
+    (values 1e-6, gradients 1e-5 relative)."""
     import torch_sharded_ranks as ranks
     from repro_torch.launch import spawn_ranks
-    world = min(2, torch.cuda.device_count())
+    if world > torch.cuda.device_count():
+        pytest.skip(f"needs {world} cards, the host has {torch.cuda.device_count()}")
     outs = spawn_ranks(ranks.nccl_rank, world, (NCCL_CASES,), backend="nccl", timeout=600)
     for o in outs:
         for case in NCCL_CASES:
