@@ -92,7 +92,24 @@ Phases (any failure exits non-zero; nothing runs without CUDA):
    shapes, and every shape no earlier path launched goes through
    ``shape_check``.
 
-Phases 8-11 run after phase 7's timing and before the ``kernels`` line;
+12. ``train_path``: the trainers.  (a) The generator of
+   ``examples/train_sigkernel_gan_torch.py`` at its ``--full-100m`` width
+   (12 layers of width 768, ~113M parameters, float32, scanned and
+   rematerialised layers) against (64, 256, 8) GBM targets under time-aug
+   (d' = 9) and (λ, λ) = (1, 1): 30 steps of the example's own AdamW and
+   cosine schedule at the peak rate 1e-5, the last 10 timed, the eval MMD²
+   on its fixed set before and after, which must fall.  (b) The dense LM
+   at deepseek-7b's width (d_model 4096, 32 heads, d_ff 11008, vocab
+   102400, bf16 compute), its
+   depth cut from 30 to 2 layers, ``sig_loss`` on: ``make_train_step`` with
+   two microbatches on ``TokenLM(102400, 512, 4)``, 5 steps on one batch;
+   the loss must fall and ``sig`` stay finite.  (c) The reduced generator's
+   loss and parameter gradients on the card against the CPU's (1e-4).
+   B1-cps, B2 and a fused kernel must launch; every refined launch shape,
+   and each unrefined one no earlier path launched, goes through
+   ``shape_check``.
+
+Phases 8-12 run after phase 7's timing and before the ``kernels`` line;
 each sets the launch counts to 0 just before it and reads them just after
 (phase 11 in each rank).  The script takes no arguments.
 """
@@ -174,6 +191,23 @@ SHARDED_SEED = 11
 SHARDED_REL, SHARDED_GRAD_REL = 1e-6, 1e-5
 #: the kernels the sharded path must launch on each rank
 SHARDED_PATH = ("fwd", "fwd_cps", "bwd", "fwd_fused", "gram_fused")
+# phase 12: the generator of examples/train_sigkernel_gan_torch.py at its
+# --full-100m width (12 x 768, ~113M parameters, float32) against (64, 256, 8)
+# GBM targets under time-aug and (λ, λ) = (1, 1), 30 steps of the example's
+# own optimiser and schedule (AdamW, cosine with 20 warm-up steps), the last
+# 10 timed, at the peak rate --lr 1e-5: at the example's default 1e-3, and
+# at 1e-4 and 3e-5, the full-width generator's MMD² rises or overflows
+# (tools/gan_probe.py); the dense LM at deepseek-7b's width with its depth
+# cut from 30 to 2 layers (Adam's float32 state for 7B parameters does not
+# fit one card), bf16 compute, sig_loss on, TokenLM(102400, 512, 4) in two
+# microbatches, 5 steps on one batch, as tests/test_models.py:96-101 runs the
+# JAX LM; the reduced generator's loss and gradients on the card against the
+# CPU's on (8, 32, 8)
+GAN = dict(batch=64, length=256, dim=8, dyadic=1, steps=30, timed=10, lr=1e-5, warmup=20)
+LM = dict(layers=2, seq=512, batch=4, microbatches=2, steps=5, sig_dim=4)
+GAN_SMALL = (8, 32, 8)
+TRAIN_CARD_CPU_REL = 1e-4
+TRAIN_PATH = ("fwd_cps", "bwd")     # and at least one of fwd_fused, gram_fused
 
 
 class SmokeFailure(RuntimeError):
@@ -818,6 +852,11 @@ def main() -> int:
     for key, by_world in sorted(shapes_sh.items(), key=str):
         if key not in path_shapes and key not in shapes_feat:
             shape_check(key, by_world, kernel, fwd_cps, dev, rng, name, power)
+    # the trainers' shapes: every refined one, and the unrefined ones no path
+    # above launched
+    for key, by_run, lam in train_phase(dev, reset_all, kernel, name, power):
+        if lam or (key not in path_shapes and key not in shapes_feat and key not in shapes_sh):
+            shape_check(key, by_run, kernel, fwd_cps, dev, rng, name, power, lam=lam)
 
     emit({"kernels": rows})
     return finish(card)
@@ -833,11 +872,11 @@ def finish(card) -> int:
     return 0
 
 
-def shape_check(key, by_path, kernel, fwd_cps, dev, rng, name, power) -> None:
+def shape_check(key, by_path, kernel, fwd_cps, dev, rng, name, power, lam=0) -> None:
     """One Goursat kernel at one shape it launched at (key as in
-    kernel.launch_shapes(); GridConfig() defaults: order 1, float32
-    interiors, lam = 0), on fresh random inputs: held against its plain
-    version, timed beside its bound (the per-shape gaps of PERF.md's
+    kernel.launch_shapes(); order 1, float32 interiors, the refinement
+    (lam, lam) it launched at), on fresh random inputs: held against its
+    plain version, timed beside its bound (the per-shape gaps of PERF.md's
     ranking); B4 and B3 also with a strip sweep.  ``by_path``: its launches
     on each driven path."""
     import torch
@@ -849,46 +888,47 @@ def shape_check(key, by_path, kernel, fwd_cps, dev, rng, name, power) -> None:
     Bx_, By_ = P if gram else (P, P)
     row = {"timing_by_shape": kname, "problems": list(P) if gram else P, "Lx": Lx_,
            "Ly": Ly_, "d": d_, "T": list(T_) if isinstance(T_, tuple) else T_,
-           "launches": by_path}
+           "launches": by_path, "lam": lam}
+    cells = Lx_ * Ly_ << 2 * lam          # refined grid cells a problem
     if fused:
         a_ = torch.from_numpy(np.diff(random_paths(rng, Bx_, Lx_ + 1, d_), axis=1)).to(dev)
         b_ = torch.from_numpy(np.diff(random_paths(rng, By_, Ly_ + 1, d_), axis=1)).to(dev)
         a_, b_ = a_.contiguous(), b_.contiguous()
-        run = lambda: launchers_fused[kname](a_, b_, T_, 0, 0, "order1", "float32")
+        run = lambda: launchers_fused[kname](a_, b_, T_, lam, lam, "order1", "float32")
         plain_fn = {"fwd_fused": kernel.solve_fused_plain,
                     "gram_fused": kernel.gram_fused_plain}[kname]
-        plain = lambda: plain_fn(a_, b_, 0, 0, "order1", "float32")
+        plain = lambda: plain_fn(a_, b_, lam, lam, "order1", "float32")
         n_prob = Bx_ * By_ if gram else P
         nbytes = (a_.numel() + b_.numel() + n_prob) * 4
-        nflops = n_prob * (2 * d_ + CELL_FLOPS) * Lx_ * Ly_
+        nflops = n_prob * (2 * d_ * Lx_ * Ly_ + CELL_FLOPS * cells)
         row["strip_sweep_ms"] = {
-            Ts: round(time_ms(lambda: launchers_fused[kname](a_, b_, Ts, 0, 0, "order1",
+            Ts: round(time_ms(lambda: launchers_fused[kname](a_, b_, Ts, lam, lam, "order1",
                                                              "float32"), 3), 4)
             for Ts in (32, 64, 128, 256, 512) if Ts <= kernel.FUSED_MAX_THREADS
-            and kernel.smem_bytes("order1", Ts, Ly_, 0, 0, d_) <= kernel.SMEM_LIMIT}
+            and kernel.smem_bytes("order1", Ts, Ly_, lam, lam, d_) <= kernel.SMEM_LIMIT}
     else:
         dl_ = delta_matrix(torch.from_numpy(random_paths(rng, P, Lx_ + 1, 8)).to(dev),
                            torch.from_numpy(random_paths(rng, P, Ly_ + 1, 8)).to(dev))
         dl_ = dl_.contiguous()
         if kname == "fwd":  # T_: the geometry it launched at
-            run = lambda: kernel.fwd(dl_, kernel.FwdGeometry(*T_), 0, 0, "order1",
+            run = lambda: kernel.fwd(dl_, kernel.FwdGeometry(*T_), lam, lam, "order1",
                                      "float32")
-            plain = lambda: kernel.solve_plain(dl_, 0, 0, "order1", "float32")
+            plain = lambda: kernel.solve_plain(dl_, lam, lam, "order1", "float32")
             extra, cell = 0, CELL_FLOPS
         else:
-            cps_ = fwd_cps(dl_, T_)[1]
+            cps_ = fwd_cps(dl_, T_, lam, lam)[1]
             g_ = torch.ones(P, device=dev)
             run, plain = {
-                "fwd_cps": (lambda: fwd_cps(dl_, T_),
-                            lambda: kernel.solve_with_grid_plain(dl_, T_, 0, 0, "order1",
+                "fwd_cps": (lambda: fwd_cps(dl_, T_, lam, lam),
+                            lambda: kernel.solve_with_grid_plain(dl_, T_, lam, lam, "order1",
                                                                  "float32")),
-                "bwd": (lambda: kernel.bwd(dl_, cps_, g_, T_, 0, 0, "order1", "float32"),
-                        lambda: kernel.solve_grad_plain(dl_, cps_, g_, T_, 0, 0, "order1",
+                "bwd": (lambda: kernel.bwd(dl_, cps_, g_, T_, lam, lam, "order1", "float32"),
+                        lambda: kernel.solve_grad_plain(dl_, cps_, g_, T_, lam, lam, "order1",
                                                         "float32"))}[kname]
             extra = cps_.numel() + (dl_.numel() if kname == "bwd" else 0)
             cell = BWD_CELL_FLOPS if kname == "bwd" else CELL_FLOPS
         nbytes = (dl_.numel() + extra + P) * 4
-        nflops = P * Lx_ * Ly_ * cell
+        nflops = P * cells * cell
     plain_ms = time_ms(plain, 2)
     flat = lambda out: (torch.cat([v.reshape(-1) for v in out])  # fwd_cps: (k, cps)
                         if isinstance(out, tuple) else out)
@@ -896,7 +936,7 @@ def shape_check(key, by_path, kernel, fwd_cps, dev, rng, name, power) -> None:
     torch.cuda.synchronize()
     err = rel_err(got, want)
     check(err <= RTOL["float32"],
-          f"{kname} at {(P, Lx_, Ly_, d_)} T={T_}: rel err {err:.3g}")
+          f"{kname} at {(P, Lx_, Ly_, d_)} T={T_} lam={lam}: rel err {err:.3g}")
     row.update(plain_ms=plain_ms, max_abs_err=float((got - want).abs().max()),
                rel_err=err)
     del got, want
@@ -1263,6 +1303,151 @@ def sharded_phase(name, power) -> dict:
         for kname in SHARDED_PATH:
             check(outs[0]["launches"][kname] > 0, f"sharded, {world} ranks: never launched {kname}")
     return shapes
+
+
+def load_gan_example():
+    """examples/train_sigkernel_gan_torch.py as a module: phase 12 drives its
+    generator, training loss, schedule and evaluation set."""
+    import importlib.util
+    path = os.path.join(ROOT, "examples", "train_sigkernel_gan_torch.py")
+    spec = importlib.util.spec_from_file_location("train_sigkernel_gan_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def train_phase(dev, reset_all, kernel, name, power) -> list:
+    """Phase 12: the generator trainer at the example's full width, the
+    dense LM at deepseek-7b's width with its signature-kernel auxiliary loss,
+    and the reduced generator's step on the card against the CPU.  Returns
+    [(Goursat launch key, {run: launches}, lam)] for the generator's
+    (lam = its dyadic refinement) and the LM's (lam = 0) launches."""
+    import copy
+    import torch
+    from repro_torch.core import losses
+    from repro_torch.data import TokenLM
+    from repro_torch.models import build_model, get_config
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.train import make_train_step
+    ex = load_gan_example()
+    torch.cuda.empty_cache()
+    reset_all()
+    t_phase = time.time()
+
+    # (a) the generator trainer, as the example's main loop runs it
+    B, L, d, lam = GAN["batch"], GAN["length"], GAN["dim"], GAN["dyadic"]
+    spec = ex.kernel_spec(lam)
+    gen = ex.build_generator(ex.generator_config(True), d, ex.NOISE_DIM, device=dev)
+    n_gen = sum(p.numel() for p in gen.parameters())
+    opt = AdamW(gen.parameters(), lr=cosine_schedule(GAN["lr"], GAN["warmup"], GAN["steps"]),
+                weight_decay=0.0)
+    eval_noise, eval_real = ex.eval_set(L, d, dev)
+
+    def eval_mmd():
+        with torch.no_grad():
+            return float(losses.mmd2(gen(eval_noise), eval_real, **spec))
+
+    eval_first = eval_mmd()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen_losses, gen_ms, gnorms = [], [], []
+    for step in range(GAN["steps"]):
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = ex.train_loss(gen, step, B, L, d, lam)
+        loss.backward()
+        gnorms.append(float(opt.step()["grad_norm"]))
+        gen_losses.append(float(loss.detach()))
+        torch.cuda.synchronize()
+        gen_ms.append((time.perf_counter() - t0) * 1e3)
+    gen_peak = torch.cuda.max_memory_allocated()
+    eval_last = eval_mmd()
+    shapes_gen = kernel.launch_shapes()
+    del gen, opt, eval_noise, eval_real
+    torch.cuda.empty_cache()
+
+    # (b) the dense LM at deepseek-7b's width, 2 layers, sig_loss on
+    cfg = get_config("deepseek-7b").replace(n_layers=LM["layers"], sig_loss=True,
+                                            sig_loss_dim=LM["sig_dim"])
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, seed=0, device=dev)
+    n_lm = sum(p.numel() for p in model.parameters())
+    train_step = make_train_step(model, AdamW(model.parameters(), lr=cosine_schedule(1e-3, 2, 50)),
+                                 num_microbatches=LM["microbatches"])
+    batch = TokenLM(vocab=cfg.vocab, seq=LM["seq"], batch=LM["batch"],
+                    sig_target_dim=cfg.sig_loss_dim, device=dev).batch_at(0)
+    lm_steps = []
+    for _ in range(LM["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        met = train_step(batch)
+        torch.cuda.synchronize()
+        lm_steps.append({**{k: float(v) for k, v in met.items()},
+                         "ms": (time.perf_counter() - t0) * 1e3})
+    lm_peak = torch.cuda.max_memory_allocated()
+    del model, train_step, batch
+    torch.cuda.empty_cache()
+    counts = kernel.launch_counts()
+    shapes = kernel.launch_shapes()
+    shapes_lm = {k: n - shapes_gen.get(k, 0) for k, n in shapes.items()
+                 if n > shapes_gen.get(k, 0)}
+
+    # (c) the reduced generator: one step's loss and gradients, card against CPU
+    Bs, Ls, ds = GAN_SMALL
+    gen_cpu = ex.build_generator(ex.generator_config(False), ds, ex.NOISE_DIM, seed=1,
+                                 device="cpu")
+    gen_card = copy.deepcopy(gen_cpu).to(dev)
+    g = torch.Generator().manual_seed(3)
+    noise = torch.randn((Bs, Ls, ex.NOISE_DIM), generator=g)
+    real = torch.cumsum(torch.randn((Bs, Ls, ds), generator=g) * 0.1, dim=1)
+
+    def loss_and_grads(m, dev_):
+        v = losses.mmd2(m(noise.to(dev_)), real.to(dev_), **spec)
+        return v, torch.autograd.grad(v, list(m.parameters()))
+
+    v_card, g_card = loss_and_grads(gen_card, dev)
+    v_cpu, g_cpu = loss_and_grads(gen_cpu, "cpu")
+    card_vs_cpu = {"loss": rel_err(v_card.detach().cpu(), v_cpu.detach()),
+                   "grads": max(rel_err(a.cpu(), b) for a, b in zip(g_card, g_cpu))}
+
+    timed = gen_ms[-GAN["timed"]:]
+    gen_row = {"params": n_gen, "batch": B, "length": L, "dim": d, "dyadic": lam,
+               "time_aug": True, "steps": GAN["steps"], "ms_per_step": gen_ms,
+               "ms_per_step_median_last": float(np.median(timed)),
+               "paths_per_s": B / (float(np.median(timed)) / 1e3),
+               "peak_memory_bytes": gen_peak, "train_mmd2": gen_losses, "grad_norm": gnorms,
+               "eval_mmd2_first_last": [eval_first, eval_last]}
+    lm_ms = float(np.median([r["ms"] for r in lm_steps[1:]]))
+    lm_row = {"config": cfg.name, "params": n_lm, "d_model": cfg.d_model,
+              "n_heads": cfg.n_heads, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+              "compute_dtype": cfg.compute_dtype,
+              "reduced": "n_layers 30 -> 2 (float32 Adam state for 7B parameters does not "
+                         "fit one card)",
+              "seq": LM["seq"], "batch": LM["batch"], "microbatches": LM["microbatches"],
+              "steps": lm_steps, "ms_per_step_median_after_first": lm_ms,
+              "tokens_per_s": LM["batch"] * LM["seq"] / (lm_ms / 1e3),
+              "peak_memory_bytes": lm_peak}
+    emit({"train_path": {"generator": gen_row, "lm": lm_row, "card_vs_cpu_rel": card_vs_cpu},
+          "launches": counts, "launches_by_shape": shape_rows(shapes),
+          "seconds": round(time.time() - t_phase, 3), "card": name, "power_limit": power})
+
+    check(all(np.isfinite(gen_losses + [eval_first, eval_last])),
+          f"generator: non-finite losses {gen_losses} / eval {eval_first}, {eval_last}")
+    check(eval_last < eval_first,
+          f"generator: eval MMD² did not fall ({eval_first} -> {eval_last})")
+    lm_losses = [r["loss"] for r in lm_steps]
+    check(all(np.isfinite(lm_losses + [r["sig"] for r in lm_steps])),
+          f"LM: non-finite loss or sig {lm_steps}")
+    check(lm_losses[-1] < lm_losses[0], f"LM: the loss did not fall {lm_losses}")
+    for what, err in card_vs_cpu.items():
+        check(err <= TRAIN_CARD_CPU_REL,
+              f"reduced generator {what}: card against CPU rel err {err:.3g}")
+    for kname in TRAIN_PATH:
+        check(counts[kname] > 0, f"train path never launched {kname}")
+    check(counts["fwd_fused"] + counts["gram_fused"] > 0,
+          "train path launched neither fused kernel")
+    return ([(k, {"train_generator": n}, lam) for k, n in sorted(shapes_gen.items(), key=str)]
+            + [(k, {"train_lm": n}, 0) for k, n in sorted(shapes_lm.items(), key=str)])
 
 
 if __name__ == "__main__":

@@ -23,7 +23,7 @@ server built on it.
 from .api import LogSignature, SigKernel, Signature
 from .core.features import FeatureConfig
 from .stream import Path, RollingConfig
-from .core import (GridConfig, LaunchConfig, Linear, RBF, TransformPipeline,
+from .core import (GridConfig, LaunchConfig, Linear, RBF, StaticKernel, TransformPipeline,
                    bucket_length, configs_from_reference, logsignature,
                    logsignature_combine, logsignature_dim, mmd2, pad_ragged,
                    scoring_rule, sigkernel, sigkernel_gram, sigkernel_gram_reduce,
@@ -33,7 +33,8 @@ __version__ = "0.1.0"
 
 __all__ = [
     "FeatureConfig", "GridConfig", "LaunchConfig", "Linear", "LogSignature", "Path",
-    "RBF", "RollingConfig", "SigKernel", "Signature", "TransformPipeline", "bucket_length",
+    "RBF", "RollingConfig", "SigKernel", "Signature", "StaticKernel", "TransformPipeline",
+    "bucket_length",
     "configs_from_reference",
     "logsignature", "logsignature_combine", "logsignature_dim", "mmd2",
     "pad_ragged", "scoring_rule", "sigkernel", "sigkernel_gram",

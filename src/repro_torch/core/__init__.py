@@ -11,15 +11,19 @@ from .logsignature import logsignature, logsignature_combine, logsignature_dim
 from .losses import mmd2, scoring_rule, sig_aux_loss
 from .sigkernel import (delta_matrix, sigkernel, solve_goursat,
                         solve_goursat_antidiag, solve_goursat_grad)
-from .signature import signature, signature_combine, signature_direct
-from .transforms import bucket_length, pad_ragged
+from .signature import (path_increments, signature, signature_combine, signature_direct,
+                        transformed_dim)
+from .transforms import (basepoint, bucket_length, lead_lag, pad_ragged, time_augment,
+                         transform_increments, transform_path)
 
 __all__ = [
     "FeatureConfig", "GridConfig", "LaunchConfig", "Linear", "RBF", "StaticKernel",
-    "TransformPipeline", "bucket_length", "configs_from_reference", "count_combines",
-    "count_pair_solves", "count_scan_steps", "delta_from_gram", "delta_matrix", "logsignature",
-    "logsignature_combine", "logsignature_dim", "mmd2", "pad_ragged",
-    "scoring_rule", "sig_aux_loss", "sigkernel", "sigkernel_gram", "sigkernel_gram_reduce",
-    "sigkernel_gram_sharded", "signature", "signature_combine", "signature_direct", "solve_goursat",
-    "solve_goursat_antidiag", "solve_goursat_grad",
+    "TransformPipeline", "basepoint", "bucket_length", "configs_from_reference",
+    "count_combines", "count_pair_solves", "count_scan_steps", "delta_from_gram",
+    "delta_matrix", "lead_lag", "logsignature", "logsignature_combine", "logsignature_dim",
+    "mmd2", "pad_ragged", "path_increments", "scoring_rule", "sig_aux_loss", "sigkernel",
+    "sigkernel_gram", "sigkernel_gram_reduce", "sigkernel_gram_sharded", "signature",
+    "signature_combine", "signature_direct", "solve_goursat", "solve_goursat_antidiag",
+    "solve_goursat_grad", "time_augment", "transform_increments", "transform_path",
+    "transformed_dim",
 ]

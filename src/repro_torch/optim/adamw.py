@@ -1,0 +1,77 @@
+"""AdamW with a global-norm clip, a configurable moment dtype and a cosine
+schedule.
+
+Counterpart of ``repro/optim/adamw.py``, written as a
+``torch.optim.Optimizer``.  It keeps the JAX optimizer's semantics, which
+``torch.optim.AdamW`` does not share: every gradient is scaled by
+``min(1, clip_norm / ‖g‖)`` over all parameters before any update; the step
+count starts at 1 and the schedule is called with it; the bias corrections
+divide the moments; weight decay is added to the step before the ``lr``
+multiply, and only on parameters with ``ndim >= 2`` (none on norms and
+scalars); the moments are stored in ``moment_dtype`` (bf16 for the largest
+models) and the update is computed in float32.  A parameter without a
+gradient is updated as with a zero gradient, as the JAX tree update does.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict
+
+import torch
+
+
+class AdamW(torch.optim.Optimizer):
+    """``lr``: a schedule, step count (from 1) -> learning rate."""
+
+    def __init__(self, params, lr: Callable[[int], float], b1: float = 0.9,
+                 b2: float = 0.95, eps: float = 1e-8, weight_decay: float = 0.1,
+                 clip_norm: float = 1.0, moment_dtype: str = "float32"):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps,
+                                      weight_decay=weight_decay))
+        self.clip_norm = clip_norm
+        self.moment_dtype = getattr(torch, moment_dtype)
+        self.state["count"] = 0
+
+    @torch.no_grad()
+    def step(self) -> Dict[str, torch.Tensor]:
+        """One update of every parameter.  Returns ``{"grad_norm": ‖g‖}``
+        (before the clip)."""
+        params = [p for group in self.param_groups for p in group["params"]]
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+        # global-norm clip (float32 accumulate)
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+        scale = torch.clamp_max(self.clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
+        count = self.state["count"] = self.state["count"] + 1
+        grad_of = {id(p): g for p, g in zip(params, grads)}
+        for group in self.param_groups:
+            b1, b2, eps, wd = group["b1"], group["b2"], group["eps"], group["weight_decay"]
+            lr = group["lr"](count)
+            b1c, b2c = 1.0 - b1 ** count, 1.0 - b2 ** count
+            for p in group["params"]:
+                state = self.state[p]
+                if not state:
+                    state["m"] = torch.zeros(p.shape, dtype=self.moment_dtype, device=p.device)
+                    state["v"] = torch.zeros(p.shape, dtype=self.moment_dtype, device=p.device)
+                g = grad_of[id(p)].float() * scale
+                m_new = b1 * state["m"].float() + (1 - b1) * g
+                v_new = b2 * state["v"].float() + (1 - b2) * g * g
+                upd = (m_new / b1c) / (torch.sqrt(v_new / b2c) + eps)
+                if p.ndim >= 2:  # no decay on norms / scalars
+                    upd = upd + wd * p.float()
+                p.copy_(p.float() - lr * upd)
+                state["m"].copy_(m_new)
+                state["v"].copy_(v_new)
+        return {"grad_norm": gnorm}
+
+
+def cosine_schedule(peak: float, warmup: int, total: int,
+                    floor: float = 0.1) -> Callable[[int], float]:
+    """Linear warm-up to ``peak`` over ``warmup`` steps, then a cosine decay
+    to ``floor · peak`` at ``total``."""
+    def lr(step: int) -> float:
+        if step < warmup:
+            return peak * step / max(warmup, 1)
+        frac = min(max((step - warmup) / max(total - warmup, 1), 0.0), 1.0)
+        return peak * (floor + (1 - floor) * 0.5 * (1 + math.cos(math.pi * frac)))
+    return lr

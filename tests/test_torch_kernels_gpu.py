@@ -13,7 +13,8 @@ CUDA tensors, and hold them to the same calls on CPU tensors within the
 float32 gates: 5e-5 for values, 2e-5 for gradients.
 The sharded Gram runs on 1, 2 and 4 NCCL ranks, one a card
 (``repro_torch.launch.spawn_ranks``), against the dense Gram on the card:
-values 1e-6, gradients 1e-5 relative.
+values 1e-6, gradients 1e-5 relative.  The example's reduced generator and
+the reduced LM's train step run on the card against the same on the CPU.
 
 Tolerances, relative to the largest plain value: float32 1e-4, bf16
 interiors 2e-2.  (The kernels round each operation as the plain versions do
@@ -598,3 +599,76 @@ def test_nccl_refuses_more_ranks_than_cards(cuda):
     with pytest.raises(ValueError, match="more ranks than cards"):
         spawn_ranks(ranks.nccl_rank, torch.cuda.device_count() + 1, (NCCL_CASES,),
                     backend="nccl")
+
+
+def _gan_example():
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(__file__), "..", "examples",
+                        "train_sigkernel_gan_torch.py")
+    spec = importlib.util.spec_from_file_location("train_sigkernel_gan_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dyadic", [0, 1])
+def test_generator_on_the_card_matches_cpu(cuda, dyadic):
+    """The example's reduced generator under its loss (time-aug, (λ, λ) =
+    (dyadic, dyadic)): the MMD² and every parameter gradient on the card
+    against the CPU's, one set of weights (1e-4 relative)."""
+    import copy
+    ex = _gan_example()
+    gen = ex.build_generator(ex.generator_config(False), 3, ex.NOISE_DIM, device="cpu")
+    gen_card = copy.deepcopy(gen).to(cuda)
+    g = torch.Generator().manual_seed(0)
+    noise = torch.randn((6, 20, ex.NOISE_DIM), generator=g)
+    real = torch.cumsum(torch.randn((6, 20, 3), generator=g) * 0.1, dim=1)
+    out = []
+    for m, dev in ((gen_card, cuda), (gen, torch.device("cpu"))):
+        v = rt.mmd2(m(noise.to(dev)), real.to(dev), **ex.kernel_spec(dyadic))
+        out.append((v, torch.autograd.grad(v, list(m.parameters()))))
+    (v_card, g_card), (v_cpu, g_cpu) = out
+    _close(v_card.detach().cpu(), v_cpu.detach(), 1e-4)
+    for a, b in zip(g_card, g_cpu):
+        _close(a.cpu(), b, 1e-4)
+
+
+@pytest.mark.gpu
+def test_lm_train_step_on_the_card_matches_cpu(cuda):
+    """One step of the reduced deepseek-7b LM with its signature-kernel
+    auxiliary loss (float32 compute, two microbatches), one set of weights
+    and one batch: the metrics (5e-5) and the averaged gradients the step
+    hands the optimizer (2e-4 norm-relative) on the card against the CPU."""
+    import copy
+    from repro_torch.data import TokenLM
+    from repro_torch.models import build_model, get_config
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.train import make_train_step
+    cfg = get_config("deepseek-7b").reduced().replace(sig_loss=True)
+    model = build_model(cfg, device="cpu")
+    model_card = copy.deepcopy(model).to(cuda)
+    batch = TokenLM(vocab=cfg.vocab, seq=16, batch=4, sig_target_dim=4,
+                    device="cpu").batch_at(0)
+    mets = []
+    for m, dev in ((model_card, cuda), (model, torch.device("cpu"))):
+        step = make_train_step(m, AdamW(m.parameters(), lr=cosine_schedule(1e-3, 2, 50)),
+                               num_microbatches=2)
+        mets.append(step({k: v.to(dev) for k, v in batch.items()}))
+    for k, want in mets[1].items():     # "aux" is 0 on both
+        assert abs(float(mets[0][k]) - float(want)) <= 5e-5 * abs(float(want)), k
+    for (name, p), q in zip(model.named_parameters(), model_card.parameters()):
+        err = float((q.grad.cpu() - p.grad).norm() / p.grad.norm().clamp_min(1e-30))
+        assert err <= 2e-4, f"{name}: {err:.3g}"
+
+
+@pytest.mark.gpu
+def test_token_stream_on_the_card(cuda):
+    """TokenLM draws on the card by default: one (seed, step), one batch."""
+    from repro_torch.data import TokenLM
+    d = TokenLM(vocab=102400, seq=64, batch=4, sig_target_dim=4)
+    a, b = d.batch_at(3), d.batch_at(3)
+    assert a["tokens"].is_cuda and a["sig_target"].is_cuda
+    assert torch.equal(a["tokens"], b["tokens"]) and torch.equal(a["labels"], b["labels"])
+    assert 0 <= int(a["tokens"].min()) and int(a["tokens"].max()) < 102400

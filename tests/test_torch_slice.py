@@ -192,11 +192,17 @@ def test_sigkernel_module_matches_jax(name):
 # ---------------------------------------------------------------------------
 
 def test_port_imports_no_jax():
-    # every module of the port (the signature modules included) and the script
-    prog = ("import importlib, pkgutil, sys, repro_torch, chip_smoke; "
+    # every module of the port (the signature modules and the model, data,
+    # optimizer and train subpackages included), the script and the port's
+    # example trainer
+    prog = ("import importlib, importlib.util, pkgutil, sys, repro_torch, chip_smoke; "
             "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "
             "'repro_torch.')]; [importlib.import_module(n) for n in names]; "
             "assert 'repro_torch.kernels.signature.ref' in names, names; "
+            "assert 'repro_torch.train.step' in names, names; "
+            "spec = importlib.util.spec_from_file_location('gan', "
+            "'examples/train_sigkernel_gan_torch.py'); "
+            "spec.loader.exec_module(importlib.util.module_from_spec(spec)); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
     done = subprocess.run([sys.executable, "-c", prog], capture_output=True, text=True,
