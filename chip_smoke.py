@@ -109,9 +109,21 @@ Phases (any failure exits non-zero; nothing runs without CUDA):
    and each unrefined one no earlier path launched, goes through
    ``shape_check``.
 
-Phases 8-12 run after phase 7's timing and before the ``kernels`` line;
+13. ``bench_path``: ``repro_torch.bench.suite.run_suite("smoke", repeats=1)``
+   in-process on the card (the paper's tables at smoke sizes through every
+   backend, ``gpu`` and ``gpu_fused`` included, the smoke checks, the
+   sharded Gram's NCCL check); the document must be schema 1 with a
+   fingerprint naming the card and its power limit, unique names, the
+   ``gpu`` / ``gpu_fused`` Gram and smoke entries, no skipped check and a
+   green self-compare; B1, B1-cps, B2, B3 and B4 must launch.  (The
+   ``--full`` run is ``python -m repro_torch.bench --full``, not part of
+   the smoke.)
+
+Phases 8-13 run after phase 7's timing and before the ``kernels`` line;
 each sets the launch counts to 0 just before it and reads them just after
-(phase 11 in each rank).  The script takes no arguments.
+(phase 11 in each rank).  Phase 4 also times the host build of the
+``"brackets"`` basis change at d = 16, N = 4.  The script takes no
+arguments.
 """
 
 from __future__ import annotations
@@ -481,6 +493,14 @@ def main() -> int:
         "time_aug+basepoint, N=6": (rt.TransformPipeline(time_aug=True, basepoint=True), 6),
         "time_aug+lead_lag, N=6": (rt.TransformPipeline(time_aug=True, lead_lag=True), 6),
     }
+    # the brackets basis change at the largest cell, built on the host (an
+    # inverse a block of same-letter Lyndon words), timed apart from the path
+    from repro_torch.core import lyndon
+    t_tab = time.time()
+    M_tab = lyndon._basis_change(16, 4)[0]
+    emit({"brackets_table": {"d": 16, "depth": 4, "n": M_tab.shape[0],
+                             "host_seconds": round(time.time() - t_tab, 3)},
+          "card": name, "power_limit": power})
     reset_all()
     t_path = time.time()
     ssteps = []
@@ -509,9 +529,7 @@ def main() -> int:
         sigs[(d_, N_)] = sstep(f"signature(x, {N_}) {at}", lambda: rt.signature(xs_, N_))
         S_mod = sstep(f"Signature({N_})(x) {at}", lambda: rt.Signature(N_)(xs_))
         check(torch.equal(S_mod, sigs[(d_, N_)]), f"Signature({N_}) disagrees with signature")
-        # the brackets basis is a dense numpy inverse of logsig_dim² (the JAX
-        # package's table): 17,816² at d = 16, N = 4 costs minutes of host time
-        for mode in (("lyndon", "brackets", "expand") if d_ < 16 else ("lyndon", "expand")):
+        for mode in ("lyndon", "brackets", "expand"):
             sstep(f"logsignature(x, {N_}, mode={mode!r}) {at}",
                   lambda: rt.logsignature(xs_, N_, mode=mode))
         sstep(f"LogSignature({N_})(x) {at}", lambda: rt.LogSignature(N_)(xs_))
@@ -857,6 +875,8 @@ def main() -> int:
     for key, by_run, lam in train_phase(dev, reset_all, kernel, name, power):
         if lam or (key not in path_shapes and key not in shapes_feat and key not in shapes_sh):
             shape_check(key, by_run, kernel, fwd_cps, dev, rng, name, power, lam=lam)
+
+    bench_phase(reset_all, kernel, name, power)
 
     emit({"kernels": rows})
     return finish(card)
@@ -1448,6 +1468,47 @@ def train_phase(dev, reset_all, kernel, name, power) -> list:
           "train path launched neither fused kernel")
     return ([(k, {"train_generator": n}, lam) for k, n in sorted(shapes_gen.items(), key=str)]
             + [(k, {"train_lm": n}, 0) for k, n in sorted(shapes_lm.items(), key=str)])
+
+
+def bench_phase(reset_all, kernel, name, power) -> None:
+    """Phase 13: the bench suite's smoke mode in-process on the card, the
+    launch counts set to 0 just before it and read just after."""
+    import torch
+    from repro_torch.bench import compare, suite
+    torch.cuda.empty_cache()
+    t_phase = time.time()
+    reset_all()
+    doc = suite.run_suite("smoke", repeats=1, device="cuda")
+    torch.cuda.synchronize()
+    counts = kernel.launch_counts()
+    seconds = time.time() - t_phase
+    entries = doc["entries"]
+    names = [e["name"] for e in entries]
+    fp = doc["fingerprint"]
+    regressions, _ = compare.compare_docs(doc, doc)
+    skipped = [e["name"] for e in entries
+               if e["kind"] == "check" and e["derived"].startswith("skipped")]
+    emit({"bench_path": {"mode": doc["mode"], "entries": len(entries),
+                         "timed": sum(e["kind"] == "time" for e in entries),
+                         "checks": sum(e["kind"] == "check" for e in entries),
+                         "skipped": skipped, "fingerprint": fp,
+                         "suite_wall_seconds": round(doc["wall_seconds"], 3)},
+          "launches": counts, "seconds": round(seconds, 3), "card": name,
+          "power_limit": power})
+    check(doc["schema"] == suite.SCHEMA, f"bench: schema {doc['schema']}")
+    check(fp["platform"] == "cuda" and fp["device_kind"] == name
+          and fp["power_limit"] == power,
+          f"bench: fingerprint {fp} does not name the card {name}, {power}")
+    check(len(names) == len(set(names)), "bench: duplicate entry names")
+    for b in ("gpu", "gpu_fused"):
+        check(f"smoke_gram_{b}" in names, f"bench: no smoke_gram_{b}")
+    for want in ("dense_gpu", "dense_gpu_fused", "symmetric_gpu_fused"):
+        check(any(n.startswith("table2_gram_") and n.endswith("_" + want) for n in names),
+              f"bench: no Gram entry *_{want}")
+    check(not skipped, f"bench: checks skipped {skipped}")
+    check(regressions == [], f"bench: self-compare {regressions}")
+    for kname in ("fwd", "fwd_cps", "bwd", "gram_fused", "fwd_fused"):
+        check(counts[kname] > 0, f"bench path never launched {kname}")
 
 
 if __name__ == "__main__":

@@ -164,17 +164,38 @@ def _basis_change(d: int, depth: int) -> Tuple[np.ndarray, np.ndarray]:
     read straight off the bracket expansions, so the (n_lyndon, sig_dim)
     matrix E is never built for it.  With (length, lex) ordering M is
     block-diagonal by length and lower-unitriangular within each block,
-    hence exactly invertible.
+    hence exactly invertible.  A bracket's expansion only rearranges the
+    letters of its word, so M is block-diagonal by the words' letter
+    multisets too (finer blocks of at most a few dozen words): M^{-1} is
+    one unit-triangular solve a block, with the blocks of one size solved
+    together, never a dense inverse of the (n_lyndon, n_lyndon) matrix.
+    The entries of M are integers, and so are the solves' results.
     """
     words = lyndon_words(d, depth)
     pos = {w: i for i, w in enumerate(words)}
     M = np.zeros((len(words), len(words)), dtype=np.float64)
+    blocks: Dict[Word, List[int]] = {}
     for j, w in enumerate(words):
+        content = tuple(sorted(w))
+        blocks.setdefault(content, []).append(j)
         for tw, c in _expand_bracket(standard_bracketing(w)).items():
             if tw in pos:
+                assert tuple(sorted(tw)) == content
                 M[pos[tw], j] = c
-    assert np.allclose(np.diag(M), 1.0) and np.allclose(np.triu(M, 1), 0.0)
-    return M, np.linalg.inv(M)
+    by_size: Dict[int, List[List[int]]] = {}
+    for idx in blocks.values():
+        by_size.setdefault(len(idx), []).append(idx)
+    Minv = np.zeros_like(M)
+    for size, groups in by_size.items():
+        idx = np.asarray(groups)                       # (G, size), rows increasing
+        rows, cols = idx[:, :, None], idx[:, None, :]
+        sub = M[rows, cols]                            # (G, size, size)
+        assert np.all(np.diagonal(sub, axis1=1, axis2=2) == 1.0)
+        assert not np.triu(sub, 1).any()
+        eye = torch.eye(size, dtype=torch.float64).expand(len(groups), size, size)
+        Minv[rows, cols] = torch.linalg.solve_triangular(
+            torch.from_numpy(sub), eye, upper=False, unitriangular=True).numpy()
+    return M, Minv
 
 
 @functools.lru_cache(maxsize=None)

@@ -25,6 +25,8 @@ Every route is differentiable with the exact one-pass backward (Alg 4):
 ``antidiag`` backend's backward is the vectorised reverse wavefront
 (``kernel.solve_grad_plain``), and the CUDA routes run the checkpoint mode
 of the forward kernel and the backward kernel (``ops.py``).
+:func:`solve_goursat_grad_pde_approx` is the O(h) continuous adjoint that
+§3.4 criticises, kept as the baseline of the gradient-accuracy benchmark.
 """
 
 from __future__ import annotations
@@ -324,6 +326,34 @@ def solve_goursat_grad(delta: torch.Tensor, grid: torch.Tensor, gbar: torch.Tens
     out = _backward_rows(flat, grid.reshape(flat.shape[0], *grid.shape[-2:]),
                          gbar.reshape(-1), lam1, lam2, scheme)
     return out.reshape(*batch_shape, Lx, Ly)
+
+
+# ---------------------------------------------------------------------------
+# the PDE-approximation backward of [30] (baseline for the accuracy benchmark)
+# ---------------------------------------------------------------------------
+
+def solve_goursat_grad_pde_approx(delta: torch.Tensor, grid: torch.Tensor,
+                                  gbar: torch.Tensor, lam1: int = 0,
+                                  lam2: int = 0) -> torch.Tensor:
+    """Approximate ∂F/∂Δ via the continuous adjoint (second Goursat PDE).
+
+    The continuum adjoint g(s,t) solves the same PDE from the far corner, i.e.
+    g = k̂ of the time-reversed pair.  Discretely this is only O(h)-accurate —
+    exactly the inexactness pySigLib §3.4 criticises in existing libraries.
+    Plain PyTorch over :func:`solve_goursat`'s grid (order 1):
+    (..., Lx, Ly), (..., nx+1, ny+1), (...,) -> (..., Lx, Ly).
+    """
+    batch_shape = delta.shape[:-2]
+    Lx, Ly = delta.shape[-2:]
+    g_grid = solve_goursat(delta.flip((-2, -1)), lam1, lam2,
+                           return_grid=True).flip((-2, -1))
+    P = _refine(delta, lam1, lam2)                     # (..., nx, ny)
+    contrib = g_grid[..., 1:, 1:] * gbar[..., None, None].to(delta.dtype) * (
+        (grid[..., 1:, :-1] + grid[..., :-1, 1:]) * stencil.coeff_dA(P)
+        - grid[..., :-1, :-1] * stencil.coeff_dB1(P))
+    # fold refined cells back onto the unrefined ones
+    contrib = contrib.reshape(*batch_shape, Lx, 1 << lam1, Ly, 1 << lam2).sum((-3, -1))
+    return contrib * 2.0 ** (-(lam1 + lam2))
 
 
 # ---------------------------------------------------------------------------
