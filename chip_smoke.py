@@ -115,15 +115,39 @@ Phases (any failure exits non-zero; nothing runs without CUDA):
    sharded Gram's NCCL check); the document must be schema 1 with a
    fingerprint naming the card and its power limit, unique names, the
    ``gpu`` / ``gpu_fused`` Gram and smoke entries, no skipped check and a
-   green self-compare; B1, B1-cps, B2, B3 and B4 must launch.  (The
-   ``--full`` run is ``python -m repro_torch.bench --full``, not part of
-   the smoke.)
+   green self-compare; B1, B1-cps, B2, B3 and B4 must launch.  The smoke
+   mode includes the autotune round trip and both frontiers at their smoke
+   cells.  (The ``--full`` run is ``python -m repro_torch.bench --full``,
+   not part of the smoke.)
 
-Phases 8-13 run after phase 7's timing and before the ``kernels`` line;
+14. ``autotune_path``: the autotune cache (``repro_torch.bench.autotune``)
+   on a fresh temporary file.  ``tune`` the Gram at the JAX bench's full
+   frontier cell (32, 32, 128, 128, 8), ``sigkernel`` at a refined
+   (128, 128, 8) and ``signature`` at Table 1's (1024, 16, 4), each over
+   ``reference``, ``antidiag``, ``gpu`` and ``gpu_fused`` where they serve
+   the op, printing each backend's ms and the winner; ``backend="auto"``
+   must resolve to the stored winner and equal it bit for bit.  Then
+   ``tune_frontier`` (RFF / Nyström at ranks 8, 32, 128) and
+   ``tune_scheme_frontier`` (order 1 / 2 × coarsening 0 / 1 × f32 / bf16
+   interiors) at the Table 2 Gram, key (128, 128, 256, 256, 8), linear
+   lift; then ``sigkernel_gram`` and ``mmd2`` (and its gradient) with
+   ``error_budget=`` 0.05 and 0.5 on Table 2 data, printing what each
+   resolved to, its ms and its error against the exact Gram: each value
+   bit for bit the explicit call its point names (``features=`` or a
+   subsampled ``GridConfig(scheme=, interior_dtype=)``, or the plain call
+   when nothing qualifies), the gradient too (to 1e-6 where a coarsened
+   point subsamples: float32 summation order).  B5 at the tuning batch
+   against its plain version exactly; every Goursat launch shape the phase
+   adds, or ran at another stencil or interior dtype, through
+   ``shape_check`` at each (scheme, interior dtype) it ran at.
+
+Phases 8-14 run after phase 7's timing and before the ``kernels`` line;
 each sets the launch counts to 0 just before it and reads them just after
 (phase 11 in each rank).  Phase 4 also times the host build of the
-``"brackets"`` basis change at d = 16, N = 4.  The script takes no
-arguments.
+``"brackets"`` basis change at d = 16, N = 4.  Every phase reads, and
+phases 13 and 14 write, an autotune cache under a temporary directory the
+script makes and removes (``REPRO_AUTOTUNE_CACHE``; phase 14 a fresh file),
+never the home directory's.  The script takes no arguments.
 """
 
 from __future__ import annotations
@@ -132,6 +156,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -215,6 +240,22 @@ SHARDED_PATH = ("fwd", "fwd_cps", "bwd", "fwd_fused", "gram_fused")
 # microbatches, 5 steps on one batch, as tests/test_models.py:96-101 runs the
 # JAX LM; the reduced generator's loss and gradients on the card against the
 # CPU's on (8, 32, 8)
+# phase 14: the autotune cache on a fresh temporary file.  Tuning: the Gram
+# at the JAX bench's full frontier cell (src/repro/bench/workloads.py:672-677;
+# at the Table 2 Gram the row scan would take about a minute a call), a
+# refined sigkernel key, and Table 1's largest signature cell (:110-114).
+# The frontiers and the budgeted calls: the Table 2 Gram (:145-152), key
+# (128, 128, 256, 256, 8) for paths of 256 points, linear lift
+TUNE_SHAPES = (("gram", (32, 32, 128, 128, 8)), ("sigkernel", (128, 128, 8)),
+               ("signature", (1024, 16, 4)))
+BUDGET_GRAM = (128, 256, 8)
+BUDGETS = (0.05, 0.5)
+#: the budgeted mmd2 gradient against its explicit call's where a coarsened
+#: point subsamples the paths (float32 summation order); 0 otherwise
+GRAD_SLICE_REL = 1e-6
+#: phases 13 and 14 write their caches under CACHE_DIR, a temporary
+#: directory the script's ``__main__`` makes and removes
+AUTOTUNE_ENV = "REPRO_AUTOTUNE_CACHE"
 GAN = dict(batch=64, length=256, dim=8, dyadic=1, steps=30, timed=10, lr=1e-5, warmup=20)
 LM = dict(layers=2, seq=512, batch=4, microbatches=2, steps=5, sig_dim=4)
 GAN_SMALL = (8, 32, 8)
@@ -336,6 +377,10 @@ def main() -> int:
               file=sys.stderr)
         return 1
     dev = torch.device("cuda")
+    # every phase reads, and phases 13 and 14 write, an autotune cache of the
+    # script's own, never the home directory's
+    os.environ[AUTOTUNE_ENV] = os.path.join(CACHE_DIR, "bench.json")
+    os.environ.pop("REPRO_DISABLE_AUTOTUNE", None)
 
     def reset_all():
         """Every kernel's launch count to 0, just before a driven path."""
@@ -872,11 +917,20 @@ def main() -> int:
             shape_check(key, by_world, kernel, fwd_cps, dev, rng, name, power)
     # the trainers' shapes: every refined one, and the unrefined ones no path
     # above launched
+    trained = set()
     for key, by_run, lam in train_phase(dev, reset_all, kernel, name, power):
         if lam or (key not in path_shapes and key not in shapes_feat and key not in shapes_sh):
             shape_check(key, by_run, kernel, fwd_cps, dev, rng, name, power, lam=lam)
+        if not lam:
+            trained.add(key)
 
     bench_phase(reset_all, kernel, name, power)
+    seen = set(path_shapes) | set(shapes_feat) | set(shapes_sh) | trained
+    for key, by_run, variants in autotune_phase(rt, dev, rng, reset_all, kernel, sig_kernel,
+                                                sig_ops, name, power):
+        if key not in seen or set(variants) != {("order1", "float32")}:
+            shape_check(key, by_run, kernel, fwd_cps, dev, rng, name, power,
+                        variants=sorted(variants))
 
     emit({"kernels": rows})
     return finish(card)
@@ -892,13 +946,21 @@ def finish(card) -> int:
     return 0
 
 
-def shape_check(key, by_path, kernel, fwd_cps, dev, rng, name, power, lam=0) -> None:
+def shape_check(key, by_path, kernel, fwd_cps, dev, rng, name, power, lam=0,
+                variants=(("order1", "float32"),)) -> None:
     """One Goursat kernel at one shape it launched at (key as in
-    kernel.launch_shapes(); order 1, float32 interiors, the refinement
-    (lam, lam) it launched at), on fresh random inputs: held against its
-    plain version, timed beside its bound (the per-shape gaps of PERF.md's
-    ranking); B4 and B3 also with a strip sweep.  ``by_path``: its launches
-    on each driven path."""
+    kernel.launch_shapes(); the refinement (lam, lam) it launched at), on
+    fresh random inputs, for each (scheme, interior dtype) of ``variants``
+    (default order 1, float32 interiors): held against its plain version,
+    timed beside its bound (the per-shape gaps of PERF.md's ranking); B4
+    and B3 also with a strip sweep.  ``by_path``: its launches on each
+    driven path."""
+    for scheme, idt in variants:
+        _shape_check(key, by_path, kernel, fwd_cps, dev, rng, name, power, lam, scheme, idt)
+
+
+def _shape_check(key, by_path, kernel, fwd_cps, dev, rng, name, power, lam, scheme,
+                 idt) -> None:
     import torch
     from repro_torch.core.sigkernel import delta_matrix
     launchers_fused = {"fwd_fused": kernel.fwd_fused, "gram_fused": kernel.gram_fused}
@@ -908,43 +970,42 @@ def shape_check(key, by_path, kernel, fwd_cps, dev, rng, name, power, lam=0) -> 
     Bx_, By_ = P if gram else (P, P)
     row = {"timing_by_shape": kname, "problems": list(P) if gram else P, "Lx": Lx_,
            "Ly": Ly_, "d": d_, "T": list(T_) if isinstance(T_, tuple) else T_,
-           "launches": by_path, "lam": lam}
+           "launches": by_path, "lam": lam, "scheme": scheme, "interior_dtype": idt}
     cells = Lx_ * Ly_ << 2 * lam          # refined grid cells a problem
     if fused:
         a_ = torch.from_numpy(np.diff(random_paths(rng, Bx_, Lx_ + 1, d_), axis=1)).to(dev)
         b_ = torch.from_numpy(np.diff(random_paths(rng, By_, Ly_ + 1, d_), axis=1)).to(dev)
         a_, b_ = a_.contiguous(), b_.contiguous()
-        run = lambda: launchers_fused[kname](a_, b_, T_, lam, lam, "order1", "float32")
+        run = lambda: launchers_fused[kname](a_, b_, T_, lam, lam, scheme, idt)
         plain_fn = {"fwd_fused": kernel.solve_fused_plain,
                     "gram_fused": kernel.gram_fused_plain}[kname]
-        plain = lambda: plain_fn(a_, b_, lam, lam, "order1", "float32")
+        plain = lambda: plain_fn(a_, b_, lam, lam, scheme, idt)
         n_prob = Bx_ * By_ if gram else P
         nbytes = (a_.numel() + b_.numel() + n_prob) * 4
         nflops = n_prob * (2 * d_ * Lx_ * Ly_ + CELL_FLOPS * cells)
         row["strip_sweep_ms"] = {
-            Ts: round(time_ms(lambda: launchers_fused[kname](a_, b_, Ts, lam, lam, "order1",
-                                                             "float32"), 3), 4)
+            Ts: round(time_ms(lambda: launchers_fused[kname](a_, b_, Ts, lam, lam, scheme,
+                                                             idt), 3), 4)
             for Ts in (32, 64, 128, 256, 512) if Ts <= kernel.FUSED_MAX_THREADS
-            and kernel.smem_bytes("order1", Ts, Ly_, lam, lam, d_) <= kernel.SMEM_LIMIT}
+            and kernel.smem_bytes(scheme, Ts, Ly_, lam, lam, d_) <= kernel.SMEM_LIMIT}
     else:
         dl_ = delta_matrix(torch.from_numpy(random_paths(rng, P, Lx_ + 1, 8)).to(dev),
                            torch.from_numpy(random_paths(rng, P, Ly_ + 1, 8)).to(dev))
         dl_ = dl_.contiguous()
         if kname == "fwd":  # T_: the geometry it launched at
-            run = lambda: kernel.fwd(dl_, kernel.FwdGeometry(*T_), lam, lam, "order1",
-                                     "float32")
-            plain = lambda: kernel.solve_plain(dl_, lam, lam, "order1", "float32")
+            run = lambda: kernel.fwd(dl_, kernel.FwdGeometry(*T_), lam, lam, scheme, idt)
+            plain = lambda: kernel.solve_plain(dl_, lam, lam, scheme, idt)
             extra, cell = 0, CELL_FLOPS
         else:
-            cps_ = fwd_cps(dl_, T_, lam, lam)[1]
+            cps_ = fwd_cps(dl_, T_, lam, lam, scheme, idt)[1]
             g_ = torch.ones(P, device=dev)
             run, plain = {
-                "fwd_cps": (lambda: fwd_cps(dl_, T_, lam, lam),
-                            lambda: kernel.solve_with_grid_plain(dl_, T_, lam, lam, "order1",
-                                                                 "float32")),
-                "bwd": (lambda: kernel.bwd(dl_, cps_, g_, T_, lam, lam, "order1", "float32"),
-                        lambda: kernel.solve_grad_plain(dl_, cps_, g_, T_, lam, lam, "order1",
-                                                        "float32"))}[kname]
+                "fwd_cps": (lambda: fwd_cps(dl_, T_, lam, lam, scheme, idt),
+                            lambda: kernel.solve_with_grid_plain(dl_, T_, lam, lam, scheme,
+                                                                 idt)),
+                "bwd": (lambda: kernel.bwd(dl_, cps_, g_, T_, lam, lam, scheme, idt),
+                        lambda: kernel.solve_grad_plain(dl_, cps_, g_, T_, lam, lam, scheme,
+                                                        idt))}[kname]
             extra = cps_.numel() + (dl_.numel() if kname == "bwd" else 0)
             cell = BWD_CELL_FLOPS if kname == "bwd" else CELL_FLOPS
         nbytes = (dl_.numel() + extra + P) * 4
@@ -955,8 +1016,9 @@ def shape_check(key, by_path, kernel, fwd_cps, dev, rng, name, power, lam=0) -> 
     got, want = flat(run()), flat(plain())
     torch.cuda.synchronize()
     err = rel_err(got, want)
-    check(err <= RTOL["float32"],
-          f"{kname} at {(P, Lx_, Ly_, d_)} T={T_} lam={lam}: rel err {err:.3g}")
+    tol = RTOL["float32"] if kname == "bwd" else RTOL[idt]
+    check(err <= tol, f"{kname} {scheme} {idt} at {(P, Lx_, Ly_, d_)} T={T_} lam={lam}: "
+                      f"rel err {err:.3g} > {tol}")
     row.update(plain_ms=plain_ms, max_abs_err=float((got - want).abs().max()),
                rel_err=err)
     del got, want
@@ -1511,7 +1573,182 @@ def bench_phase(reset_all, kernel, name, power) -> None:
         check(counts[kname] > 0, f"bench path never launched {kname}")
 
 
+def autotune_phase(rt, dev, rng, reset_all, kernel, sig_kernel, sig_ops, name,
+                   power) -> list:
+    """Phase 14: the autotune cache on a fresh temporary file, the launch
+    counts set to 0 just before it and read just after.  Tunes the three
+    ops, checks that ``backend="auto"`` takes each stored winner, measures
+    both frontiers at the Table 2 Gram, and calls ``sigkernel_gram`` and
+    ``mmd2`` (and its gradient) with each of :data:`BUDGETS`, each bit for
+    bit the explicit call its resolved point names, with its error against
+    the exact Gram.  B5 at the tuning batch is held exactly to its plain
+    version here.  Returns ``(launch key, {"autotune": launches}, {(scheme,
+    interior dtype)})`` for the Goursat kernels."""
+    import torch
+    from repro_torch.bench import autotune, timer
+    from repro_torch.core import dispatch
+    from repro_torch.core import transforms as tf
+    os.environ[AUTOTUNE_ENV] = os.path.join(CACHE_DIR, "autotune.json")
+    autotune.invalidate_memo()
+    check(autotune.enabled() and not os.path.exists(os.environ[AUTOTUNE_ENV]),
+          "autotune: the phase's cache is not fresh")
+    torch.cuda.empty_cache()
+    variants = {}
+
+    def track(ran_at, fn):
+        """Run fn; every Goursat launch shape it adds ran at (some of) the
+        (scheme, interior dtype) pairs of ``ran_at``."""
+        before = kernel.launch_shapes()
+        out = fn()
+        torch.cuda.synchronize()
+        for k, n in kernel.launch_shapes().items():
+            if n > before.get(k, 0):
+                variants.setdefault(k, set()).update(ran_at)
+        return out
+
+    base = {("order1", "float32")}
+    reset_all()
+    t_phase = time.time()
+
+    # -- tuning, then "auto" against the stored winner at each key
+    tuned = []
+    for op, shape in TUNE_SHAPES:
+        t0 = time.time()
+        winner = track(base, lambda: autotune.tune(op, shape, device=dev, force=True))
+        entry = autotune.cache_entry(op, shape, device=dev)
+        check(entry is not None and entry["backend"] == winner
+              and entry["machine"] == timer.machine_key(dev), f"autotune {op}: entry {entry}")
+        key = autotune.key_shape(op, shape)
+        if op == "gram":
+            Bx, By, nx, ny, d = key
+            a = torch.from_numpy(random_paths(rng, Bx, nx + 1, d)).to(dev)
+            b = torch.from_numpy(random_paths(rng, By, ny + 1, d)).to(dev)
+            call = lambda be: rt.sigkernel_gram(a, b, backend=be, symmetric=False)
+        elif op == "sigkernel":
+            nx, ny, d = key
+            a = torch.from_numpy(random_paths(rng, 8, nx + 1, d)).to(dev)
+            b = torch.from_numpy(random_paths(rng, 8, ny + 1, d)).to(dev)
+            call = lambda be: rt.sigkernel(a, b, backend=be)
+        else:
+            L, d, N = key
+            a = torch.from_numpy(random_paths(rng, 8, L + 1, d)).to(dev)
+            call = lambda be: rt.signature(a, N, backend=be)
+        resolved = dispatch.resolve("auto", op=op, device=dev, shape=key,
+                                    dtype=torch.float32, grid_cells=1)
+        check(resolved == winner, f"autotune {op}: auto resolves to {resolved}, "
+                                  f"the cache holds {winner}")
+        auto_out = track(base, lambda: call("auto"))
+        check(torch.equal(auto_out, track(base, lambda: call(winner))),
+              f"autotune {op}: backend='auto' differs from backend={winner!r}")
+        tuned.append({"op": op, "key": list(key), "winner": winner,
+                      "ms": {b_: round(t_ * 1e3, 4) for b_, t_ in entry["timings"].items()},
+                      "seconds": round(time.time() - t0, 3)})
+    # B5 at the tuning batch (the signature candidate "gpu"), exactly
+    L, d, N = autotune.key_shape("signature", TUNE_SHAPES[2][1])
+    z = tf.pipeline_increments(torch.from_numpy(random_paths(rng, 8, L + 1, d)).to(dev),
+                               rt.TransformPipeline()).contiguous()
+    got = sig_kernel.horner(z, N, *sig_ops.geometry(8, L, d, N))
+    check(torch.equal(got, sig_kernel.horner_plain(z, N)),
+          f"horner at (8, {L + 1}, {d}, {N}) differs from plain")
+
+    # -- both frontiers at the Table 2 Gram
+    B, Lp, d = BUDGET_GRAM
+    fkey = autotune.key_shape("gram", (B, B, Lp - 1, Lp - 1, d))
+    t0 = time.time()
+    front = track(base, lambda: autotune.tune_frontier("gram", fkey, device=dev,
+                                                       force=True))
+    front_s = time.time() - t0
+    t0 = time.time()
+    # the exact baseline runs order 1 / float32, each point its own stencil:
+    # every shape it launched is checked at all four
+    every = {(s_, i_) for s_ in ("order1", "order2") for i_ in ("float32", "bfloat16")}
+    sfront = track(every, lambda: autotune.tune_scheme_frontier("gram", fkey, device=dev,
+                                                                force=True))
+    sfront_s = time.time() - t0
+    for e in (front, sfront):
+        check(e["machine"] == timer.machine_key(dev), f"frontier stamp {e['machine']}")
+        for p in e.get("frontier", []) + e.get("scheme_frontier", []):
+            check(np.isfinite(p["rel_err"]) and p["seconds"] > 0, f"frontier point {p}")
+    check(len(sfront["scheme_frontier"]) == len(autotune.scheme_points(fkey)),
+          "scheme frontier: a point is missing")
+
+    # -- the budgeted calls on Table 2 data, each against its explicit call
+    X = torch.from_numpy(random_paths(rng, B, Lp, d)).to(dev)
+    Y = torch.from_numpy(random_paths(rng, B, Lp, d)).to(dev)
+    K_exact = rt.sigkernel_gram(X, Y)
+    m_exact = rt.mmd2(X, Y, streaming=True)
+    budgets = []
+    for budget in BUDGETS:
+        approx = dispatch.resolve_approx("gram", fkey, torch.float32, device=dev,
+                                         error_budget=budget)
+        point = None if approx else dispatch.resolve_scheme(
+            "gram", fkey, torch.float32, device=dev, error_budget=budget)
+        kw, step, variant = {}, 1, base
+        if approx:
+            kw = {"features": rt.FeatureConfig(approx[0], rank=approx[1])}
+        elif point:
+            step, variant = 1 << point[1], {(point[0], point[2])}
+            kw = {"grid": rt.GridConfig(scheme=point[0], interior_dtype=point[2])}
+        track(variant, lambda: rt.sigkernel_gram(X, Y, error_budget=budget))   # warm
+        K, ms = track(variant, lambda: synced_ms(
+            lambda: rt.sigkernel_gram(X, Y, error_budget=budget)))
+        K_explicit = track(variant, lambda: rt.sigkernel_gram(X[:, ::step], Y[:, ::step],
+                                                              **kw))
+        m = track(variant, lambda: rt.mmd2(X, Y, error_budget=budget))
+        m_explicit = track(variant, lambda: rt.mmd2(X[:, ::step], Y[:, ::step],
+                                                    streaming=True, **kw))
+        g = track(variant, lambda: grads(lambda a, b: rt.mmd2(a, b, error_budget=budget),
+                                         X, Y))
+        g_explicit = track(variant, lambda: grads(
+            lambda a, b: rt.mmd2(a[:, ::step], b[:, ::step], streaming=True, **kw), X, Y))
+        what = f"error_budget={budget} -> {approx or point or 'exact'}"
+        check(bool(torch.isfinite(K).all()) and bool(torch.isfinite(m)),
+              f"{what}: non-finite")
+        check(torch.equal(K, K_explicit), f"{what}: the Gram differs from its explicit call")
+        check(torch.equal(m, m_explicit), f"{what}: mmd2 differs from its explicit call")
+        # a coarsened point slices the paths in each of mmd2's three terms, the
+        # explicit call once: the terms' gradients then meet at the full-size
+        # leaf instead of at the slice, so float32 sums group differently
+        g_err = max(rel_err(u, v) for u, v in zip(g, g_explicit))
+        g_tol = 0.0 if step == 1 else GRAD_SLICE_REL
+        check(g_err <= g_tol, f"{what}: the mmd2 gradient is {g_err:.3g} from its explicit "
+                              f"call's (> {g_tol})")
+        budgets.append({
+            "budget": budget, "features": list(approx) if approx else None,
+            "scheme_point": list(point) if point else None, "gram_ms": ms,
+            "gram_rel_fro_err": float(torch.linalg.norm(K - K_exact)
+                                      / torch.linalg.norm(K_exact)),
+            "mmd2": float(m), "mmd2_exact": float(m_exact),
+            "mmd2_rel_err": abs(float(m) - float(m_exact)) / abs(float(m_exact)),
+            "values_bit_for_bit_vs_explicit": True, "grad_rel_err_vs_explicit": g_err})
+    counts = kernel.launch_counts()
+    shapes = kernel.launch_shapes()
+    seconds = time.time() - t_phase
+    for kname in ("fwd", "fwd_fused", "gram_fused"):
+        check(counts[kname] > 0, f"autotune path never launched {kname}")
+    check(sig_kernel.launch_counts()["horner"] > 0, "autotune path never launched horner")
+    ms_of = lambda e, f: [{**{k: v for k, v in p.items() if k != "seconds"},
+                           "ms": round(p["seconds"] * 1e3, 4)} for p in e[f]]
+    emit({"autotune_path": {
+        "tuned": tuned,
+        "frontier": {"key": list(fkey), "exact_backend": front["exact_backend"],
+                     "exact_ms": round(front["exact_seconds"] * 1e3, 4),
+                     "points": ms_of(front, "frontier"), "seconds": round(front_s, 3)},
+        "scheme_frontier": {"key": list(fkey), "exact_backend": sfront["exact_backend"],
+                            "exact_ms": round(sfront["exact_seconds"] * 1e3, 4),
+                            "points": ms_of(sfront, "scheme_frontier"),
+                            "seconds": round(sfront_s, 3)},
+        "budgets": budgets},
+        "launches": {**counts, **sig_kernel.launch_counts()},
+        "launches_by_shape": shape_rows(shapes), "seconds": round(seconds, 3),
+        "card": name, "power_limit": power})
+    os.environ[AUTOTUNE_ENV] = os.path.join(CACHE_DIR, "bench.json")
+    return [(k, {"autotune": n}, variants.get(k, base))
+            for k, n in sorted(shapes.items(), key=str)]
+
+
 if __name__ == "__main__":
     if sys.argv[1:]:
         sys.exit(f"chip_smoke: takes no arguments, got {sys.argv[1:]}")
-    sys.exit(main())
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_autotune_") as CACHE_DIR:
+        sys.exit(main())

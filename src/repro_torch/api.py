@@ -88,11 +88,13 @@ class SigKernel(_OnDevice):
     """Signature kernel with a swappable static-kernel lift.
 
     ``SigKernel(static_kernel=Linear()|RBF(...), transforms=..., grid=...,
-    backend="auto", features=None, device=None)`` exposes ``forward(x, y)`` (k for batched
-    path pairs), ``gram(X, Y=None)``, ``mmd2(X, Y)`` and
-    ``scoring_rule(X, y)``.  ``features=`` (a :class:`FeatureConfig`)
-    switches ``gram``, ``mmd2`` and ``scoring_rule`` to the approximate
-    feature map it names; ``forward`` stays exact.
+    backend="auto", features=None, error_budget=None, device=None)`` exposes
+    ``forward(x, y)`` (k for batched path pairs), ``gram(X, Y=None)``,
+    ``mmd2(X, Y)`` and ``scoring_rule(X, y)``.  ``features=`` (a
+    :class:`FeatureConfig`) switches ``gram``, ``mmd2`` and ``scoring_rule``
+    to the approximate feature map it names; ``error_budget=`` instead lets
+    ``backend="auto"`` take a cheaper engine the autotune cache measured
+    within the budget.  ``forward`` stays exact.
 
     ``device=None`` means ``"cuda"`` and raises if CUDA is missing; pass
     ``device="cpu"`` to run the plain solvers on the CPU.  All are
@@ -102,16 +104,21 @@ class SigKernel(_OnDevice):
     """
 
     def __init__(self, static_kernel=None, transforms=None, grid=None,
-                 backend: str = "auto", features=None, device=None):
+                 backend: str = "auto", features=None, error_budget=None,
+                 device=None):
         super().__init__(device)
         self.transforms, self.grid, self.static_kernel = resolve_kernel_configs(
             transforms, grid, static_kernel)
         self.backend = backend
         self.features = resolve_features(features)
+        self.error_budget = error_budget
 
     def _kw(self):
         return dict(transforms=self.transforms, grid=self.grid,
                     static_kernel=self.static_kernel, backend=self.backend)
+
+    def _gram_kw(self):
+        return dict(self._kw(), features=self.features, error_budget=self.error_budget)
 
     def forward(self, x, y, *, lengths_x=None, lengths_y=None) -> torch.Tensor:
         return _sigkernel(self._on(x), self._on(y), lengths_x=lengths_x,
@@ -122,8 +129,7 @@ class SigKernel(_OnDevice):
              lengths_y=None) -> torch.Tensor:
         return _gram.sigkernel_gram(self._on(X), self._on(Y), row_block=row_block,
                                     symmetric=symmetric, lengths=lengths,
-                                    lengths_y=lengths_y, features=self.features,
-                                    **self._kw())
+                                    lengths_y=lengths_y, **self._gram_kw())
 
     def mmd2(self, X, Y, *, unbiased: bool = True, row_block: Optional[int] = None,
              streaming: Optional[bool] = None, lengths=None,
@@ -131,12 +137,11 @@ class SigKernel(_OnDevice):
         return _losses.mmd2(self._on(X), self._on(Y), unbiased=unbiased,
                             row_block=row_block, streaming=streaming,
                             lengths=lengths, lengths_y=lengths_y,
-                            features=self.features, **self._kw())
+                            **self._gram_kw())
 
     def scoring_rule(self, X, y, *, row_block: Optional[int] = None,
                      streaming: Optional[bool] = None, lengths=None,
                      length_y=None) -> torch.Tensor:
         return _losses.scoring_rule(self._on(X), self._on(y), row_block=row_block,
                                     streaming=streaming, lengths=lengths,
-                                    length_y=length_y, features=self.features,
-                                    **self._kw())
+                                    length_y=length_y, **self._gram_kw())

@@ -1,8 +1,14 @@
 """The benchmark suite of the PyTorch port.
 
-Counterpart of ``repro.bench`` without its autotune cache: the paper's
-speed claims as a recorded, gated document.
+Counterpart of ``repro.bench``: the paper's speed claims as a recorded,
+gated document, and the autotune cache that ``backend="auto"`` and
+``error_budget=`` read.
 
+``autotune``
+    Measured backend winners and the two error-budget frontiers (RFF /
+    Nyström rank, stencil × grid × interior precision), persisted in a JSON
+    cache keyed by (op, device type, dtype, shape bucket) and stamped with
+    the machine; :mod:`repro_torch.core.dispatch` reads it, never measuring.
 ``timer``
     Steady-state timing (warm-up calls, then the minimum wall time over
     repeats, every call fenced by ``torch.cuda.synchronize()`` on the card
@@ -16,8 +22,8 @@ speed claims as a recorded, gated document.
 ``workloads``
     The paper-aligned workload cells (signature Table 1, sig-kernel Table 2
     + Gram rows, log-signature Table 3, Figs 1-2, §3.4 gradient accuracy,
-    the streaming ``Path``) at smoke / quick / full sizes, plus the smoke
-    checks.
+    the streaming ``Path``, the two frontiers) at smoke / quick / full
+    sizes, plus the smoke checks and the autotune round trip.
 ``suite``
     Runs a set of workloads and emits a schema-versioned BENCH JSON and a
     markdown summary.  CLI: ``python -m repro_torch.bench [--smoke|--full]``.
@@ -29,7 +35,7 @@ speed claims as a recorded, gated document.
 
 import importlib
 
-__all__ = ["compare", "roofline", "suite", "timer", "workloads"]
+__all__ = ["autotune", "compare", "roofline", "suite", "timer", "workloads"]
 
 
 def __getattr__(name):

@@ -6,9 +6,12 @@
 
 Runs the paper-aligned workloads (signature Table 1, sig-kernel + Gram
 Table 2, log-signature Table 3, Figs 1-2, §3.4 gradient accuracy, the
-streaming Path; ``--smoke`` adds the all-backend agreement checks) on the
+streaming Path, the RFF / Nyström and discretisation frontiers; ``--smoke``
+adds the all-backend agreement checks and the autotune round trip) on the
 card, or on the CPU with ``--device cpu``, writes the schema-versioned BENCH
 JSON (default ``BENCH_TORCH_<mode>.json``) and prints a markdown summary.
+The frontiers and the round trip write the autotune cache at
+``REPRO_AUTOTUNE_CACHE`` (default ``~/.cache/repro_torch/autotune.json``).
 Gate a run against another with ``python -m repro_torch.bench.compare``.
 """
 

@@ -85,7 +85,9 @@ def analytic_counts(name: str, meta: dict) -> Optional[Tuple[float, float]]:
       signature coordinates ~3× per path step;
     * sigkernel — one Δ matmul per pair (``2·L²·d``) + ~10 flops per
       refined PDE cell; bytes stream Δ three times (write + fwd + solve);
-    * gram / gram_reduce / gram_sharded — the sigkernel model × ``B²`` pairs.
+    * gram / gram_reduce / gram_sharded — the sigkernel model × ``B²`` pairs;
+    * autotune and frontier entries — the same models at the cache-key
+      shape in ``meta["shape"]``.
     """
     op = meta.get("op")
     if not isinstance(op, str):
@@ -95,7 +97,7 @@ def analytic_counts(name: str, meta: dict) -> Optional[Tuple[float, float]]:
     mult = 3.0 if ("bwd" in name or "grad" in name) else 1.0
     lam = int(meta.get("lam", 0))
     if "L" not in meta:
-        return None
+        return _key_shape_counts(op, meta.get("shape"), mult)
     try:
         if op in ("signature", "logsignature"):
             B, L, d = meta["B"], meta["L"], meta["d"]
@@ -113,6 +115,29 @@ def analytic_counts(name: str, meta: dict) -> Optional[Tuple[float, float]]:
             per_pair = 2.0 * L * L * d + _PDE_FLOPS_PER_CELL * n * n
             return pairs * per_pair * mult, 4.0 * (2 * B * L * d + pairs * 3 * L * L)
     except (KeyError, TypeError, ValueError):
+        return None
+    return None
+
+
+def _key_shape_counts(op: str, bshape, mult: float) -> Optional[Tuple[float, float]]:
+    """Counts of the autotune and frontier entries, which carry the per-op
+    cache-key shape instead of B/L/d: sigkernel (nx, ny, d) at the tuning
+    batch, gram (Bx, By, nx, ny, d); the grid dims are already refined."""
+    from .autotune import _TUNE_BATCH
+    if not isinstance(bshape, (list, tuple)):
+        return None
+    try:
+        if op == "sigkernel" and len(bshape) == 3:
+            nx, ny, d = bshape
+            per = 2.0 * nx * ny * d + _PDE_FLOPS_PER_CELL * nx * ny
+            return (_TUNE_BATCH * per * mult,
+                    4.0 * _TUNE_BATCH * (2 * nx * d + 3 * nx * ny))
+        if op == "gram" and len(bshape) == 5:
+            bx, by, nx, ny, d = bshape
+            per = 2.0 * nx * ny * d + _PDE_FLOPS_PER_CELL * nx * ny
+            return (float(bx) * by * per * mult,
+                    4.0 * ((bx + by) * nx * d + bx * by * 3 * nx * ny))
+    except (TypeError, ValueError):
         return None
     return None
 

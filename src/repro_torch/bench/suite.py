@@ -28,20 +28,22 @@ from . import roofline, timer, workloads
 
 SCHEMA = 1
 
-#: workloads per mode, in run order (smoke adds the correctness checks on
-#: top of scaled-down paper tables).  The JAX package's autotune_auto,
-#: approx_frontier and scheme_frontier need its autotune cache, which the
-#: port does not have.
+#: workloads per mode, in run order (smoke adds the correctness checks and
+#: the autotune round trip on top of scaled-down paper tables), at the JAX
+#: package's positions.  The autotune workloads write the cache at
+#: ``REPRO_AUTOTUNE_CACHE``.
 WORKLOAD_SETS: Dict[str, Tuple[Callable, ...]] = {
     "smoke": (workloads.calibration, workloads.smoke_checks,
-              workloads.table1_signatures,
+              workloads.autotune_auto, workloads.table1_signatures,
               workloads.table2_sigkernels, workloads.rbf_lift,
               workloads.ragged_gram, workloads.distributed_gram,
+              workloads.approx_frontier, workloads.scheme_frontier,
               workloads.path_update,
               workloads.table3_logsignatures, workloads.grad_accuracy),
     "quick": (workloads.calibration, workloads.table1_signatures,
               workloads.table2_sigkernels, workloads.rbf_lift,
               workloads.ragged_gram, workloads.distributed_gram,
+              workloads.approx_frontier, workloads.scheme_frontier,
               workloads.path_update,
               workloads.table3_logsignatures,
               workloads.fig1_truncation_sweep, workloads.fig2_length_sweep,
@@ -49,6 +51,7 @@ WORKLOAD_SETS: Dict[str, Tuple[Callable, ...]] = {
     "full": (workloads.calibration, workloads.table1_signatures,
              workloads.table2_sigkernels, workloads.rbf_lift,
              workloads.ragged_gram, workloads.distributed_gram,
+             workloads.approx_frontier, workloads.scheme_frontier,
              workloads.path_update,
              workloads.table3_logsignatures,
              workloads.fig1_truncation_sweep, workloads.fig2_length_sweep,

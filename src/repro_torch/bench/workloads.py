@@ -36,8 +36,13 @@ estimate depends on the name and meta only, so every run of a mode skips
 the same entries (:func:`plan` lists them): at ``full``, the row scan at
 L = 512 and 1024 and the autodiff at L = 512 and 1024.
 
-The JAX package's ``autotune_auto``, ``approx_frontier`` and
-``scheme_frontier`` need its autotune cache, which the port does not have.
+``autotune_auto``, ``approx_frontier`` and ``scheme_frontier`` write the
+autotune cache (:mod:`repro_torch.bench.autotune`) at
+``REPRO_AUTOTUNE_CACHE`` (default ``~/.cache/repro_torch/autotune.json``):
+a run that must not touch the home directory's cache points that variable
+at a file of its own.  Which frontier points run depends on the key shape
+alone (:func:`repro_torch.bench.autotune.scheme_points`), so :func:`plan`
+lists them too.
 """
 
 from __future__ import annotations
@@ -63,7 +68,7 @@ from repro_torch.core.sigkernel import (delta_matrix, sigkernel, solve_goursat,
 from repro_torch.core.tensoralg import sig_dim
 from repro_torch.stream import Path
 
-from . import timer
+from . import autotune, timer
 
 MODES = ("smoke", "quick", "full")
 
@@ -720,6 +725,163 @@ def smoke_checks(mode: str = "smoke", repeats: int = 1, *, device="cuda") -> Lis
 
 
 # ---------------------------------------------------------------------------
+# accuracy-vs-speed frontier — the approximate feature-map backends (rff /
+# nystroem) over rank, each point timed and held to the exact Gram, persisted
+# by autotune.tune_frontier so backend="auto" + error_budget= can take the
+# cheapest one that fits
+# ---------------------------------------------------------------------------
+
+#: (gram key shape, rank sweep) per mode, as autotune.key_shape documents it:
+#: (Bx, By, nx, ny, d)
+_FRONTIER_CELLS = {
+    "smoke": ((4, 4, 12, 12, 3), (8, 32)),
+    "quick": ((8, 8, 32, 32, 4), (8, 32, 128)),
+    "full": ((32, 32, 128, 128, 8), (32, 128, 512)),
+}
+
+
+def approx_frontier(mode: str = "smoke", repeats: int = 3, *,
+                    device="cuda") -> List[dict]:
+    """One timed and one accuracy entry a (method, rank); the timings are
+    ``gate=False`` (fixed overheads dominate at bench shapes), the errors
+    gated (the maps are deterministic given their seed).  The sweep persists
+    the frontier (``force=True``), arming
+    :func:`repro_torch.core.dispatch.resolve_approx` for this key."""
+    shape, ranks = _FRONTIER_CELLS[_check_mode(mode)]
+    entry = autotune.tune_frontier("gram", shape, device=device, ranks=ranks,
+                                   repeats=repeats, force=True)
+    meta = dict(op="gram", shape=list(autotune.key_shape("gram", shape)))
+    entries = [_t("approx_frontier_exact", entry["exact_seconds"],
+                  f"backend={entry['exact_backend']}", gate=False, **meta)]
+    for p in entry["frontier"]:
+        tag = f"approx_frontier_{p['backend']}_r{p['rank']}"
+        entries.append(_t(f"{tag}_time", p["seconds"],
+                          f"vs_exact={entry['exact_seconds'] / p['seconds']:.2f}x",
+                          gate=False, backend=p["backend"], rank=p["rank"], **meta))
+        entries.append(_acc(f"{tag}_rel_err", p["rel_err"], f"rel_err={p['rel_err']:.2e}",
+                            backend=p["backend"], rank=p["rank"], **meta))
+    # the budget's round trip on the fresh frontier; at small shapes no point
+    # may beat the exact engine, and None is then the right answer
+    found = autotune.lookup_budget("gram", shape, "float32", 0.5, device=device)
+    entries.append(_chk("approx_frontier_budget_lookup", f"budget=0.5->{found}",
+                        gate=False, **meta))
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# discretisation frontier — stencil order × grid coarseness × interior
+# precision of the EXACT engine, each point timed and held to the order-1
+# fine-grid f32 Gram, persisted by autotune.tune_scheme_frontier
+# ---------------------------------------------------------------------------
+
+#: gram key shape per mode, as autotune.key_shape documents it
+_SCHEME_CELLS = {
+    "smoke": (4, 4, 12, 12, 3),
+    "quick": (8, 8, 32, 32, 4),
+    "full": (16, 16, 128, 128, 8),
+}
+
+#: order 2 on the 2x-coarser grid must match the order-1 fine-grid Gram
+#: within this relative Frobenius error
+_SCHEME_COARSE_BUDGET = 0.05
+
+
+def _scheme_tag(sch: str, coarsen: int, idt: str) -> str:
+    return f"scheme_frontier_{sch}_c{coarsen}_{'bf16' if idt == 'bfloat16' else 'f32'}"
+
+
+def scheme_frontier(mode: str = "smoke", repeats: int = 3, *,
+                    device="cuda") -> List[dict]:
+    """One timed and one accuracy entry a discretisation (timings
+    ``gate=False``, errors gated), and the hard in-run assert that order 2
+    on the 2x-coarser grid stays within :data:`_SCHEME_COARSE_BUDGET` of
+    the order-1 fine grid.  The sweep persists the frontier, arming
+    :func:`repro_torch.core.dispatch.resolve_scheme` for this key."""
+    shape = _SCHEME_CELLS[_check_mode(mode)]
+    entry = autotune.tune_scheme_frontier("gram", shape, device=device, repeats=repeats,
+                                          force=True)
+    meta = dict(op="gram", shape=list(autotune.key_shape("gram", shape)))
+    entries = [_t("scheme_frontier_exact", entry["exact_seconds"],
+                  f"backend={entry['exact_backend']}", gate=False, **meta)]
+    coarse_o2 = None
+    for p in entry["scheme_frontier"]:
+        point = dict(scheme=p["scheme"], coarsen=p["coarsen"],
+                     interior_dtype=p["interior_dtype"])
+        tag = _scheme_tag(p["scheme"], p["coarsen"], p["interior_dtype"])
+        entries.append(_t(f"{tag}_time", p["seconds"],
+                          f"vs_exact={entry['exact_seconds'] / p['seconds']:.2f}x",
+                          gate=False, **point, **meta))
+        entries.append(_acc(f"{tag}_rel_err", p["rel_err"], f"rel_err={p['rel_err']:.2e}",
+                            **point, **meta))
+        if (p["scheme"], p["coarsen"], p["interior_dtype"]) == ("order2", 1, "float32"):
+            coarse_o2 = p
+    assert coarse_o2 is not None, "order2/coarsen=1/f32 point did not run"
+    assert coarse_o2["rel_err"] <= _SCHEME_COARSE_BUDGET, (
+        f"order-2 on the 2x-coarser grid misses the order-1 fine baseline by "
+        f"rel_err={coarse_o2['rel_err']:.2e} (budget {_SCHEME_COARSE_BUDGET})")
+    entries.append(_chk("scheme_frontier_order2_coarse_budget",
+                        f"rel_err={coarse_o2['rel_err']:.2e}<={_SCHEME_COARSE_BUDGET}",
+                        **meta))
+    found = autotune.lookup_scheme_budget("gram", shape, "float32", _SCHEME_COARSE_BUDGET,
+                                          device=device)
+    entries.append(_chk("scheme_frontier_budget_lookup",
+                        f"budget={_SCHEME_COARSE_BUDGET}->{found}", gate=False, **meta))
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# autotune round trip — tune the smoke shapes, then check that
+# backend="auto" on a warm cache is never slower than the worst fixed backend
+# ---------------------------------------------------------------------------
+
+#: per-op key shapes the smoke suite tunes (see autotune.key_shape)
+_AUTOTUNE_SMOKE_SHAPES = {
+    "sigkernel": (24, 24, 3),
+    "gram": (4, 4, 12, 12, 3),
+}
+
+
+def autotune_auto(mode: str = "smoke", repeats: int = 2, *, device="cuda") -> List[dict]:
+    del mode
+    if not autotune.enabled():
+        return [_chk("autotune_disabled", "REPRO_DISABLE_AUTOTUNE set; skipped", gate=False)]
+    entries = []
+    for op, shape in _AUTOTUNE_SMOKE_SHAPES.items():
+        winner = autotune.tune(op, shape, device=device, repeats=repeats, force=True)
+        times = autotune.cache_entry(op, shape, device=device)["timings"]
+        bshape = autotune.key_shape(op, shape)
+        for b, t in sorted(times.items()):
+            entries.append(_t(f"autotune_{op}_{b}", t, op=op, shape=list(bshape),
+                              backend=b))
+        if op == "gram":
+            Bx, By, nx, ny, d = bshape
+            Xa = _paths(7, Bx, nx + 1, d, 0.1, device)
+            Ya = _paths(8, By, ny + 1, d, 0.1, device)
+
+            def f(x, y):
+                return sigkernel_gram(x, y, backend="auto", symmetric=False)
+        else:
+            nx, ny, d = bshape
+            Xa = _paths(7, 8, nx + 1, d, 0.1, device)
+            Ya = _paths(8, 8, ny + 1, d, 0.1, device)
+
+            def f(x, y):
+                return sigkernel(x, y, backend="auto")
+        t_auto = timer.bench(f, Xa, Ya, repeats=repeats)
+        worst = max(times.values())
+        # warm-cache auto never loses to the worst fixed backend (2x + 5 ms
+        # of slack for timer noise)
+        assert t_auto <= worst * 2.0 + 5e-3, (
+            f"auto ({t_auto * 1e6:.1f}us) slower than worst fixed backend "
+            f"({worst * 1e6:.1f}us) for op={op} despite a warm cache")
+        entries.append(_t(f"autotune_{op}_auto", t_auto,
+                          f"winner={winner};worst_fixed={worst * 1e6:.1f}us",
+                          op=op, shape=list(bshape)))
+        entries.append(_chk(f"autotune_{op}_winner", f"winner={winner}", op=op))
+    return entries
+
+
+# ---------------------------------------------------------------------------
 # streaming Path engine — incremental append+query vs full recompute
 # ---------------------------------------------------------------------------
 
@@ -801,6 +963,37 @@ def plan(mode: str, device="cuda") -> List[Tuple[str, str, dict]]:
             out.append(("smoke_symmetric_pair_solves", "check", {}))
             out += [(f"smoke_sigkernel_{b}", "check", {"backend": b})
                     for b in _sigkernel_backends(device)]
+        elif n == "autotune_auto":
+            if not autotune.enabled():
+                out.append(("autotune_disabled", "check", {"gate": False}))
+                continue
+            for op, shape in _AUTOTUNE_SMOKE_SHAPES.items():
+                meta = dict(op=op, shape=list(autotune.key_shape(op, shape)))
+                out += [(f"autotune_{op}_{b}", "time", {"backend": b, **meta})
+                        for b in sorted(autotune.candidates(op, device))]
+                out.append((f"autotune_{op}_auto", "time", meta))
+                out.append((f"autotune_{op}_winner", "check", {"op": op}))
+        elif n == "approx_frontier":
+            shape, ranks = _FRONTIER_CELLS[mode]
+            meta = dict(op="gram", shape=list(autotune.key_shape("gram", shape)))
+            out.append(("approx_frontier_exact", "time", {"gate": False, **meta}))
+            for b in (m for m in dispatch.backends_for("gram") if dispatch.get(m).approximate):
+                for r in ranks:
+                    tag, pm = f"approx_frontier_{b}_r{r}", dict(backend=b, rank=r, **meta)
+                    out.append((f"{tag}_time", "time", {"gate": False, **pm}))
+                    out.append((f"{tag}_rel_err", "accuracy", pm))
+            out.append(("approx_frontier_budget_lookup", "check", {"gate": False, **meta}))
+        elif n == "scheme_frontier":
+            shape = _SCHEME_CELLS[mode]
+            meta = dict(op="gram", shape=list(autotune.key_shape("gram", shape)))
+            out.append(("scheme_frontier_exact", "time", {"gate": False, **meta}))
+            for sch, c, idt in autotune.scheme_points(shape):
+                tag = _scheme_tag(sch, c, idt)
+                pm = dict(scheme=sch, coarsen=c, interior_dtype=idt, **meta)
+                out.append((f"{tag}_time", "time", {"gate": False, **pm}))
+                out.append((f"{tag}_rel_err", "accuracy", pm))
+            out.append(("scheme_frontier_order2_coarse_budget", "check", meta))
+            out.append(("scheme_frontier_budget_lookup", "check", {"gate": False, **meta}))
         elif n == "table1_signatures":
             for (B, L, d, N) in _TABLE1_CELLS[mode]:
                 for s in ("fwd_direct", "fwd_horner", "bwd_autodiff", "bwd_timereversed"):

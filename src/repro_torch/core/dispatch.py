@@ -25,14 +25,21 @@ need).  Registered backends:
     ``"auto"`` never returns one.  The Gram entry points opt in with
     ``features=``.  Any device.
 ``"auto"``
-    CUDA tensors: ``"gpu"`` for ``signature``, ``logsignature`` and
-    ``sigkernel``; ``"gpu_fused"`` for Grams
-    with the linear lift, ``"gpu"`` for other lifts (the TPU rule of the
-    JAX package).  CPU tensors: ``"reference"`` for the signature ops; for
-    the kernel ops ``"antidiag"`` from ``_ANTIDIAG_MIN_CELLS`` refined
-    cells, ``"reference"`` below.
+    The measured winner from the autotune cache
+    (:mod:`repro_torch.bench.autotune`) when one exists for the (op,
+    device type, dtype, shape bucket) key and this machine; otherwise the
+    static rule.  CUDA tensors: ``"gpu"`` for ``signature``,
+    ``logsignature`` and ``sigkernel``; ``"gpu_fused"`` for Grams with the
+    linear lift, ``"gpu"`` for other lifts (the TPU rule of the JAX
+    package).  CPU tensors: ``"reference"`` for the signature ops; for the
+    kernel ops ``"antidiag"`` from ``_ANTIDIAG_MIN_CELLS`` refined cells,
+    ``"reference"`` below.
 
-There is no autotune cache, so ``error_budget=`` is not ported.
+``error_budget=`` on the Gram and loss entry points goes through
+:func:`resolve_approx` (a measured RFF / Nyström point) and
+:func:`resolve_scheme` (a measured cheaper discretisation of the exact
+engine); a cold cache, a foreign machine or no qualifying point gives the
+exact engine.
 
 The op counters (:class:`count_pair_solves`, :class:`count_scan_steps`,
 :class:`count_combines`) count on every call: the port has no trace cache,
@@ -43,11 +50,11 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Dict, FrozenSet, Tuple
+from typing import Dict, FrozenSet, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.sigkernel_pde.stencil import SCHEMES
+from repro_torch.kernels.sigkernel_pde.stencil import INTERIOR_DTYPES, SCHEMES
 
 #: ops a backend can serve
 OPS = ("signature", "logsignature", "sigkernel", "gram")
@@ -72,6 +79,8 @@ class BackendSpec:
     #: feature-map inner products, not the exact kernel: refused unless the
     #: caller opted in (``allow_approximate=True``)
     approximate: bool = False
+    #: builds Δ from the increments inside the kernel: the linear lift only
+    fused: bool = False
 
 
 _REGISTRY: Dict[str, BackendSpec] = {}
@@ -103,7 +112,7 @@ def backends_for(op: str) -> Tuple[str, ...]:
 register(BackendSpec("reference", frozenset(OPS), needs_cuda=False))
 register(BackendSpec("antidiag", frozenset(PDE_OPS), needs_cuda=False))
 register(BackendSpec("gpu", frozenset(OPS), needs_cuda=True))
-register(BackendSpec("gpu_fused", frozenset(PDE_OPS), needs_cuda=True))
+register(BackendSpec("gpu_fused", frozenset(PDE_OPS), needs_cuda=True, fused=True))
 # the feature maps implement the order-1 discretisation only
 register(BackendSpec("rff", frozenset({"gram"}), needs_cuda=False,
                      schemes=frozenset({"order1"}), approximate=True))
@@ -134,16 +143,55 @@ def canonicalize(backend: str, *, op: str) -> str:
     return backend
 
 
+def _autotuned(op: str, shape, dtype, device: torch.device,
+               ragged: bool = False) -> Optional[str]:
+    """Winning backend from the autotune cache, or None (-> the static rule).
+
+    None whenever the cache is cold, autotuning is disabled
+    (``REPRO_DISABLE_AUTOTUNE=1``), the file is unreadable, the entry was
+    tuned on another machine, the name no longer denotes a live backend
+    serving ``op``, or it names CUDA kernels for tensors off the card or an
+    approximation (the budgeted route is :func:`resolve_approx`).  A lookup
+    never measures: tuning happens only through
+    :func:`repro_torch.bench.autotune.tune`.
+    """
+    if shape is None:
+        return None
+    from repro_torch.bench import autotune
+    if not autotune.enabled():
+        return None
+    try:
+        name = autotune.lookup(op, shape, dtype or "float32", device=device,
+                               ragged=ragged)
+    except (ValueError, TypeError):
+        return None
+    spec = _REGISTRY.get(name)
+    if spec is None or op not in spec.ops:
+        return None   # stale entry: backend renamed or removed since tuning
+    if spec.needs_cuda and torch.device(device).type != "cuda":
+        return None   # never let an entry send CPU tensors to the kernels
+    if spec.approximate:
+        return None   # an exact request never gets an approximation
+    return name
+
+
 def resolve(backend: str, *, op: str, device: torch.device, grid_cells=None,
-            allow_fused: bool = True, allow_approximate: bool = False,
-            scheme: str = "order1") -> str:
+            shape=None, dtype=None, allow_fused: bool = True, ragged: bool = False,
+            allow_approximate: bool = False, scheme: str = "order1") -> str:
     """Resolve ``"auto"`` for tensors on ``device``; check a named backend
     against the device and the scheme.
 
+    With ``shape`` (the per-op key shape of
+    :func:`repro_torch.bench.autotune.key_shape`) ``"auto"`` first takes the
+    autotune cache's measured winner for this key (``ragged`` keeps
+    ``lengths=`` workloads apart), unless it is a fused backend where
+    ``allow_fused=False`` or lacks ``scheme``; otherwise the static rule.
+
     ``allow_approximate=False`` (the default) means the caller wants the
     exact kernel: a backend flagged ``approximate=True`` is refused even
-    when named.  The Gram entry points pass True once ``features=`` opted
-    in.  ``"auto"`` never returns an approximate backend."""
+    when named.  The Gram entry points pass True once ``features=`` or
+    ``error_budget=`` opted in.  ``"auto"`` never returns an approximate
+    backend (the budgeted route is :func:`resolve_approx`)."""
     device = torch.device(device)
     if backend != "auto":
         name = canonicalize(backend, op=op)
@@ -151,8 +199,8 @@ def resolve(backend: str, *, op: str, device: torch.device, grid_cells=None,
             raise ValueError(
                 f"backend {name!r} is flagged approximate=True (feature-map "
                 f"inner products, not the exact PDE kernel) and an exact "
-                f"result was requested; pass features=FeatureConfig(...) to "
-                f"opt in, or pick an exact backend: "
+                f"result was requested; pass features=FeatureConfig(...) or "
+                f"error_budget= to opt in, or pick an exact backend: "
                 f"{tuple(n for n in backends_for(op) if not get(n).approximate)}")
         if get(name).needs_cuda and device.type != "cuda":
             raise ValueError(
@@ -160,6 +208,10 @@ def resolve(backend: str, *, op: str, device: torch.device, grid_cells=None,
                 f"CUDA tensors, got tensors on {device}; move them to 'cuda' "
                 f"or pass backend='auto' (the CPU runs the plain versions)")
         return check_scheme(name, scheme, op=op)
+    tuned = _autotuned(op, shape, dtype, device, ragged)
+    if tuned is not None and (allow_fused or not get(tuned).fused) \
+            and scheme in get(tuned).schemes:
+        return tuned
     if device.type == "cuda":
         name = "gpu_fused" if op == "gram" and allow_fused else "gpu"
     elif grid_cells is not None and grid_cells >= _ANTIDIAG_MIN_CELLS:
@@ -167,6 +219,68 @@ def resolve(backend: str, *, op: str, device: torch.device, grid_cells=None,
     else:
         name = "reference"
     return check_scheme(name, scheme, op=op)
+
+
+def resolve_approx(op: str, shape=None, dtype=None, *, device: torch.device,
+                   error_budget, ragged: bool = False) -> Optional[Tuple[str, int]]:
+    """Cheapest approximate backend meeting ``error_budget``, or None.
+
+    The only road by which ``"auto"`` may land on an approximate backend:
+    the caller gave a relative-error budget, and the autotune cache holds a
+    measured frontier for this key
+    (:func:`repro_torch.bench.autotune.tune_frontier`) with a point that fits
+    it and beat the exact engine on this machine.  Returns ``(name, rank)``;
+    None under the same fail-open rule as :func:`_autotuned`.
+    """
+    if shape is None or error_budget is None:
+        return None
+    from repro_torch.bench import autotune
+    if not autotune.enabled():
+        return None
+    try:
+        found = autotune.lookup_budget(op, shape, dtype or "float32", error_budget,
+                                       device=device, ragged=ragged)
+    except (ValueError, TypeError):
+        return None
+    if found is None:
+        return None
+    name, rank = found
+    spec = _REGISTRY.get(name)
+    if spec is None or op not in spec.ops or not spec.approximate:
+        return None   # stale frontier entry
+    return name, int(rank)
+
+
+def resolve_scheme(op: str, shape=None, dtype=None, *, device: torch.device,
+                   error_budget, ragged: bool = False
+                   ) -> Optional[Tuple[str, int, str]]:
+    """Cheapest measured *discretisation* meeting ``error_budget``, or None.
+
+    The exact-engine sibling of :func:`resolve_approx`: the scheme frontier
+    (:func:`repro_torch.bench.autotune.tune_scheme_frontier`) holds measured
+    ``(scheme, coarsen, interior_dtype)`` points with their relative error
+    against the order-1 fine-grid f32 Gram.  Returns the cheapest one that
+    fits the budget and beat that baseline on this machine, or None under
+    the same fail-open rule.  The Gram engine consults it only from the
+    default ``GridConfig`` scheme and interior dtype.
+    """
+    if shape is None or error_budget is None:
+        return None
+    from repro_torch.bench import autotune
+    if not autotune.enabled():
+        return None
+    try:
+        found = autotune.lookup_scheme_budget(op, shape, dtype or "float32",
+                                              error_budget, device=device,
+                                              ragged=ragged)
+    except (ValueError, TypeError):
+        return None
+    if found is None:
+        return None
+    scheme, coarsen, idt = found
+    if scheme not in SCHEMES or idt not in INTERIOR_DTYPES:
+        return None   # stale frontier entry
+    return scheme, int(coarsen), idt
 
 
 # ---------------------------------------------------------------------------

@@ -19,8 +19,15 @@ Every variant is differentiable with the exact one-pass backward.
 switches every entry point to an approximate feature map (``"rff"`` /
 ``"nystroem"``): the Gram becomes ``phi(X) @ phi(Y).T`` and the reduction
 ``⟨Σ phi(X), Σ phi(Y)⟩``, O(B·rank) memory, differentiable by autograd.
-Without it the approximate backends are refused, even when named.
-``error_budget=`` is not ported yet (ROADMAP).
+Without it, or ``error_budget=``, the approximate backends are refused,
+even when named.  ``error_budget=`` (a relative-error budget) lets
+``backend="auto"`` take a cheaper engine that the autotune cache has
+*measured* within the budget on this machine: an RFF / Nyström point of
+:func:`repro_torch.bench.autotune.tune_frontier`, else (from the default
+``GridConfig``) a coarser grid, the order-2 stencil or bf16 interiors of
+:func:`~repro_torch.bench.autotune.tune_scheme_frontier`.  A cold cache, a
+foreign machine or no qualifying point gives the exact engine, bit for bit
+the call without the budget.
 
 :func:`sigkernel_gram_sharded` tiles the Gram over the ranks of a
 ``torch.distributed`` DeviceMesh (NCCL on the card, gloo on the CPU).
@@ -140,13 +147,18 @@ def _mirror(k: torch.Tensor, a_np, b_np, Bx: int) -> torch.Tensor:
 
 
 def _resolve_engine(X, Y, symmetric, lengths, lengths_y, transforms, grid,
-                    static_kernel, backend, launch, features=None):
+                    static_kernel, backend, launch, features=None, error_budget=None):
     """Shared front end: validation, configs, ragged padding, dispatch.
 
-    Returns the padded batches, configs, the resolved backend, and the
-    active :class:`FeatureConfig` (None for the exact engine).  An
-    approximation is active only with ``features=``: a named approximate
-    backend without it is refused by :func:`dispatch.resolve`."""
+    Returns the padded (and, for a coarsened scheme point, subsampled)
+    batches, configs, the resolved backend, and the active
+    :class:`FeatureConfig` (None for the exact engine).  An approximation
+    activates one of three ways: ``features=``; a named approximate backend
+    with ``features=`` or ``error_budget=`` (its measured frontier rank, or
+    the default rank on a cold cache); or ``backend="auto"`` with
+    ``error_budget=`` and a measured frontier point meeting it
+    (:func:`dispatch.resolve_approx`).  Without one of these a named
+    approximate backend is refused by :func:`dispatch.resolve`."""
     if X.dim() != 3 or (Y is not None and Y.dim() != 3):
         raise ValueError(
             f"sigkernel_gram expects (B, L, d) paths, got X {tuple(X.shape)}"
@@ -167,28 +179,88 @@ def _resolve_engine(X, Y, symmetric, lengths, lengths_y, transforms, grid,
         X, lengths = tf.pad_ragged(X, lengths)
     if lengths_y is not None:
         Y, lengths_y = tf.pad_ragged(Y, lengths_y)
+    ragged = lengths is not None or lengths_y is not None
     backend = dispatch.canonicalize(backend, op="gram")
     if backend == "gpu_fused" and not kernel.lifts_increments:
         raise ValueError(
             "backend='gpu_fused' builds Δ from increments inside the kernel and "
             f"only supports the linear lift, got static_kernel="
             f"{type(kernel).__name__}; pass backend='auto'")
+    By = X.shape[0] if Y is None else Y.shape[0]
+    Lx, Ly, key = _key_dims(X, Y, cfg, g, By)
     feats = ft.resolve_features(features)
+    if feats is not None and backend not in ("auto", feats.method):
+        raise ValueError(
+            f"features=FeatureConfig(method={feats.method!r}) conflicts "
+            f"with backend={backend!r}; pass backend='auto' or "
+            f"backend={feats.method!r}")
+    explicit_approx = backend != "auto" and dispatch.get(backend).approximate
+    budget = dict(device=X.device, error_budget=error_budget, ragged=ragged)
+    # the feature maps implement the order-1 stencil only: a named one the
+    # caller opted into is refused for another scheme with the capability
+    # error, and a non-default scheme keeps "auto" off the frontier
+    if explicit_approx and (features is not None or error_budget is not None):
+        dispatch.check_scheme(backend, g.scheme, op="gram")
+    if feats is None and error_budget is not None and g.scheme == "order1" \
+            and (explicit_approx or backend == "auto"):
+        found = dispatch.resolve_approx("gram", key, X.dtype, **budget)
+        if explicit_approx:
+            # the measured rank when the frontier names this method, else
+            # the library default
+            rank = found[1] if found is not None and found[0] == backend \
+                else ft.FeatureConfig.rank
+            feats = ft.FeatureConfig(method=backend, rank=rank)
+        elif found is not None:
+            feats = ft.FeatureConfig(method=found[0], rank=found[1])
+    if feats is None and backend == "auto" and error_budget is not None \
+            and g.scheme == "order1" and g.interior_dtype == "float32":
+        # a measured discretisation of the exact engine within the budget;
+        # an explicit scheme or interior dtype is never overridden
+        g, X, Y, Lx, Ly, key = _apply_scheme_point(
+            dispatch.resolve_scheme("gram", key, X.dtype, **budget),
+            g, X, Y, cfg, ragged, By)
     if feats is not None:
-        if backend not in ("auto", feats.method):
-            raise ValueError(
-                f"features=FeatureConfig(method={feats.method!r}) conflicts "
-                f"with backend={backend!r}; pass backend='auto' or "
-                f"backend={feats.method!r}")
         backend = dispatch.resolve(feats.method, op="gram", device=X.device,
                                    allow_approximate=True, scheme=g.scheme)
         return X, Y, lengths, lengths_y, cfg, g, kernel, backend, symmetric, launch, feats
+    backend = dispatch.resolve(backend, op="gram", device=X.device,
+                               grid_cells=(Lx << g.lam1) * (Ly << g.lam2), shape=key,
+                               dtype=X.dtype, allow_fused=kernel.lifts_increments,
+                               ragged=ragged, scheme=g.scheme)
+    return X, Y, lengths, lengths_y, cfg, g, kernel, backend, symmetric, launch, None
+
+
+def _apply_scheme_point(found, g, X, Y, cfg, ragged, By):
+    """Apply a scheme-frontier point ``(scheme, coarsen, interior_dtype)``.
+
+    ``coarsen`` halves the PDE grid ``coarsen`` times: by dropping dyadic
+    refinement levels where both are deep enough, else by stride-subsampling
+    the paths (dense batches only: ragged lengths would shift, so the point
+    is not applied there).  Returns ``(g, X, Y, Lx, Ly, key shape)``."""
+    if found is None:
+        return g, X, Y, *_key_dims(X, Y, cfg, g, By)
+    scheme_p, coarsen, idt = found
+    if coarsen:
+        if g.lam1 >= coarsen and g.lam2 >= coarsen:
+            g = dataclasses.replace(g, lam1=g.lam1 - coarsen, lam2=g.lam2 - coarsen)
+        elif not ragged and X.shape[1] > (1 << coarsen):
+            step = 1 << coarsen
+            X = X[:, ::step]
+            Y = Y if Y is None else Y[:, ::step]
+        else:
+            return g, X, Y, *_key_dims(X, Y, cfg, g, By)
+    g = dataclasses.replace(g, scheme=scheme_p, interior_dtype=idt)
+    return g, X, Y, *_key_dims(X, Y, cfg, g, By)
+
+
+def _key_dims(X, Y, cfg, g, By):
+    """(Lx, Ly, key shape) for the current paths and config: the Gram's
+    autotune key ``(Bx, By, nx, ny, d')`` of
+    :func:`repro_torch.bench.autotune.key_shape`."""
     Lx = cfg.transformed_steps(X.shape[1])
     Ly = Lx if Y is None else cfg.transformed_steps(Y.shape[1])
-    backend = dispatch.resolve(backend, op="gram", device=X.device,
-                               grid_cells=(Lx << g.lam1) * (Ly << g.lam2),
-                               allow_fused=kernel.lifts_increments, scheme=g.scheme)
-    return X, Y, lengths, lengths_y, cfg, g, kernel, backend, symmetric, launch, None
+    return Lx, Ly, (X.shape[0], By, Lx << g.lam1, Ly << g.lam2,
+                    cfg.transformed_dim(X.shape[-1]))
 
 
 # ---------------------------------------------------------------------------
@@ -243,7 +315,8 @@ def sigkernel_gram(X: torch.Tensor, Y: Optional[torch.Tensor] = None, *,
                    backend: str = "auto", row_block: Optional[int] = None,
                    symmetric: Optional[bool] = None, lengths=None,
                    lengths_y=None, transforms=None, grid=None,
-                   static_kernel=None, launch=None, features=None) -> torch.Tensor:
+                   static_kernel=None, launch=None, features=None,
+                   error_budget=None) -> torch.Tensor:
     """Signature-kernel Gram matrix ``K[a, b] = k(X_a, Y_b)``.
 
     Args:
@@ -259,13 +332,20 @@ def sigkernel_gram(X: torch.Tensor, Y: Optional[torch.Tensor] = None, *,
       transforms / grid / static_kernel / launch: the configs.
       features: a :class:`FeatureConfig` switching to the approximate
         feature map it names: ``phi(X) @ phi(Y).T`` with no Bx·By solve grid.
-        Without it ``backend="rff"``/``"nystroem"`` is refused.
+        Without it, or ``error_budget=``, ``backend="rff"``/``"nystroem"``
+        is refused.
+      error_budget: a relative-error budget letting ``backend="auto"`` take
+        a cheaper engine the autotune cache measured within it on this
+        machine (a feature map, or a coarser grid / order-2 stencil / bf16
+        interiors of the exact engine); otherwise the exact engine runs,
+        bit for bit the call without it.
 
     Returns the (Bx, By) Gram (f32 on the card), differentiable in X and Y.
     """
     (X, Y, lengths, lengths_y, cfg, g, kernel, backend, symmetric,
      launch, feats) = _resolve_engine(X, Y, symmetric, lengths, lengths_y, transforms,
-                                      grid, static_kernel, backend, launch, features)
+                                      grid, static_kernel, backend, launch, features,
+                                      error_budget)
     if feats is not None:
         phiX, phiY = _feature_maps(X, Y, feats, cfg, g, kernel, lengths, lengths_y,
                                    launch)
@@ -339,7 +419,7 @@ def sigkernel_gram_sharded(X: torch.Tensor, Y: Optional[torch.Tensor] = None, *,
                            symmetric: Optional[bool] = None, lengths=None,
                            lengths_y=None, transforms=None, grid=None,
                            static_kernel=None, launch=None,
-                           features=None) -> torch.Tensor:
+                           features=None, error_budget=None) -> torch.Tensor:
     """:func:`sigkernel_gram` tiled over the ranks of a DeviceMesh.
 
     **Contract.**  Every rank of ``mesh`` calls this with the same ``X``,
@@ -376,7 +456,8 @@ def sigkernel_gram_sharded(X: torch.Tensor, Y: Optional[torch.Tensor] = None, *,
     ``padded_Bx · padded_By`` otherwise; a rank's own share is that budget
     over the rank count.
 
-    Args (beyond :func:`sigkernel_gram`'s; ``error_budget=`` is not ported):
+    Args (beyond :func:`sigkernel_gram`'s; ``error_budget=`` resolves on
+    every rank from the same cache, so every rank takes the same engine):
       mesh: a ``torch.distributed.device_mesh.DeviceMesh`` with ``row_axis``
         and ``col_axis`` dimensions, on the paths' device type.  Default:
         :func:`repro_torch.launch.make_gram_mesh` over the default group.
@@ -395,7 +476,8 @@ def sigkernel_gram_sharded(X: torch.Tensor, Y: Optional[torch.Tensor] = None, *,
     """
     (X, Y, lengths, lengths_y, cfg, g, kernel, backend, symmetric,
      launch, feats) = _resolve_engine(X, Y, symmetric, lengths, lengths_y, transforms,
-                                      grid, static_kernel, backend, launch, features)
+                                      grid, static_kernel, backend, launch, features,
+                                      error_budget)
     if feats is not None:
         phiX, phiY = _feature_maps(X, Y, feats, cfg, g, kernel, lengths, lengths_y, launch)
         return phiX @ (phiX if phiY is None else phiY).T
@@ -449,7 +531,7 @@ def sigkernel_gram_reduce(X: torch.Tensor, Y: Optional[torch.Tensor] = None, *,
                           symmetric: Optional[bool] = None, lengths=None,
                           lengths_y=None, transforms=None, grid=None,
                           static_kernel=None, launch=None,
-                          features=None) -> torch.Tensor:
+                          features=None, error_budget=None) -> torch.Tensor:
     """Streaming ``Σ_{a,b} K[a, b]`` — the Gram-sum without the Gram.
 
     The workhorse of ``mmd2``/``scoring_rule`` with ``streaming=`` on: the
@@ -468,9 +550,10 @@ def sigkernel_gram_reduce(X: torch.Tensor, Y: Optional[torch.Tensor] = None, *,
       row_block: at most ``row_block`` Gram rows (or ``row_block · Bx``
         symmetric pairs) in flight.  Default: ``launch.gram_row_block``,
         else the largest block that fits the pair-gather budget.
-      features: as in :func:`sigkernel_gram`; the reduction is then feature
-        algebra, ``⟨Σ_a phi(X)_a, Σ_b phi(Y)_b⟩`` (less ``Σ_a ‖phi_a‖²``
-        without the diagonal), and never forms a Gram.
+      features / error_budget: as in :func:`sigkernel_gram`; with a feature
+        map active the reduction is feature algebra,
+        ``⟨Σ_a phi(X)_a, Σ_b phi(Y)_b⟩`` (less ``Σ_a ‖phi_a‖²`` without the
+        diagonal), and never forms a Gram.
 
     Returns a 0-d tensor, differentiable with the exact one-pass backward.
     The JAX package's jaxpr shape guard is not ported; a ``gpu``-marked
@@ -481,7 +564,8 @@ def sigkernel_gram_reduce(X: torch.Tensor, Y: Optional[torch.Tensor] = None, *,
                          "reduction (Y=None)")
     (X, Y, lengths, lengths_y, cfg, g, kernel, backend, symmetric,
      launch, feats) = _resolve_engine(X, Y, symmetric, lengths, lengths_y, transforms,
-                                      grid, static_kernel, backend, launch, features)
+                                      grid, static_kernel, backend, launch, features,
+                                      error_budget)
     if feats is not None:
         phiX, phiY = _feature_maps(X, None if symmetric else Y, feats, cfg, g, kernel,
                                    lengths, lengths_y, launch)

@@ -111,7 +111,9 @@ def logsignature(path: torch.Tensor, depth: int, *, mode: str = "lyndon",
             raise _stream_refusal("logsignature", backend)
         flat_log = ta.tensor_log(_signature_stream_from_increments(z, depth), d, depth)
         return _project(flat_log, d, depth, mode)
-    backend = dispatch.resolve(backend, op="logsignature", device=z.device)
+    backend = dispatch.resolve(backend, op="logsignature", device=z.device,
+                               shape=(z.shape[-2], d, depth), dtype=z.dtype,
+                               ragged=lengths is not None)
     if backend == "gpu":
         from repro_torch.kernels.signature import ops as sig_ops
         return sig_ops.logsignature_from_increments(z, depth, mode, launch)

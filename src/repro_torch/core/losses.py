@@ -9,7 +9,10 @@ on (auto-enabled whenever ``row_block=`` is set) every term goes through
 row block under ``torch.utils.checkpoint`` in the forward and the backward,
 so the (B, B) Grams never exist.  ``features=`` (a
 :class:`repro_torch.core.features.FeatureConfig`) reduces every term in
-feature space instead, O(B·rank), streaming by default.
+feature space instead, O(B·rank), streaming by default; ``error_budget=``
+lets each term take a cheaper engine the autotune cache measured within the
+budget (streaming by default too), as in
+:func:`repro_torch.core.gram.sigkernel_gram`.
 """
 
 from __future__ import annotations
@@ -35,15 +38,18 @@ def _use_streaming(streaming: Optional[bool], row_block: Optional[int],
 def mmd2(X: torch.Tensor, Y: torch.Tensor, *, transforms=None, grid=None,
          static_kernel=None, unbiased: bool = True, backend: str = "auto",
          row_block: Optional[int] = None, streaming: Optional[bool] = None,
-         lengths=None, lengths_y=None, features=None) -> torch.Tensor:
+         lengths=None, lengths_y=None, features=None,
+         error_budget=None) -> torch.Tensor:
     """Squared MMD between two path distributions under the signature kernel.
 
     X: (Bx, L, d) samples from P; Y: (By, L', d) samples from Q.  The
     unbiased estimator needs at least two samples per side.  ``streaming``
-    (default: on when ``row_block=`` or ``features=`` is set) sums the three
-    Gram terms per block through :func:`sigkernel_gram_reduce`, so peak
-    memory follows ``row_block`` instead of the batch, in the value and the
-    gradient.  ``features=`` takes the approximate feature map it names.
+    (default: on when ``row_block=``, ``features=`` or ``error_budget=`` is
+    set) sums the three Gram terms per block through
+    :func:`sigkernel_gram_reduce`, so peak memory follows ``row_block``
+    instead of the batch, in the value and the gradient.  ``features=``
+    takes the approximate feature map it names; ``error_budget=`` a
+    measured cheaper engine within the budget, as in :func:`sigkernel_gram`.
     """
     bx, by = X.shape[0], Y.shape[0]
     if unbiased and min(bx, by) < 2:
@@ -52,9 +58,10 @@ def mmd2(X: torch.Tensor, Y: torch.Tensor, *, transforms=None, grid=None,
             f"By={by}); the 1/(b·(b-1)) normaliser is NaN at b=1 — "
             "pass unbiased=False")
     cfg, g, kernel = resolve_kernel_configs(transforms, grid, static_kernel)
+    approx = features is not None or error_budget is not None
     kw = dict(transforms=cfg, grid=g, static_kernel=kernel, backend=backend,
-              row_block=row_block, features=features)
-    if _use_streaming(streaming, row_block, features is not None):
+              row_block=row_block, features=features, error_budget=error_budget)
+    if _use_streaming(streaming, row_block, approx):
         sxx_sum = sigkernel_gram_reduce(X, lengths=lengths, include_diag=not unbiased,
                                         **kw)
         syy_sum = sigkernel_gram_reduce(Y, lengths=lengths_y,
@@ -83,20 +90,22 @@ def mmd2(X: torch.Tensor, Y: torch.Tensor, *, transforms=None, grid=None,
 def scoring_rule(X: torch.Tensor, y: torch.Tensor, *, transforms=None, grid=None,
                  static_kernel=None, backend: str = "auto",
                  row_block: Optional[int] = None, streaming: Optional[bool] = None,
-                 lengths=None, length_y=None, features=None) -> torch.Tensor:
+                 lengths=None, length_y=None, features=None,
+                 error_budget=None) -> torch.Tensor:
     """Signature-kernel score E[k(X,X')]/2 − E[k(X,y)] for one observation
-    y (L, d); ``E[k(X,X')]`` averages over distinct pairs.  ``streaming``
-    and ``features`` as in :func:`mmd2`."""
+    y (L, d); ``E[k(X,X')]`` averages over distinct pairs.  ``streaming``,
+    ``features`` and ``error_budget`` as in :func:`mmd2`."""
     b = X.shape[0]
     if b < 2:
         raise ValueError(
             f"scoring_rule needs an ensemble of >= 2 paths (got B={b}); "
             "the 1/(b·(b-1)) normaliser is NaN at b=1")
     cfg, g, kernel = resolve_kernel_configs(transforms, grid, static_kernel)
+    approx = features is not None or error_budget is not None
     kw = dict(transforms=cfg, grid=g, static_kernel=kernel, backend=backend,
-              row_block=row_block, features=features)
+              row_block=row_block, features=features, error_budget=error_budget)
     ly = None if length_y is None else torch.as_tensor(length_y).reshape(1)
-    if _use_streaming(streaming, row_block, features is not None):
+    if _use_streaming(streaming, row_block, approx):
         exx_sum = sigkernel_gram_reduce(X, lengths=lengths, include_diag=False, **kw)
         exy_sum = sigkernel_gram_reduce(X, y[None], lengths=lengths, lengths_y=ly, **kw)
         return 0.5 * exx_sum / (b * (b - 1)) - exy_sum / b
@@ -109,7 +118,8 @@ def scoring_rule(X: torch.Tensor, y: torch.Tensor, *, transforms=None, grid=None
 def sig_aux_loss(hidden: torch.Tensor, target: torch.Tensor, *, proj: torch.Tensor,
                  transforms=None, grid=None, static_kernel=None, backend: str = "auto",
                  row_block: Optional[int] = None, streaming: Optional[bool] = None,
-                 lengths=None, lengths_target=None, features=None) -> torch.Tensor:
+                 lengths=None, lengths_target=None, features=None,
+                 error_budget=None) -> torch.Tensor:
     """Auxiliary signature-kernel loss between a model's hidden trajectory
     and a target path distribution: the biased :func:`mmd2` between
     ``hidden @ proj / sqrt(H)`` and ``target``.
@@ -117,8 +127,8 @@ def sig_aux_loss(hidden: torch.Tensor, target: torch.Tensor, *, proj: torch.Tens
     hidden: (B, L, H) hidden states; proj: (H, d) projection into a
     low-dimensional path space; target: (B', L', d) reference paths.
     ``lengths`` / ``lengths_target`` make either side ragged;
-    ``streaming=``, ``row_block=`` and ``features=`` pass through to
-    :func:`mmd2` (an approximation makes the loss O(B·rank)).
+    ``streaming=``, ``row_block=``, ``features=`` and ``error_budget=`` pass
+    through to :func:`mmd2` (an approximation makes the loss O(B·rank)).
     """
     cfg, g, kernel = resolve_kernel_configs(transforms, grid, static_kernel)
     path = hidden @ proj
@@ -128,4 +138,4 @@ def sig_aux_loss(hidden: torch.Tensor, target: torch.Tensor, *, proj: torch.Tens
     return mmd2(path, target, transforms=cfg, grid=g, static_kernel=kernel,
                 unbiased=False, backend=backend, row_block=row_block,
                 streaming=streaming, lengths=lengths, lengths_y=lengths_target,
-                features=features)
+                features=features, error_budget=error_budget)

@@ -452,9 +452,20 @@ def sigkernel(x: torch.Tensor, y: torch.Tensor, *, transforms=None, grid=None,
             f"{type(kernel).__name__}; pass backend='auto'")
     Lx = cfg.transformed_steps(x.shape[-2])
     Ly = cfg.transformed_steps(y.shape[-2])
-    backend = dispatch.resolve(backend, op="sigkernel", device=x.device,
-                               grid_cells=(Lx << g.lam1) * (Ly << g.lam2),
-                               allow_fused=kernel.lifts_increments, scheme=g.scheme)
+    cells = (Lx << g.lam1) * (Ly << g.lam2)
+    was_auto = backend == "auto"
+    backend = dispatch.resolve(
+        backend, op="sigkernel", device=x.device, grid_cells=cells,
+        shape=(Lx << g.lam1, Ly << g.lam2, cfg.transformed_dim(x.shape[-1])),
+        dtype=x.dtype, allow_fused=kernel.lifts_increments,
+        ragged=lengths_x is not None or lengths_y is not None, scheme=g.scheme)
+    if was_auto and backend == "gpu_fused" and x.shape[:-2] != y.shape[:-2]:
+        # the cache key carries no batch shape, so a tuned fused winner can
+        # meet broadcast batches it cannot serve: "auto" takes the static
+        # rule then, where an explicit request raises below
+        backend = dispatch.resolve("auto", op="sigkernel", device=x.device,
+                                   grid_cells=cells, allow_fused=False,
+                                   scheme=g.scheme)
     if backend == "gpu_fused":
         if x.shape[:-2] != y.shape[:-2]:
             raise ValueError("backend='gpu_fused' needs matching batch shapes, "

@@ -218,7 +218,9 @@ def signature(path: torch.Tensor, depth: int, *, transforms=None, backend: str =
         if backend not in ("auto", "reference"):
             raise _stream_refusal("signature", backend)
         return _signature_stream_from_increments(z, depth)
-    backend = dispatch.resolve(backend, op="signature", device=z.device)
+    backend = dispatch.resolve(backend, op="signature", device=z.device,
+                               shape=(z.shape[-2], z.shape[-1], depth), dtype=z.dtype,
+                               ragged=lengths is not None)
     if backend == "gpu":
         from repro_torch.kernels.signature import ops as sig_ops
         return sig_ops.signature_from_increments(z, depth, launch)

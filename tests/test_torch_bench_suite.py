@@ -6,10 +6,9 @@ The first ten tests mirror ``tests/test_bench_suite.py`` on one smoke run
 schema-versioned, self-comparison is green, and slowdowns, accuracy losses
 and missing entries are flagged with a nonzero exit.  Then the parity with
 the JAX package: the cell tables of every mode, the smoke entry names (those
-of the committed JAX smoke baseline ``BENCH_PR10.json`` without the autotune
-workloads, which the port does not have, and without the ``pallas*``
-entries, whose counterparts run on the card only), the analytic roofline
-counts of every entry of every mode, and the §3.4 continuous adjoint
+of the committed JAX smoke baseline ``BENCH_PR10.json`` without the
+``pallas*`` entries, whose counterparts run on the card only), the analytic
+roofline counts of every entry of every mode, and the §3.4 continuous adjoint
 ``solve_goursat_grad_pde_approx`` on shared Δ (float64 1e-10, float32 5e-5).
 """
 
@@ -35,15 +34,18 @@ jsk = importlib.import_module("repro.core.sigkernel")
 tsk = importlib.import_module("repro_torch.core.sigkernel")
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
-#: the JAX workloads whose entries the port does not write: they need its
-#: autotune cache
-NOT_PORTED_PREFIXES = ("autotune_", "approx_frontier_", "scheme_frontier_")
 
 
 @pytest.fixture(scope="module")
-def smoke_doc():
-    """One smoke-suite run on the CPU shared by every test in this module."""
-    return suite.run_suite("smoke", repeats=1, device="cpu")
+def smoke_doc(tmp_path_factory):
+    """One smoke-suite run on the CPU shared by every test in this module;
+    its autotune workloads write a cache of their own, never the home
+    directory's."""
+    from repro_torch.bench import autotune
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv(autotune.ENV_CACHE, str(tmp_path_factory.mktemp("cache") / "autotune.json"))
+        mp.delenv(autotune.ENV_DISABLE, raising=False)
+        yield suite.run_suite("smoke", repeats=1, device="cpu")
 
 
 def _gated_time_entry(doc):
@@ -196,10 +198,23 @@ def test_cli_refuses_the_card_without_cuda():
 
 @pytest.mark.parametrize("table", ["_TABLE1_CELLS", "_TABLE2_CELLS", "_GRAM_CELLS",
                                    "_RBF_CELLS", "_RAGGED_CELLS", "_DISTGRAM_CELLS",
-                                   "_TABLE3_CELLS", "_GRADACC_CELLS", "_PATH_CELLS"])
+                                   "_TABLE3_CELLS", "_GRADACC_CELLS", "_PATH_CELLS",
+                                   "_FRONTIER_CELLS", "_SCHEME_CELLS"])
 def test_cell_tables_equal_jax(table):
     assert getattr(workloads, table) == getattr(jworkloads, table)
     assert set(getattr(workloads, table)) == set(workloads.MODES)
+
+
+def test_autotune_constants_equal_jax():
+    """The autotune round trip's shapes, the scheme budget, and the suite's
+    workload order (``src/repro/bench/suite.py:26-50``) are the JAX
+    package's."""
+    from repro.bench import suite as jsuite
+    assert workloads._AUTOTUNE_SMOKE_SHAPES == jworkloads._AUTOTUNE_SMOKE_SHAPES
+    assert workloads._SCHEME_COARSE_BUDGET == jworkloads._SCHEME_COARSE_BUDGET
+    for mode in workloads.MODES:
+        assert [f.__name__ for f in suite.WORKLOAD_SETS[mode]] == \
+            [f.__name__ for f in jsuite.WORKLOAD_SETS[mode]]
 
 
 def test_figure_sweeps_equal_jax():
@@ -214,8 +229,7 @@ def test_figure_sweeps_equal_jax():
 def test_smoke_names_equal_the_jax_baseline(smoke_doc):
     with open(os.path.join(ROOT, "BENCH_PR10.json"), encoding="utf-8") as f:
         jax_doc = json.load(f)
-    want = {e["name"] for e in jax_doc["entries"]
-            if not e["name"].startswith(NOT_PORTED_PREFIXES) and "pallas" not in e["name"]}
+    want = {e["name"] for e in jax_doc["entries"] if "pallas" not in e["name"]}
     assert {e["name"] for e in smoke_doc["entries"]} == want
 
 
