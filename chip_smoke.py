@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's signature and signature-kernel paths, forward and
-gradient, on one CUDA card.
+gradient, its LM serving path and its example scripts, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -141,9 +141,40 @@ Phases (any failure exits non-zero; nothing runs without CUDA):
    adds, or ran at another stencil or interior dtype, through
    ``shape_check`` at each (scheme, interior dtype) it ran at.
 
-Phases 8-14 run after phase 7's timing and before the ``kernels`` line;
+15. ``serve_lm_path``: LM serving at full width, under
+   ``torch.inference_mode``: deepseek-7b (30 layers of width 4096, dense,
+   stacked layout) serves 4 prompts of 512 tokens and decodes 32 greedy
+   tokens, recurrentgemma-2b (26 layers of width 2560: 8 (rec, rec, attn)
+   groups and 2 rest layers, window 2048) 4 prompts of 2,048 and 64
+   tokens, the ring wrapping from the first decoded one; both in bf16 from
+   one compute copy of the weights (``repro_torch.serve.step``).  Prints,
+   per model, prefill ms, decode ms a token (median, CUDA events),
+   tokens/s, peak memory and each bound; a depth that does not fit is cut
+   by whole layer groups and printed.  Checks: finite logits, tokens in
+   the vocabulary, decode's peak memory within 5% of the bf16 weights above
+   what it held (a step that cast the weights again fails), and, in float32
+   on the same parameters, the logits of a prefill of S tokens against a
+   prefill of S - k then k decode steps (k = 1 at S = 512; k = 52 at S =
+   2,074, across the wrap) within 1e-4 of their largest magnitude; then the
+   reduced configs (stacked, per-layer and grouped), drawn on the CPU, on
+   the card against the CPU within 1e-4.  The path reaches no hand-written
+   kernel; its counts are printed.
+
+16. ``examples_path``: ``examples/serve_lm_torch.py``,
+   ``quickstart_torch.py`` and ``serve_sig_features_torch.py`` at their
+   defaults in-process (their output printed; every error line < 1e-4, the
+   admission check), then ``gram_matrix_distributed_torch.py`` on NCCL with
+   one rank a card (its ``rank_main`` with the rank's launch counts read
+   around it, then its ``report``).  B1, B1-cps, B2, B3, B4 and B5 must
+   launch in-process and B3 in the ranks; every Goursat shape the examples
+   (and rank 0) launched goes through ``shape_check`` at each refinement,
+   scheme and interior dtype it ran at, unless an earlier phase checked it
+   at λ = 0, order 1, float32, and every Horner shape and geometry through
+   ``horner_shape_check``, exactly.
+
+Phases 8-16 run after phase 7's timing and before the ``kernels`` line;
 each sets the launch counts to 0 just before it and reads them just after
-(phase 11 in each rank).  Phase 4 also times the host build of the
+(phase 11 and 16's distributed example in each rank).  Phase 4 also times the host build of the
 ``"brackets"`` basis change at d = 16, N = 4.  Every phase reads, and
 phases 13 and 14 write, an autotune cache under a temporary directory the
 script makes and removes (``REPRO_AUTOTUNE_CACHE``; phase 14 a fresh file),
@@ -256,6 +287,31 @@ GRAD_SLICE_REL = 1e-6
 #: phases 13 and 14 write their caches under CACHE_DIR, a temporary
 #: directory the script's ``__main__`` makes and removes
 AUTOTUNE_ENV = "REPRO_AUTOTUNE_CACHE"
+# phase 15: LM serving at full width.  Each model serves a prompt and then
+# decodes; "check" is the float32 prefill-against-decode check's (S, k): the
+# logits of k decode steps after a prefill of S - k tokens against those of
+# one prefill of S (tests/test_models.py); recurrentgemma-2b's S - k < 2048
+# (its window) <= S - 1, so the decoded steps cross the ring's wrap
+SERVE_LM = ({"arch": "deepseek-7b", "batch": 4, "prompt": 512, "tokens": 32, "check": (512, 1)},
+            {"arch": "recurrentgemma-2b", "batch": 4, "prompt": 2048, "tokens": 64,
+             "check": (2074, 52)})
+SERVE_LM_REL = 1e-4              # float32 check, of the logits' largest magnitude
+SERVE_LM_CARD_CPU_REL = 1e-4     # reduced configs, card against CPU
+#: decode's peak memory above what it held before the loop, as a share of
+#: the bf16 weights: a step that cast the weights again (+100%) fails
+DECODE_PEAK_SHARE = 0.05
+#: decode steps after the timed ones, under torch.profiler (device busy share)
+PROFILE_STEPS = 4
+SERVE_LM_HEADROOM = 8 << 30      # bytes left free beside weights and caches
+#: the reduced configs held card against CPU: stacked, per-layer, grouped
+SERVE_LM_REDUCED = (("deepseek-7b", {"scan_layers": True}), ("recurrentgemma-2b", {}),
+                    ("recurrentgemma-2b", {"n_layers": 7, "scan_layers": True}))
+BF16_FLOPS_PER_S = 989e12        # H100 SXM data sheet, dense bf16 tensor cores
+# phase 16: the port's example scripts at their defaults, in this order
+EXAMPLES_DIR = os.path.join(ROOT, "examples")
+EXAMPLES = ("serve_lm_torch", "quickstart_torch", "serve_sig_features_torch",
+            "gram_matrix_distributed_torch")
+EXAMPLES_ERR = 1e-4              # every printed error line (the JAX quickstart's bar)
 GAN = dict(batch=64, length=256, dim=8, dyadic=1, steps=30, timed=10, lr=1e-5, warmup=20)
 LM = dict(layers=2, seq=512, batch=4, microbatches=2, steps=5, sig_dim=4)
 GAN_SMALL = (8, 32, 8)
@@ -931,6 +987,22 @@ def main() -> int:
         if key not in seen or set(variants) != {("order1", "float32")}:
             shape_check(key, by_run, kernel, fwd_cps, dev, rng, name, power,
                         variants=sorted(variants))
+        seen.add(key)
+
+    serve_lm_phase(dev, reset_all, kernel, sig_kernel, name, power)
+    goursat, horner = examples_phase(dev, reset_all, kernel, sig_kernel, name, power)
+    # every Goursat shape of the examples at every (refinement, scheme,
+    # interior dtype) it ran at, but those an earlier phase checked (at
+    # λ = 0, order 1, float32), and every Horner shape, each against its
+    # plain version
+    for key, (by_run, ran_at) in sorted(goursat.items(), key=str):
+        for lam1, lam2, scheme, idt in sorted(ran_at):
+            check(lam1 == lam2, f"examples: {key} launched at refinement ({lam1}, {lam2})")
+            if key not in seen or lam1 or (scheme, idt) != ("order1", "float32"):
+                shape_check(key, by_run, kernel, fwd_cps, dev, rng, name, power, lam=lam1,
+                            variants=((scheme, idt),))
+    for key, by_run in sorted(horner.items(), key=str):
+        horner_shape_check(key, by_run, sig_kernel, dev, rng, name, power)
 
     emit({"kernels": rows})
     return finish(card)
@@ -1583,7 +1655,8 @@ def autotune_phase(rt, dev, rng, reset_all, kernel, sig_kernel, sig_ops, name,
     bit the explicit call its resolved point names, with its error against
     the exact Gram.  B5 at the tuning batch is held exactly to its plain
     version here.  Returns ``(launch key, {"autotune": launches}, {(scheme,
-    interior dtype)})`` for the Goursat kernels."""
+    interior dtype)})`` for the Goursat kernels, each with what its launches
+    ran at (``kernel.launch_variants()``)."""
     import torch
     from repro_torch.bench import autotune, timer
     from repro_torch.core import dispatch
@@ -1593,20 +1666,6 @@ def autotune_phase(rt, dev, rng, reset_all, kernel, sig_kernel, sig_ops, name,
     check(autotune.enabled() and not os.path.exists(os.environ[AUTOTUNE_ENV]),
           "autotune: the phase's cache is not fresh")
     torch.cuda.empty_cache()
-    variants = {}
-
-    def track(ran_at, fn):
-        """Run fn; every Goursat launch shape it adds ran at (some of) the
-        (scheme, interior dtype) pairs of ``ran_at``."""
-        before = kernel.launch_shapes()
-        out = fn()
-        torch.cuda.synchronize()
-        for k, n in kernel.launch_shapes().items():
-            if n > before.get(k, 0):
-                variants.setdefault(k, set()).update(ran_at)
-        return out
-
-    base = {("order1", "float32")}
     reset_all()
     t_phase = time.time()
 
@@ -1614,7 +1673,7 @@ def autotune_phase(rt, dev, rng, reset_all, kernel, sig_kernel, sig_ops, name,
     tuned = []
     for op, shape in TUNE_SHAPES:
         t0 = time.time()
-        winner = track(base, lambda: autotune.tune(op, shape, device=dev, force=True))
+        winner = autotune.tune(op, shape, device=dev, force=True)
         entry = autotune.cache_entry(op, shape, device=dev)
         check(entry is not None and entry["backend"] == winner
               and entry["machine"] == timer.machine_key(dev), f"autotune {op}: entry {entry}")
@@ -1637,8 +1696,8 @@ def autotune_phase(rt, dev, rng, reset_all, kernel, sig_kernel, sig_ops, name,
                                     dtype=torch.float32, grid_cells=1)
         check(resolved == winner, f"autotune {op}: auto resolves to {resolved}, "
                                   f"the cache holds {winner}")
-        auto_out = track(base, lambda: call("auto"))
-        check(torch.equal(auto_out, track(base, lambda: call(winner))),
+        auto_out = call("auto")
+        check(torch.equal(auto_out, call(winner)),
               f"autotune {op}: backend='auto' differs from backend={winner!r}")
         tuned.append({"op": op, "key": list(key), "winner": winner,
                       "ms": {b_: round(t_ * 1e3, 4) for b_, t_ in entry["timings"].items()},
@@ -1655,15 +1714,10 @@ def autotune_phase(rt, dev, rng, reset_all, kernel, sig_kernel, sig_ops, name,
     B, Lp, d = BUDGET_GRAM
     fkey = autotune.key_shape("gram", (B, B, Lp - 1, Lp - 1, d))
     t0 = time.time()
-    front = track(base, lambda: autotune.tune_frontier("gram", fkey, device=dev,
-                                                       force=True))
+    front = autotune.tune_frontier("gram", fkey, device=dev, force=True)
     front_s = time.time() - t0
     t0 = time.time()
-    # the exact baseline runs order 1 / float32, each point its own stencil:
-    # every shape it launched is checked at all four
-    every = {(s_, i_) for s_ in ("order1", "order2") for i_ in ("float32", "bfloat16")}
-    sfront = track(every, lambda: autotune.tune_scheme_frontier("gram", fkey, device=dev,
-                                                                force=True))
+    sfront = autotune.tune_scheme_frontier("gram", fkey, device=dev, force=True)
     sfront_s = time.time() - t0
     for e in (front, sfront):
         check(e["machine"] == timer.machine_key(dev), f"frontier stamp {e['machine']}")
@@ -1683,24 +1737,20 @@ def autotune_phase(rt, dev, rng, reset_all, kernel, sig_kernel, sig_ops, name,
                                          error_budget=budget)
         point = None if approx else dispatch.resolve_scheme(
             "gram", fkey, torch.float32, device=dev, error_budget=budget)
-        kw, step, variant = {}, 1, base
+        kw, step = {}, 1
         if approx:
             kw = {"features": rt.FeatureConfig(approx[0], rank=approx[1])}
         elif point:
-            step, variant = 1 << point[1], {(point[0], point[2])}
+            step = 1 << point[1]
             kw = {"grid": rt.GridConfig(scheme=point[0], interior_dtype=point[2])}
-        track(variant, lambda: rt.sigkernel_gram(X, Y, error_budget=budget))   # warm
-        K, ms = track(variant, lambda: synced_ms(
-            lambda: rt.sigkernel_gram(X, Y, error_budget=budget)))
-        K_explicit = track(variant, lambda: rt.sigkernel_gram(X[:, ::step], Y[:, ::step],
-                                                              **kw))
-        m = track(variant, lambda: rt.mmd2(X, Y, error_budget=budget))
-        m_explicit = track(variant, lambda: rt.mmd2(X[:, ::step], Y[:, ::step],
-                                                    streaming=True, **kw))
-        g = track(variant, lambda: grads(lambda a, b: rt.mmd2(a, b, error_budget=budget),
-                                         X, Y))
-        g_explicit = track(variant, lambda: grads(
-            lambda a, b: rt.mmd2(a[:, ::step], b[:, ::step], streaming=True, **kw), X, Y))
+        rt.sigkernel_gram(X, Y, error_budget=budget)   # warm
+        K, ms = synced_ms(lambda: rt.sigkernel_gram(X, Y, error_budget=budget))
+        K_explicit = rt.sigkernel_gram(X[:, ::step], Y[:, ::step], **kw)
+        m = rt.mmd2(X, Y, error_budget=budget)
+        m_explicit = rt.mmd2(X[:, ::step], Y[:, ::step], streaming=True, **kw)
+        g = grads(lambda a, b: rt.mmd2(a, b, error_budget=budget), X, Y)
+        g_explicit = grads(
+            lambda a, b: rt.mmd2(a[:, ::step], b[:, ::step], streaming=True, **kw), X, Y)
         what = f"error_budget={budget} -> {approx or point or 'exact'}"
         check(bool(torch.isfinite(K).all()) and bool(torch.isfinite(m)),
               f"{what}: non-finite")
@@ -1743,8 +1793,423 @@ def autotune_phase(rt, dev, rng, reset_all, kernel, sig_kernel, sig_ops, name,
         "launches_by_shape": shape_rows(shapes), "seconds": round(seconds, 3),
         "card": name, "power_limit": power})
     os.environ[AUTOTUNE_ENV] = os.path.join(CACHE_DIR, "bench.json")
-    return [(k, {"autotune": n}, variants.get(k, base))
+    ran_at = kernel.launch_variants()
+    check(all(l1 == l2 == 0 for k in ran_at for l1, l2, _, _ in ran_at[k]),
+          "autotune path launched a refined grid")
+    return [(k, {"autotune": n}, {(s_, i_) for _, _, s_, i_ in ran_at[k]})
             for k, n in sorted(shapes.items(), key=str)]
+
+
+def lm_param_count(cfg) -> int:
+    """Parameters of the dense or hybrid LM of ``cfg``, from its shapes."""
+    from repro_torch.models.api import padded_vocab
+    from repro_torch.models.transformer import layer_kind
+    d, hd, W = cfg.d_model, cfg.hd, cfg.lru_width
+    attn = d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+    attn += hd * (cfg.n_heads + 2 * cfg.n_kv_heads) if cfg.qkv_bias else 0
+    rec = 3 * d * W + 2 * W * W + 8 * W      # w_x, w_y, w_out; w_a, w_i; conv, biases, Λ
+    mlp = (2 if cfg.act == "relu2" else 3) * d * cfg.d_ff
+    layers = sum((rec if layer_kind(cfg, i) == "rec" else attn) + mlp + 2 * d
+                 for i in range(cfg.n_layers))
+    return layers + padded_vocab(cfg) * d * (1 if cfg.tie_embeddings else 2) + d
+
+
+def serve_depth(cfg, free_bytes: int) -> int:
+    """The most layers of ``cfg`` (whole pattern groups cut from the end)
+    whose build and bf16 serving fit in ``free_bytes`` with
+    :data:`SERVE_LM_HEADROOM` to spare: the build holds the float32 layers
+    twice while it stacks them; serving, the float32 master and a bf16
+    copy."""
+    step = len(cfg.block_pattern) or 1
+    n = cfg.n_layers
+    while n > step:
+        total = lm_param_count(cfg.replace(n_layers=n))
+        layers = total - lm_param_count(cfg.replace(n_layers=0))
+        if max(8 * layers + 4 * (total - layers), 6 * total) + SERVE_LM_HEADROOM <= free_bytes:
+            break
+        n -= step
+    return n
+
+
+def event_ms(fn):
+    """(fn's result, its ms between CUDA events around it)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def device_profile(fn, steps: int = 1) -> dict:
+    """fn under torch.profiler (CPU and CUDA activities), per step: host ms
+    (a synchronise closes it), the kernels' device ms and launches, the
+    device's busy share and the five kernels with the most device time.
+    A trace that holds no device time gives ``None`` for the device
+    numbers ("not measured")."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    measured = busy_ms > 0
+    return {"host_ms": host_ms / steps,
+            "device_ms": busy_ms / steps if measured else None,
+            "kernel_launches": sum(e.count for e in kernels) / steps if measured else None,
+            "device_busy_share": busy_ms / host_ms if measured else None,
+            "top_kernels_ms": [[e.key[:80], e.self_device_time_total / 1e3 / steps]
+                               for e in top] if measured else None}
+
+
+def serve_lm_model(spec, dev, name, power) -> dict:
+    """One model of phase 15 at full width: bf16 serving (prefill, then
+    greedy decode) timed, then the float32 prefill-against-decode check on
+    the same parameters."""
+    import gc
+    import torch
+    from repro_torch.models import build_model, get_config
+    from repro_torch.models.api import Model, padded_vocab
+    from repro_torch.models.params import tree_items
+    from repro_torch.models.transformer import layer_kind
+    from repro_torch.serve.step import compute_params, make_decode_step, make_prefill_step
+    full = get_config(spec["arch"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    depth = serve_depth(full, torch.cuda.mem_get_info(dev)[0])
+    cfg = full.replace(n_layers=depth)
+    cut = (None if depth == full.n_layers else
+           f"n_layers {full.n_layers} -> {depth} (the full depth does not fit beside what "
+           f"the card holds)")
+    if cut:
+        print(f"serve_lm {cfg.name}: depth cut, {cut}")
+    B, P, N = spec["batch"], spec["prompt"], spec["tokens"]
+    S, k = spec["check"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    model = build_model(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    build_peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == lm_param_count(cfg),
+          f"serve_lm {cfg.name}: {n_params} parameters, the shapes say {lm_param_count(cfg)}")
+    g = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (B, max(P, S)), generator=g, device=dev)
+
+    with torch.inference_mode():
+        params = compute_params(model)
+        w_bytes = sum(t.numel() * t.element_size() for _, t in tree_items(params))
+        prefill = make_prefill_step(model, max_len=P + N + PROFILE_STEPS, params=params)
+        decode = make_decode_step(model, params=params)
+        _, first_prefill_ms = event_ms(lambda: prefill({"tokens": toks[:, :P]}))
+        prefill_prof = device_profile(lambda: prefill({"tokens": toks[:, :P]}))
+        (logits, caches), prefill_ms = event_ms(lambda: prefill({"tokens": toks[:, :P]}))
+        cache_bytes = sum(t.numel() * t.element_size() for _, t in tree_items(caches))
+        finite = [torch.isfinite(logits).all()]
+        nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+        out = [nxt]
+        torch.cuda.synchronize()
+        prefill_peak = torch.cuda.max_memory_allocated(dev)
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        events = []
+        t_dec = time.perf_counter()
+        for t in range(P, P + N):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            nxt, lg, caches = decode(caches, nxt, t)
+            ev[1].record()
+            events.append(ev)
+            finite.append(torch.isfinite(lg).all())
+            out.append(nxt)
+        torch.cuda.synchronize()
+        decode_wall_s = time.perf_counter() - t_dec
+        decode_peak = torch.cuda.max_memory_allocated(dev) - held
+        decode_ms = [a.elapsed_time(b) for a, b in events]
+
+        def more_steps():
+            nonlocal nxt, caches
+            for t in range(P + N, P + N + PROFILE_STEPS):
+                nxt, _, caches = decode(caches, nxt, t)
+        decode_prof = device_profile(more_steps, PROFILE_STEPS)
+        gen = torch.cat(out, dim=1)
+        all_finite = bool(torch.stack(finite).all())
+        in_vocab = bool(((gen >= 0) & (gen < cfg.vocab)).all())
+        del params, prefill, decode, caches, logits, lg, out
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+        # float32: S tokens at once against S - k then k decode steps
+        m32 = Model(cfg.replace(compute_dtype="float32"), model.tree())
+        check(m32.embed.table.data_ptr() == model.embed.table.data_ptr(),
+              "serve_lm: the float32 model copied the parameters")
+        (l_full, _), f32_prefill_ms = event_ms(
+            lambda: m32.prefill({"tokens": toks[:, :S], "max_len": S}))
+        _, c32 = m32.prefill({"tokens": toks[:, :S - k], "max_len": S})
+        for t in range(S - k, S):
+            l_dec, c32 = m32.decode(c32, toks[:, t:t + 1], t)
+        V = cfg.vocab
+        f32_rel = rel_err(l_dec[..., :V], l_full[..., :V])
+        del m32, c32, l_full, l_dec
+    peak = torch.cuda.max_memory_allocated(dev)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bounds at H100 SXM peaks: a decode step reads the bf16 weights but
+    # the input embedding table (B rows of it) and the cache slots it
+    # attends over, once (the median step's position); the prefill's bf16
+    # products at the tensor-core rate, its float32 attention / RG-LRU scan
+    # products at the float32 rate
+    vp, d = padded_vocab(cfg), cfg.d_model
+    embed_bytes = vp * d * 2
+    mid = P + N // 2
+    kinds = [layer_kind(cfg, i) for i in range(cfg.n_layers)]
+    step_bytes = w_bytes - embed_bytes + B * d * 2
+    read_slots = {"dense": mid + 1, "attn": min(cfg.attn_window or mid + 1, mid + 1), "rec": 0}
+    step_bytes += sum(2 * B * read_slots[kd] * cfg.n_kv_heads * cfg.hd * 2 for kd in kinds)
+    step_bytes += sum(B * cfg.lru_width * 4 * 4 * 2 for kd in kinds if kd == "rec")
+    decode_bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    layer_params = n_params - vp * d * (1 if cfg.tie_embeddings else 2)
+    mm = 2 * B * P * layer_params + 2 * B * d * vp
+    f32_ops = 0
+    for kd in kinds:
+        if kd == "rec":   # per chunk of 64: the (Q, Q, W) weights and their sum
+            f32_ops += B * P * 64 * cfg.lru_width * 4
+        else:             # QK and PV over the causal (windowed) triangle
+            span = min(cfg.attn_window or P, P)
+            f32_ops += 2 * 2 * B * cfg.n_heads * cfg.hd * P * span // 2
+    prefill_ops_ms = (mm / BF16_FLOPS_PER_S + f32_ops / FP32_FLOPS_PER_S) * 1e3
+    prefill_bytes_ms = w_bytes / HBM_BYTES_PER_S * 1e3
+    med = float(np.median(decode_ms))
+    row = {"config": cfg.name, "family": cfg.family, "params": n_params,
+           "n_layers": cfg.n_layers, "d_model": d, "reduced": cut, "compute_dtype": "bfloat16",
+           "batch": B, "prompt": P, "decode_steps": N, "build_s": build_s,
+           "bf16_weight_bytes": w_bytes, "cache_bytes": cache_bytes,
+           "first_prefill_ms": first_prefill_ms, "prefill_ms": prefill_ms,
+           "prefill_tokens_per_s": B * P / (prefill_ms / 1e3),
+           "prefill_bound_ms": max(prefill_ops_ms, prefill_bytes_ms),
+           "prefill_bound_by": "operations" if prefill_ops_ms >= prefill_bytes_ms else "bytes",
+           "decode_ms_per_token_median": med, "decode_ms_per_token": decode_ms,
+           "decode_tokens_per_s": B / (med / 1e3),
+           "decode_wall_tokens_per_s": B * N / decode_wall_s,
+           "decode_bound_ms": decode_bound_ms, "decode_bound_by": "bytes",
+           "prefill_profile": prefill_prof, "decode_profile_per_step": decode_prof,
+           "build_peak_bytes": build_peak, "serve_peak_bytes": prefill_peak,
+           "decode_peak_above_held_bytes": decode_peak, "float32_check_peak_bytes": peak,
+           "sample": gen[0, :16].tolist(),
+           "float32_check": {"S": S, "k": k, "rel_err": f32_rel, "prefill_ms": f32_prefill_ms},
+           "card": name, "power_limit": power}
+    check(all_finite, f"serve_lm {cfg.name}: non-finite bf16 logits")
+    check(in_vocab and tuple(gen.shape) == (B, N + 1),
+          f"serve_lm {cfg.name}: tokens {tuple(gen.shape)} outside the vocabulary")
+    check(decode_peak <= DECODE_PEAK_SHARE * w_bytes,
+          f"serve_lm {cfg.name}: decode took {decode_peak} bytes above what it held, more "
+          f"than {DECODE_PEAK_SHARE} of the {w_bytes} bf16 weight bytes (a cast per step?)")
+    check(f32_rel <= SERVE_LM_REL,
+          f"serve_lm {cfg.name}: float32 prefill of {S} against {S - k} + {k} decode steps, "
+          f"rel err {f32_rel:.3g} > {SERVE_LM_REL}")
+    return row
+
+
+def serve_lm_card_vs_cpu(dev) -> dict:
+    """The reduced configs of both families (every layout), parameters
+    drawn on the CPU in the JAX layout: prefill of 6 tokens and 9 decode
+    steps (the hybrid's ring of 8 wraps) on the card against the CPU."""
+    import copy
+    import torch
+    from repro_torch.models import build_model, get_config
+    from repro_torch.models.params import tree_items
+    out = {}
+    for arch, kw in SERVE_LM_REDUCED:
+        cfg = get_config(arch).reduced().replace(**kw)
+        cpu = build_model(cfg, seed=3, device="cpu")
+        card = copy.deepcopy(cpu).to(dev)
+        toks = torch.randint(0, cfg.vocab, (2, 15), generator=torch.Generator().manual_seed(4))
+
+        def run(m, where):
+            with torch.inference_mode():
+                lg, c = m.prefill({"tokens": toks[:, :6].to(where), "max_len": 16})
+                steps = [lg]
+                for t in range(6, 15):
+                    lg, c = m.decode(c, toks[:, t:t + 1].to(where), t)
+                    steps.append(lg)
+            return torch.cat(steps, dim=1), dict(tree_items(c))
+
+        (a, ca), (b, cb) = run(card, dev), run(cpu, "cpu")
+        errs = [rel_err(a.cpu(), b)]
+        for leaf, v in cb.items():
+            if v.is_floating_point():
+                errs.append(rel_err(ca[leaf].cpu(), v))
+            else:
+                check(torch.equal(ca[leaf].cpu(), v), f"{arch} {kw}: cache {leaf} differs")
+        what = f"{arch}{'' if not kw else ' ' + str(kw)}"
+        out[what] = max(errs)
+        check(out[what] <= SERVE_LM_CARD_CPU_REL,
+              f"reduced {what}: card against CPU rel err {out[what]:.3g}")
+    return out
+
+
+def serve_lm_phase(dev, reset_all, kernel, sig_kernel, name, power) -> None:
+    """Phase 15: LM serving at full width (:data:`SERVE_LM`), the launch
+    counts set to 0 just before and read just after (the serving path
+    reaches no hand-written kernel: the JAX package's reaches no Pallas
+    kernel), and the reduced configs card against CPU."""
+    import torch
+    torch.cuda.empty_cache()
+    reset_all()
+    t_phase = time.time()
+    rows = [serve_lm_model(spec, dev, name, power) for spec in SERVE_LM]
+    counts = {**kernel.launch_counts(), **sig_kernel.launch_counts()}
+    card_vs_cpu = serve_lm_card_vs_cpu(dev)
+    emit({"serve_lm_path": rows, "reduced_card_vs_cpu_rel": card_vs_cpu, "launches": counts,
+          "seconds": round(time.time() - t_phase, 3), "card": name, "power_limit": power})
+
+
+def example_module(name: str):
+    """examples/<name>.py, imported by name (the examples directory on
+    sys.path, which spawned ranks inherit)."""
+    import importlib
+    if EXAMPLES_DIR not in sys.path:
+        sys.path.insert(0, EXAMPLES_DIR)
+    return importlib.import_module(name)
+
+
+def examples_rank(rank, world, device_type) -> dict:
+    """Phase 16 on one rank: the distributed example's ``rank_main``, the
+    launch counts set to 0 just before it and read just after."""
+    import torch
+    from repro_torch.kernels.sigkernel_pde import kernel
+    from repro_torch.kernels.signature import kernel as sig_kernel
+    ex = example_module("gram_matrix_distributed_torch")
+    kernel.reset_launch_counts()
+    sig_kernel.reset_launch_counts()
+    out = ex.rank_main(rank, world, device_type)
+    torch.cuda.synchronize()
+    return {**out, "launches": {**kernel.launch_counts(), **sig_kernel.launch_counts()},
+            "shapes": kernel.launch_shapes(), "variants": kernel.launch_variants(),
+            "horner_shapes": sig_kernel.launch_shapes()}
+
+
+def examples_phase(dev, reset_all, kernel, sig_kernel, name, power):
+    """Phase 16: the four example scripts at their defaults, each's output
+    printed; the in-process launch counts set to 0 just before the first
+    and read after the third, the distributed example's in each rank (its
+    ``rank_main`` under :func:`examples_rank`, then its ``report``).
+    Returns ({Goursat key: ({run: launches}, {(lam1, lam2, scheme,
+    interior dtype)})}, {Horner key: {run: launches}}) for the in-process
+    examples and rank 0."""
+    import contextlib
+    import io
+    import re
+    import torch
+    from repro_torch.launch import spawn_ranks
+    mods = {n: example_module(n) for n in EXAMPLES}
+    torch.cuda.empty_cache()
+    runs = {}
+
+    def run(n, fn):
+        buf = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            res = fn()
+        torch.cuda.synchronize()
+        text = buf.getvalue()
+        print(text, end="", flush=True)
+        runs[n] = {"seconds": round(time.time() - t0, 3)}
+        return res, text
+
+    def errs_of(text):
+        return [float(v) for v in re.findall(r"err: ([-+0-9.eE]+)", text)]
+
+    reset_all()
+    t_phase = time.time()
+    toks, _ = run("serve_lm_torch", lambda: mods["serve_lm_torch"].main([]))
+    _, quick = run("quickstart_torch", lambda: mods["quickstart_torch"].main([]))
+    st, _ = run("serve_sig_features_torch", lambda: mods["serve_sig_features_torch"].main([]))
+    counts = {**kernel.launch_counts(), **sig_kernel.launch_counts()}
+    shapes, variants = kernel.launch_shapes(), kernel.launch_variants()
+    hshapes = sig_kernel.launch_shapes()
+    world = torch.cuda.device_count()
+    dist_ex = mods["gram_matrix_distributed_torch"]
+
+    def distributed():
+        outs = spawn_ranks(examples_rank, world, ("cuda",), backend="nccl", timeout=600)
+        dist_ex.report(outs)
+        return outs
+
+    outs, dist_text = run("gram_matrix_distributed_torch", distributed)
+    seconds = time.time() - t_phase
+    r0 = outs[0]
+    rank_counts = {k_: sum(o["launches"][k_] for o in outs) for k_ in r0["launches"]}
+    emit({"examples_path": runs, "world": world, "launches": counts,
+          "launches_ranks": rank_counts, "launches_by_shape": shape_rows(shapes),
+          "launches_by_shape_rank0": shape_rows(r0["shapes"]),
+          "horner_launches_by_shape": [{"shape": list(k_[:4]), "geometry": list(k_[4]),
+                                        "launches": n} for k_, n in hshapes.items()],
+          "seconds": round(seconds, 3), "card": name, "power_limit": power})
+
+    check(tuple(toks.shape) == (4, 32) and bool(((toks >= 0) & (toks < 256)).all()),
+          f"serve_lm_torch: tokens {tuple(toks.shape)}")
+    qerr = errs_of(quick)
+    check(len(qerr) == 6 and all(0 <= e < EXAMPLES_ERR for e in qerr),
+          f"quickstart_torch: error lines {qerr}")
+    check("ragged == truncated: True" in quick, "quickstart_torch: ragged != truncated")
+    check(st["flushes"] == 64, f"serve_sig_features_torch: {st['flushes']} flushes")
+    derr = errs_of(dist_text)
+    check(len(derr) == 2 and all(0 <= e < EXAMPLES_ERR for e in derr)
+          and all(o["asymmetry"] < EXAMPLES_ERR for o in outs),
+          f"gram_matrix_distributed_torch: error lines {derr}")
+    check("ranks agree: True" in dist_text and "match: True" in dist_text,
+          "gram_matrix_distributed_torch: the ranks or the mmd2 engines disagree")
+    for k_ in ("fwd", "fwd_cps", "bwd", "fwd_fused", "gram_fused", "horner"):
+        check(counts[k_] > 0, f"examples path never launched {k_}")
+    check(rank_counts["gram_fused"] > 0, "distributed example: no rank launched gram_fused")
+
+    goursat = {}
+    for log, vlog, run_name in ((shapes, variants, "examples"),
+                                (r0["shapes"], r0["variants"], "examples_rank0")):
+        for key, n in log.items():
+            by_run, ran_at = goursat.setdefault(key, ({}, set()))
+            by_run[run_name] = n
+            ran_at.update(vlog[key])
+    horner = {}
+    for log, run_name in ((hshapes, "examples"), (r0["horner_shapes"], "examples_rank0")):
+        for key, n in log.items():
+            horner.setdefault(key, {})[run_name] = n
+    return goursat, horner
+
+
+def horner_shape_check(key, by_run, sig_kernel, dev, rng, name, power) -> None:
+    """The Horner kernel at one shape and geometry it launched at, on fresh
+    random increments, exactly against its plain version, timed beside its
+    bound."""
+    import torch
+    B, L, d, N, geo = key
+    z = torch.from_numpy(np.diff(random_paths(rng, B, L, d), axis=1)).to(dev).contiguous()
+    got = sig_kernel.horner(z, N, *geo)
+    want = sig_kernel.horner_plain(z, N)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"horner at {(B, L, d, N)} geometry {geo} differs from plain")
+    nbytes = (z.numel() + got.numel()) * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = B * (L - 1) * sig_kernel.horner_flops(d, N) / FP32_FLOPS_PER_S * 1e3
+    emit({"timing_by_shape": "horner", "shape": [B, L, d, N], "geometry": list(geo),
+          "launches": by_run, "max_abs_err": 0.0, "ms": time_ms(lambda: sig_kernel.horner(
+              z, N, *geo), 5), "plain_ms": time_ms(lambda: sig_kernel.horner_plain(z, N), 2),
+          "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
+          else "operations", "card": name, "power_limit": power})
 
 
 if __name__ == "__main__":

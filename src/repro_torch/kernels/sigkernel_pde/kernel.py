@@ -47,7 +47,7 @@ import ctypes
 import threading
 from collections import Counter
 from pathlib import Path
-from typing import NamedTuple
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -89,6 +89,7 @@ FLUSH = 16
 _lib = None
 _lib_lock = threading.Lock()
 _SHAPES: Counter = Counter()
+_VARIANTS: Dict[tuple, set] = {}
 
 
 def library_path() -> Path:
@@ -327,7 +328,7 @@ def fwd(delta: torch.Tensor, geo: FwdGeometry, lam1: int, lam2: int, scheme: str
             Lx, Ly, *geo, lam1, lam2, scheme == "order2", interior_dtype == "bfloat16",
             smem)
     fwd.launches += 1
-    _SHAPES[("fwd", B, Lx, Ly, 0, tuple(geo))] += 1
+    _log(("fwd", B, Lx, Ly, 0, tuple(geo)), lam1, lam2, scheme, interior_dtype)
     return out
 
 
@@ -350,7 +351,7 @@ def fwd_fused(dx: torch.Tensor, dy: torch.Tensor, T: int, lam1: int, lam2: int,
             out.data_ptr(), B, Lx, Ly, d, T, lam1, lam2, scheme == "order2",
             interior_dtype == "bfloat16", smem)
     fwd_fused.launches += 1
-    _SHAPES[("fwd_fused", B, Lx, Ly, d, T)] += 1
+    _log(("fwd_fused", B, Lx, Ly, d, T), lam1, lam2, scheme, interior_dtype)
     return out
 
 
@@ -373,7 +374,7 @@ def gram_fused(dX: torch.Tensor, dY: torch.Tensor, T: int, lam1: int, lam2: int,
             out.data_ptr(), Bx, By, Lx, Ly, d, T, lam1, lam2, scheme == "order2",
             interior_dtype == "bfloat16", smem)
     gram_fused.launches += 1
-    _SHAPES[("gram_fused", (Bx, By), Lx, Ly, d, T)] += 1
+    _log(("gram_fused", (Bx, By), Lx, Ly, d, T), lam1, lam2, scheme, interior_dtype)
     return out
 
 
@@ -400,7 +401,7 @@ def fwd_cps(delta: torch.Tensor, T: int, lam1: int, lam2: int, scheme: str,
             cps.data_ptr(), B, Lx, Ly, T, *geo, lam1, lam2, scheme == "order2",
             interior_dtype == "bfloat16", smem)
     fwd_cps.launches += 1
-    _SHAPES[("fwd_cps", B, Lx, Ly, 0, T)] += 1
+    _log(("fwd_cps", B, Lx, Ly, 0, T), lam1, lam2, scheme, interior_dtype)
     return out, cps
 
 
@@ -432,18 +433,26 @@ def bwd(delta: torch.Tensor, cps: torch.Tensor, gbar: torch.Tensor, T: int, lam1
             gbar.data_ptr(), ws.data_ptr(), out.data_ptr(), B, Lx, Ly, T, lam1, lam2,
             scheme == "order2", interior_dtype == "bfloat16", smem)
     bwd.launches += 1
-    _SHAPES[("bwd", B, Lx, Ly, 0, T)] += 1
+    _log(("bwd", B, Lx, Ly, 0, T), lam1, lam2, scheme, interior_dtype)
     return out
 
 
 LAUNCHERS = (fwd, fwd_cps, fwd_fused, gram_fused, bwd)
 
 
+def _log(key: tuple, lam1: int, lam2: int, scheme: str, interior_dtype: str) -> None:
+    """One launch at ``key`` (as :func:`launch_shapes` keys it) and the
+    refinement, scheme and interior dtype it ran at."""
+    _SHAPES[key] += 1
+    _VARIANTS.setdefault(key, set()).add((lam1, lam2, scheme, interior_dtype))
+
+
 def reset_launch_counts() -> None:
-    """Set every launcher's ``launches`` count, and the shape log, to 0."""
+    """Set every launcher's ``launches`` count, and the shape logs, to 0."""
     for fn in LAUNCHERS:
         fn.launches = 0
     _SHAPES.clear()
+    _VARIANTS.clear()
 
 
 def launch_counts() -> dict:
@@ -457,6 +466,12 @@ def launch_shapes() -> dict:
     that read a precomputed Δ; for ``fwd``, which has no strip, T is its
     geometry (R, warps))."""
     return dict(_SHAPES)
+
+
+def launch_variants() -> dict:
+    """``{launch_shapes() key: {(lam1, lam2, scheme, interior dtype)}}``
+    since the last reset: what each shape's launches ran at."""
+    return {k: set(v) for k, v in _VARIANTS.items()}
 
 
 reset_launch_counts()

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from collections import Counter
 from pathlib import Path
 
 import torch
@@ -197,21 +198,31 @@ def horner(z: torch.Tensor, depth: int, p: int, jw: int, cw: int, S: int,
         name = library().signature_error_string(err).decode()
         raise RuntimeError(f"Horner kernel launch failed: CUDA error {err} ({name})")
     horner.launches += 1
+    _SHAPES[(B, n + 1, d, depth, (p, jw, cw, S, threads))] += 1
     return out
 
 
 LAUNCHERS = (horner,)
+_SHAPES: Counter = Counter()
 
 
 def reset_launch_counts() -> None:
-    """Set every launcher's ``launches`` count to 0."""
+    """Set every launcher's ``launches`` count, and the shape log, to 0."""
     for fn in LAUNCHERS:
         fn.launches = 0
+    _SHAPES.clear()
 
 
 def launch_counts() -> dict:
     """``{launcher name: launches}`` since the last reset."""
     return {fn.__name__: fn.launches for fn in LAUNCHERS}
+
+
+def launch_shapes() -> dict:
+    """``{(paths B, points L, d, depth, (p, jw, cw, S, threads)): launches}``
+    of :func:`horner` since the last reset (L = increments + 1; the last
+    entry is the geometry it launched at)."""
+    return dict(_SHAPES)
 
 
 reset_launch_counts()

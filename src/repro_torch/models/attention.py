@@ -1,18 +1,19 @@
-"""GQA attention over full sequences: the blocked (streaming-softmax)
-training path.
+"""GQA attention: the blocked (streaming-softmax) path over full sequences
+and the cached decode paths.
 
-Counterpart of the full-sequence half of ``repro/models/attention.py``.  The
-path streams over KV chunks with an online softmax, so no more than
-(B, S, H, chunk) scores exist at once.  It is plain PyTorch, as the JAX
+Counterpart of ``repro/models/attention.py``.  The training / prefill path
+streams over KV chunks with an online softmax, so no more than
+(B, S, H, chunk) scores exist at once.  Decode attends one token against a
+full preallocated KV cache or a sliding-window ring cache (RecurrentGemma's
+local attention: O(window) memory at any context length), and writes the
+token's K and V into the cache in place.  It is plain PyTorch, as the JAX
 package's is plain XLA (no Pallas kernel); no library attention is called.
-The cached decode paths (``cache_init``, ``decode_attention``) wait for
-ROADMAP item 8b.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -123,3 +124,67 @@ def attention(p, x, positions, *, rope_theta, causal=True, window=0,
     out = blocked_attention(q, k, v, positions, kv_pos,
                             causal=causal, window=window, chunk=chunk)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
+
+
+# ---------------------------------------------------------------------------
+# decode with caches
+# ---------------------------------------------------------------------------
+
+def cache_init(batch: int, max_len: int, n_kv: int, head_dim: int,
+               dtype=torch.bfloat16, device=None) -> Dict:
+    """Full preallocated KV cache (a position's slot is its index)."""
+    shape = (batch, max_len, n_kv, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def window_cache_init(batch: int, window: int, n_kv: int, head_dim: int,
+                      dtype=torch.bfloat16, device=None) -> Dict:
+    """Sliding-window ring cache: position p lives at slot p % window;
+    ``pos`` (int32) holds each slot's position, -10**9 while empty."""
+    shape = (batch, window, n_kv, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.full((window,), -10 ** 9, dtype=torch.int32, device=device)}
+
+
+def decode_attention(p, x, cache: Dict, cur_len: int, *, rope_theta, window: int = 0):
+    """One-token attention against a cache.  x: (B, 1, d_model); cur_len:
+    the token's position, a Python int.
+
+    Writes the token's K and V (in the cache's dtype) into ``cache`` in
+    place, at slot ``cur_len`` of a full cache or ``cur_len % window`` of a
+    ring, and returns (out (B, 1, d_model), cache).  A ring slot is valid
+    where 0 <= pos <= cur_len and pos > cur_len - window.  The scores and
+    the weighted sum are float32 products of the cache's values upcast (the
+    JAX function's ``preferred_element_type=float32``); a full cache
+    attends over its first cur_len + 1 slots only, the slots the JAX
+    function's mask leaves valid.
+    """
+    dt = x.dtype
+    q, k, v = qkv(p, x, torch.full((1,), cur_len, device=x.device), rope_theta)
+    if window:
+        slot = cur_len % window
+        cache["k"][:, slot] = k[:, 0]
+        cache["v"][:, slot] = v[:, 0]
+        cache["pos"][slot] = cur_len
+        kv_pos = cache["pos"]
+        valid = (kv_pos >= 0) & (kv_pos <= cur_len) & (kv_pos > cur_len - window)
+        ck, cv = cache["k"], cache["v"]
+    else:
+        cache["k"][:, cur_len] = k[:, 0]
+        cache["v"][:, cur_len] = v[:, 0]
+        ck, cv = cache["k"][:, :cur_len + 1], cache["v"][:, :cur_len + 1]
+        valid = None
+
+    B, _, H, D = q.shape
+    KV = ck.shape[2]
+    G = H // KV
+    qf = (q / math.sqrt(D)).to(ck.dtype).reshape(B, KV, G, D).float()
+    s = torch.einsum("bkgd,bckd->bkgc", qf, ck.float())
+    if valid is not None:
+        s = torch.where(valid, s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgc,bckd->bkgd", w.to(cv.dtype).float(), cv.float())
+    out = out.reshape(B, 1, H, D).to(dt)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt)), cache

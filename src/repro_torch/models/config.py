@@ -4,7 +4,8 @@ A copy of ``repro/models/config.py``.  One dataclass covers the ten
 assigned architectures (dense / MoE / VLM / audio enc-dec / SSM / hybrid).
 Exact full-size configs live in ``repro_torch.configs.<arch>``; every config
 also provides a ``reduced()`` variant for CPU smoke tests.  Of the families,
-only ``dense`` builds in the port so far (:func:`repro_torch.models.build_model`).
+``dense`` and ``hybrid`` build in the port so far
+(:func:`repro_torch.models.build_model`).
 """
 
 from __future__ import annotations

@@ -209,7 +209,7 @@ def test_configs_are_the_jax_packages():
 
 
 @pytest.mark.parametrize("name", [n for n in ASSIGNED
-                                  if get_config(n).family != "dense"])
+                                  if get_config(n).family not in ("dense", "hybrid")])
 def test_other_families_are_refused(name):
     with pytest.raises(NotImplementedError, match="8b"):
         build_model(get_config(name).reduced(), device="cpu")
