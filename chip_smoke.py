@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's signature and signature-kernel paths, forward and
-gradient, its LM serving path and its example scripts, on one CUDA card.
+gradient, its LM serving path, its example scripts and the MoE family, on
+one CUDA card.
 
     python3 chip_smoke.py
 
@@ -172,9 +173,37 @@ Phases (any failure exits non-zero; nothing runs without CUDA):
    at λ = 0, order 1, float32, and every Horner shape and geometry through
    ``horner_shape_check``, exactly.
 
-Phases 8-16 run after phase 7's timing and before the ``kernels`` line;
+17. ``moe_path``: the MoE family.  (a) qwen2-moe-a2.7b at its full 24
+   layers (width 2048, 60 routed experts top-4 and 4 shared) and dbrx-132b
+   (width 6144, 16 experts top-4) at the most layers whose float32 build
+   fits (the cut printed), each built in float32 (the build's peak held
+   to the tree, one layer and one leaf), cast in place to a bf16 master
+   and served from it under ``torch.inference_mode``: 4 prompts of 512
+   tokens, 32 greedy tokens.  Prints parameters, bf16 bytes, the build,
+   cast and serving peaks, prefill and decode ms (CUDA events, median),
+   tokens/s, profiles, the share of assignments prefill's capacity kept,
+   each expert's load in the first layer, and the bounds: prefill by the
+   bf16 products over the cap slots the dense dispatch computes; decode by
+   the bytes of every expert's weights (the dense dispatch reads them all)
+   and of the experts the logged steps' tokens routed to.  Checks as phase
+   15's, the float32 check at S = 32, k = 8, where both prefills are
+   dropless (at the serving shape capacity drops make prefill and decode
+   differ by design).  (b) The MoE LM at qwen2-moe-a2.7b's width, 2 layers,
+   ``sig_loss`` on: ``make_train_step``, two microbatches on
+   ``TokenLM(vocab, 512, 4)``, 5 steps; the loss must fall, ``aux`` stay
+   finite and positive, ``sig`` finite; B1-cps, B2 and a fused kernel must
+   launch, and every Goursat shape and variant no earlier check took goes
+   through ``shape_check``.  (c) The reduced configs (stacked with shared
+   experts, per layer without), drawn on the CPU: prefill of 6 and 9
+   decode steps, then the loss and every parameter gradient at B·S = 256
+   with the routers sharpened (capacity drops), card against CPU within
+   1e-4, every router margin >= 1e-4 (``tests/test_torch_moe.py``).
+
+Phases 8-17 run after phase 7's timing and before the ``kernels`` line;
 each sets the launch counts to 0 just before it and reads them just after
-(phase 11 and 16's distributed example in each rank).  Phase 4 also times the host build of the
+(phase 11 and 16's distributed example in each rank).  ``python3
+tools/serving_probe.py --phase 17`` runs phase 17 alone with its shape
+checks.  Phase 4 also times the host build of the
 ``"brackets"`` basis change at d = 16, N = 4.  Every phase reads, and
 phases 13 and 14 write, an autotune cache under a temporary directory the
 script makes and removes (``REPRO_AUTOTUNE_CACHE``; phase 14 a fresh file),
@@ -183,6 +212,7 @@ never the home directory's.  The script takes no arguments.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -307,6 +337,21 @@ SERVE_LM_HEADROOM = 8 << 30      # bytes left free beside weights and caches
 SERVE_LM_REDUCED = (("deepseek-7b", {"scan_layers": True}), ("recurrentgemma-2b", {}),
                     ("recurrentgemma-2b", {"n_layers": 7, "scan_layers": True}))
 BF16_FLOPS_PER_S = 989e12        # H100 SXM data sheet, dense bf16 tensor cores
+# phase 17: the MoE family.  (a) Serving at full width, bf16 from a bf16
+# master cast in place; "check" as in phase 15, at (S, k) where both
+# prefills are dropless (B·S <= 128) and groupable (ROADMAP C9): at the
+# serving shape capacity drops make a prefill and decode differ by design
+SERVE_MOE = ({"arch": "qwen2-moe-a2.7b", "batch": 4, "prompt": 512, "tokens": 32,
+              "check": (32, 8)},
+             {"arch": "dbrx-132b", "batch": 4, "prompt": 512, "tokens": 32, "check": (32, 8)})
+#: untimed decode steps with the routing logged (the routed-expert bound)
+MOE_LOG_STEPS = 4
+#: (c) the reduced configs card against CPU: stacked with shared experts,
+#: per layer without
+MOE_REDUCED = (("qwen2-moe-a2.7b", {"scan_layers": True}), ("dbrx-132b", {}))
+#: least gap between a token's k+1 largest router logits, relative
+#: (tests/test_torch_moe.py's margin)
+MOE_MARGIN = 1e-4
 # phase 16: the port's example scripts at their defaults, in this order
 EXAMPLES_DIR = os.path.join(ROOT, "examples")
 EXAMPLES = ("serve_lm_torch", "quickstart_torch", "serve_sig_features_torch",
@@ -314,6 +359,8 @@ EXAMPLES = ("serve_lm_torch", "quickstart_torch", "serve_sig_features_torch",
 EXAMPLES_ERR = 1e-4              # every printed error line (the JAX quickstart's bar)
 GAN = dict(batch=64, length=256, dim=8, dyadic=1, steps=30, timed=10, lr=1e-5, warmup=20)
 LM = dict(layers=2, seq=512, batch=4, microbatches=2, steps=5, sig_dim=4)
+#: phase 17 (b): the trainer at qwen2-moe-a2.7b's width, its depth cut, as phase 12's LM
+MOE_TRAIN = {**LM, "arch": "qwen2-moe-a2.7b"}
 GAN_SMALL = (8, 32, 8)
 TRAIN_CARD_CPU_REL = 1e-4
 TRAIN_PATH = ("fwd_cps", "bwd")     # and at least one of fwd_fused, gram_fused
@@ -1004,6 +1051,12 @@ def main() -> int:
     for key, by_run in sorted(horner.items(), key=str):
         horner_shape_check(key, by_run, sig_kernel, dev, rng, name, power)
 
+    # the MoE trainer's Goursat shapes at each variant no earlier check took
+    checked = {(k, 0, "order1", "float32") for k in seen}
+    checked |= {(k, l1, s, i) for k, (_, ran) in goursat.items() for l1, _, s, i in ran}
+    moe_shapes = moe_phase(dev, reset_all, kernel, sig_kernel, name, power)
+    moe_shape_checks(moe_shapes, checked, kernel, dev, rng, name, power)
+
     emit({"kernels": rows})
     return finish(card)
 
@@ -1479,10 +1532,8 @@ def train_phase(dev, reset_all, kernel, name, power) -> list:
     import copy
     import torch
     from repro_torch.core import losses
-    from repro_torch.data import TokenLM
-    from repro_torch.models import build_model, get_config
+    from repro_torch.models import get_config
     from repro_torch.optim import AdamW, cosine_schedule
-    from repro_torch.train import make_train_step
     ex = load_gan_example()
     torch.cuda.empty_cache()
     reset_all()
@@ -1523,24 +1574,7 @@ def train_phase(dev, reset_all, kernel, name, power) -> list:
     # (b) the dense LM at deepseek-7b's width, 2 layers, sig_loss on
     cfg = get_config("deepseek-7b").replace(n_layers=LM["layers"], sig_loss=True,
                                             sig_loss_dim=LM["sig_dim"])
-    torch.cuda.reset_peak_memory_stats()
-    model = build_model(cfg, seed=0, device=dev)
-    n_lm = sum(p.numel() for p in model.parameters())
-    train_step = make_train_step(model, AdamW(model.parameters(), lr=cosine_schedule(1e-3, 2, 50)),
-                                 num_microbatches=LM["microbatches"])
-    batch = TokenLM(vocab=cfg.vocab, seq=LM["seq"], batch=LM["batch"],
-                    sig_target_dim=cfg.sig_loss_dim, device=dev).batch_at(0)
-    lm_steps = []
-    for _ in range(LM["steps"]):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        met = train_step(batch)
-        torch.cuda.synchronize()
-        lm_steps.append({**{k: float(v) for k, v in met.items()},
-                         "ms": (time.perf_counter() - t0) * 1e3})
-    lm_peak = torch.cuda.max_memory_allocated()
-    del model, train_step, batch
-    torch.cuda.empty_cache()
+    n_lm, lm_steps, lm_peak = lm_train(cfg, LM, dev)
     counts = kernel.launch_counts()
     shapes = kernel.launch_shapes()
     shapes_lm = {k: n - shapes_gen.get(k, 0) for k, n in shapes.items()
@@ -1602,6 +1636,38 @@ def train_phase(dev, reset_all, kernel, name, power) -> list:
           "train path launched neither fused kernel")
     return ([(k, {"train_generator": n}, lam) for k, n in sorted(shapes_gen.items(), key=str)]
             + [(k, {"train_lm": n}, 0) for k, n in sorted(shapes_lm.items(), key=str)])
+
+
+def lm_train(cfg, spec, dev):
+    """``spec["steps"]`` steps of ``make_train_step`` (AdamW on a cosine
+    schedule, ``spec["microbatches"]`` microbatches) of the LM of ``cfg``,
+    built on the card, on one ``TokenLM`` batch of ``spec["batch"]`` ×
+    ``spec["seq"]`` tokens.  Returns (parameters, each step's metrics and
+    ms, peak bytes)."""
+    import torch
+    from repro_torch.data import TokenLM
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.train import make_train_step
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, seed=0, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    train_step = make_train_step(model, AdamW(model.parameters(), lr=cosine_schedule(1e-3, 2, 50)),
+                                 num_microbatches=spec["microbatches"])
+    batch = TokenLM(vocab=cfg.vocab, seq=spec["seq"], batch=spec["batch"],
+                    sig_target_dim=cfg.sig_loss_dim, device=dev).batch_at(0)
+    steps = []
+    for _ in range(spec["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        met = train_step(batch)
+        torch.cuda.synchronize()
+        steps.append({**{k: float(v) for k, v in met.items()},
+                      "ms": (time.perf_counter() - t0) * 1e3})
+    peak = torch.cuda.max_memory_allocated()
+    del model, train_step, batch
+    torch.cuda.empty_cache()
+    return n_params, steps, peak
 
 
 def bench_phase(reset_all, kernel, name, power) -> None:
@@ -1800,32 +1866,46 @@ def autotune_phase(rt, dev, rng, reset_all, kernel, sig_kernel, sig_ops, name,
             for k, n in sorted(shapes.items(), key=str)]
 
 
-def lm_param_count(cfg) -> int:
-    """Parameters of the dense or hybrid LM of ``cfg``, from its shapes."""
-    from repro_torch.models.api import padded_vocab
+def layer_param_counts(cfg) -> list:
+    """Parameters of each layer of the dense, MoE or hybrid LM of ``cfg``,
+    from its shapes."""
     from repro_torch.models.transformer import layer_kind
     d, hd, W = cfg.d_model, cfg.hd, cfg.lru_width
     attn = d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
     attn += hd * (cfg.n_heads + 2 * cfg.n_kv_heads) if cfg.qkv_bias else 0
     rec = 3 * d * W + 2 * W * W + 8 * W      # w_x, w_y, w_out; w_a, w_i; conv, biases, Λ
-    mlp = (2 if cfg.act == "relu2" else 3) * d * cfg.d_ff
-    layers = sum((rec if layer_kind(cfg, i) == "rec" else attn) + mlp + 2 * d
-                 for i in range(cfg.n_layers))
-    return layers + padded_vocab(cfg) * d * (1 if cfg.tie_embeddings else 2) + d
+
+    def mlp(width):
+        return (2 if cfg.act == "relu2" else 3) * d * width
+
+    E, F, ns = cfg.n_experts, cfg.moe_d_ff, cfg.n_shared_experts
+    moe = d * E + 3 * E * d * F + (mlp(ns * F) + d if ns else 0)   # router, experts, shared
+    block = {"rec": rec + mlp(cfg.d_ff), "moe": attn + moe}
+    return [block.get(layer_kind(cfg, i), attn + mlp(cfg.d_ff)) + 2 * d
+            for i in range(cfg.n_layers)]
 
 
-def serve_depth(cfg, free_bytes: int) -> int:
+def lm_param_count(cfg) -> int:
+    """Parameters of the dense, MoE or hybrid LM of ``cfg``, from its shapes."""
+    from repro_torch.models.api import padded_vocab
+    d = cfg.d_model
+    return (sum(layer_param_counts(cfg)) + padded_vocab(cfg) * d * (1 if cfg.tie_embeddings
+                                                                   else 2) + d)
+
+
+def serve_depth(cfg, free_bytes: int, serve_bytes: int = 6) -> int:
     """The most layers of ``cfg`` (whole pattern groups cut from the end)
     whose build and bf16 serving fit in ``free_bytes`` with
-    :data:`SERVE_LM_HEADROOM` to spare: the build holds the float32 layers
-    twice while it stacks them; serving, the float32 master and a bf16
-    copy."""
+    :data:`SERVE_LM_HEADROOM` to spare: the build holds the float32
+    parameters once and one layer's draw; serving, ``serve_bytes`` a
+    parameter (6: a float32 master and a bf16 copy; 2: a bf16 master)."""
     step = len(cfg.block_pattern) or 1
     n = cfg.n_layers
     while n > step:
-        total = lm_param_count(cfg.replace(n_layers=n))
-        layers = total - lm_param_count(cfg.replace(n_layers=0))
-        if max(8 * layers + 4 * (total - layers), 6 * total) + SERVE_LM_HEADROOM <= free_bytes:
+        c = cfg.replace(n_layers=n)
+        total = lm_param_count(c)
+        build = 4 * (total + max(layer_param_counts(c)))
+        if max(build, serve_bytes * total) + SERVE_LM_HEADROOM <= free_bytes:
             break
         n -= step
     return n
@@ -1870,6 +1950,105 @@ def device_profile(fn, steps: int = 1) -> dict:
                                for e in top] if measured else None}
 
 
+def timed_serving(model, params, toks, P: int, N: int, max_len: int, dev) -> dict:
+    """bf16 serving on the compute tree ``params``: a first prefill of
+    ``toks[:, :P]``, one under torch.profiler, one timed (CUDA events); N
+    greedy decode steps, each timed, then PROFILE_STEPS more under the
+    profiler.  Returns the timings, peaks, tokens and cache bytes, with the
+    steps, the caches, the last token and the next position (``prefill``,
+    ``decode``, ``caches``, ``nxt``, ``pos``) for more steps."""
+    import torch
+    from repro_torch.models.params import tree_items
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+    prefill = make_prefill_step(model, max_len=max_len, params=params)
+    decode = make_decode_step(model, params=params)
+    _, first_prefill_ms = event_ms(lambda: prefill({"tokens": toks[:, :P]}))
+    prefill_prof = device_profile(lambda: prefill({"tokens": toks[:, :P]}))
+    (logits, caches), prefill_ms = event_ms(lambda: prefill({"tokens": toks[:, :P]}))
+    cache_bytes = sum(t.numel() * t.element_size() for _, t in tree_items(caches))
+    finite = [torch.isfinite(logits).all()]
+    nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+    out = [nxt]
+    torch.cuda.synchronize()
+    prefill_peak = torch.cuda.max_memory_allocated(dev)
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    events = []
+    t_dec = time.perf_counter()
+    for t in range(P, P + N):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        nxt, lg, caches = decode(caches, nxt, t)
+        ev[1].record()
+        events.append(ev)
+        finite.append(torch.isfinite(lg).all())
+        out.append(nxt)
+    torch.cuda.synchronize()
+    decode_wall_s = time.perf_counter() - t_dec
+    run = {"prefill": prefill, "decode": decode, "caches": caches, "nxt": nxt, "pos": P + N}
+
+    def more_steps():
+        for t in range(run["pos"], run["pos"] + PROFILE_STEPS):
+            run["nxt"], _, run["caches"] = decode(run["caches"], run["nxt"], t)
+    run.update(decode_peak=torch.cuda.max_memory_allocated(dev) - held,
+               decode_ms=[a.elapsed_time(b) for a, b in events], decode_wall_s=decode_wall_s,
+               decode_profile=device_profile(more_steps, PROFILE_STEPS),
+               first_prefill_ms=first_prefill_ms, prefill_ms=prefill_ms,
+               prefill_profile=prefill_prof, prefill_peak=prefill_peak, cache_bytes=cache_bytes,
+               gen=torch.cat(out, dim=1), all_finite=bool(torch.stack(finite).all()))
+    run["pos"] += PROFILE_STEPS
+    return run
+
+
+def serving_row(run, B: int, P: int, N: int) -> dict:
+    """The timings, throughputs, profiles and peaks of a ``timed_serving``
+    run, as row fields."""
+    med = float(np.median(run["decode_ms"]))
+    return {"first_prefill_ms": run["first_prefill_ms"], "prefill_ms": run["prefill_ms"],
+            "prefill_tokens_per_s": B * P / (run["prefill_ms"] / 1e3),
+            "decode_ms_per_token_median": med, "decode_ms_per_token": run["decode_ms"],
+            "decode_tokens_per_s": B / (med / 1e3),
+            "decode_wall_tokens_per_s": B * N / run["decode_wall_s"],
+            "prefill_profile": run["prefill_profile"],
+            "decode_profile_per_step": run["decode_profile"],
+            "serve_peak_bytes": run["prefill_peak"],
+            "decode_peak_above_held_bytes": run["decode_peak"],
+            "cache_bytes": run["cache_bytes"], "sample": run["gen"][0, :16].tolist()}
+
+
+def float32_check(model, cfg, toks, S: int, k: int):
+    """float32 on the model's own parameters (no copy): the logits of a
+    prefill of S tokens against those of a prefill of S - k then k decode
+    steps.  Returns (their relative error, the full prefill's ms)."""
+    from repro_torch.models.api import Model
+    m32 = Model(cfg.replace(compute_dtype="float32"), model.tree())
+    check(m32.embed.table.data_ptr() == model.embed.table.data_ptr(),
+          f"{cfg.name}: the float32 model copied the parameters")
+    (l_full, _), ms = event_ms(lambda: m32.prefill({"tokens": toks[:, :S], "max_len": S}))
+    _, c32 = m32.prefill({"tokens": toks[:, :S - k], "max_len": S})
+    for t in range(S - k, S):
+        l_dec, c32 = m32.decode(c32, toks[:, t:t + 1], t)
+    V = cfg.vocab
+    return rel_err(l_dec[..., :V], l_full[..., :V]), ms
+
+
+def serving_checks(what: str, run, w_bytes: int, f32_rel: float, B: int, N: int, S: int,
+                   k: int, vocab: int) -> None:
+    """Finite bf16 logits, tokens in the vocabulary, decode's memory rise
+    within DECODE_PEAK_SHARE of the bf16 weights, the float32 check within
+    SERVE_LM_REL."""
+    gen = run["gen"]
+    check(run["all_finite"], f"{what}: non-finite bf16 logits")
+    check(bool(((gen >= 0) & (gen < vocab)).all()) and tuple(gen.shape) == (B, N + 1),
+          f"{what}: tokens {tuple(gen.shape)} outside the vocabulary")
+    check(run["decode_peak"] <= DECODE_PEAK_SHARE * w_bytes,
+          f"{what}: decode took {run['decode_peak']} bytes above what it held, more than "
+          f"{DECODE_PEAK_SHARE} of the {w_bytes} bf16 weight bytes (a cast per step?)")
+    check(f32_rel <= SERVE_LM_REL,
+          f"{what}: float32 prefill of {S} against {S - k} + {k} decode steps, rel err "
+          f"{f32_rel:.3g} > {SERVE_LM_REL}")
+
+
 def serve_lm_model(spec, dev, name, power) -> dict:
     """One model of phase 15 at full width: bf16 serving (prefill, then
     greedy decode) timed, then the float32 prefill-against-decode check on
@@ -1877,10 +2056,10 @@ def serve_lm_model(spec, dev, name, power) -> dict:
     import gc
     import torch
     from repro_torch.models import build_model, get_config
-    from repro_torch.models.api import Model, padded_vocab
+    from repro_torch.models.api import padded_vocab
     from repro_torch.models.params import tree_items
     from repro_torch.models.transformer import layer_kind
-    from repro_torch.serve.step import compute_params, make_decode_step, make_prefill_step
+    from repro_torch.serve.step import compute_params
     full = get_config(spec["arch"])
     gc.collect()
     torch.cuda.empty_cache()
@@ -1909,59 +2088,12 @@ def serve_lm_model(spec, dev, name, power) -> dict:
     with torch.inference_mode():
         params = compute_params(model)
         w_bytes = sum(t.numel() * t.element_size() for _, t in tree_items(params))
-        prefill = make_prefill_step(model, max_len=P + N + PROFILE_STEPS, params=params)
-        decode = make_decode_step(model, params=params)
-        _, first_prefill_ms = event_ms(lambda: prefill({"tokens": toks[:, :P]}))
-        prefill_prof = device_profile(lambda: prefill({"tokens": toks[:, :P]}))
-        (logits, caches), prefill_ms = event_ms(lambda: prefill({"tokens": toks[:, :P]}))
-        cache_bytes = sum(t.numel() * t.element_size() for _, t in tree_items(caches))
-        finite = [torch.isfinite(logits).all()]
-        nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
-        out = [nxt]
-        torch.cuda.synchronize()
-        prefill_peak = torch.cuda.max_memory_allocated(dev)
-        held = torch.cuda.memory_allocated(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        events = []
-        t_dec = time.perf_counter()
-        for t in range(P, P + N):
-            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-            nxt, lg, caches = decode(caches, nxt, t)
-            ev[1].record()
-            events.append(ev)
-            finite.append(torch.isfinite(lg).all())
-            out.append(nxt)
-        torch.cuda.synchronize()
-        decode_wall_s = time.perf_counter() - t_dec
-        decode_peak = torch.cuda.max_memory_allocated(dev) - held
-        decode_ms = [a.elapsed_time(b) for a, b in events]
-
-        def more_steps():
-            nonlocal nxt, caches
-            for t in range(P + N, P + N + PROFILE_STEPS):
-                nxt, _, caches = decode(caches, nxt, t)
-        decode_prof = device_profile(more_steps, PROFILE_STEPS)
-        gen = torch.cat(out, dim=1)
-        all_finite = bool(torch.stack(finite).all())
-        in_vocab = bool(((gen >= 0) & (gen < cfg.vocab)).all())
-        del params, prefill, decode, caches, logits, lg, out
+        run = timed_serving(model, params, toks, P, N, P + N + PROFILE_STEPS, dev)
+        del params, run["prefill"], run["decode"], run["caches"]
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
-
-        # float32: S tokens at once against S - k then k decode steps
-        m32 = Model(cfg.replace(compute_dtype="float32"), model.tree())
-        check(m32.embed.table.data_ptr() == model.embed.table.data_ptr(),
-              "serve_lm: the float32 model copied the parameters")
-        (l_full, _), f32_prefill_ms = event_ms(
-            lambda: m32.prefill({"tokens": toks[:, :S], "max_len": S}))
-        _, c32 = m32.prefill({"tokens": toks[:, :S - k], "max_len": S})
-        for t in range(S - k, S):
-            l_dec, c32 = m32.decode(c32, toks[:, t:t + 1], t)
-        V = cfg.vocab
-        f32_rel = rel_err(l_dec[..., :V], l_full[..., :V])
-        del m32, c32, l_full, l_dec
+        f32_rel, f32_prefill_ms = float32_check(model, cfg, toks, S, k)
     peak = torch.cuda.max_memory_allocated(dev)
     del model
     gc.collect()
@@ -1992,47 +2124,31 @@ def serve_lm_model(spec, dev, name, power) -> dict:
             f32_ops += 2 * 2 * B * cfg.n_heads * cfg.hd * P * span // 2
     prefill_ops_ms = (mm / BF16_FLOPS_PER_S + f32_ops / FP32_FLOPS_PER_S) * 1e3
     prefill_bytes_ms = w_bytes / HBM_BYTES_PER_S * 1e3
-    med = float(np.median(decode_ms))
     row = {"config": cfg.name, "family": cfg.family, "params": n_params,
            "n_layers": cfg.n_layers, "d_model": d, "reduced": cut, "compute_dtype": "bfloat16",
            "batch": B, "prompt": P, "decode_steps": N, "build_s": build_s,
-           "bf16_weight_bytes": w_bytes, "cache_bytes": cache_bytes,
-           "first_prefill_ms": first_prefill_ms, "prefill_ms": prefill_ms,
-           "prefill_tokens_per_s": B * P / (prefill_ms / 1e3),
+           "bf16_weight_bytes": w_bytes, **serving_row(run, B, P, N),
            "prefill_bound_ms": max(prefill_ops_ms, prefill_bytes_ms),
            "prefill_bound_by": "operations" if prefill_ops_ms >= prefill_bytes_ms else "bytes",
-           "decode_ms_per_token_median": med, "decode_ms_per_token": decode_ms,
-           "decode_tokens_per_s": B / (med / 1e3),
-           "decode_wall_tokens_per_s": B * N / decode_wall_s,
            "decode_bound_ms": decode_bound_ms, "decode_bound_by": "bytes",
-           "prefill_profile": prefill_prof, "decode_profile_per_step": decode_prof,
-           "build_peak_bytes": build_peak, "serve_peak_bytes": prefill_peak,
-           "decode_peak_above_held_bytes": decode_peak, "float32_check_peak_bytes": peak,
-           "sample": gen[0, :16].tolist(),
+           "build_peak_bytes": build_peak, "float32_check_peak_bytes": peak,
            "float32_check": {"S": S, "k": k, "rel_err": f32_rel, "prefill_ms": f32_prefill_ms},
            "card": name, "power_limit": power}
-    check(all_finite, f"serve_lm {cfg.name}: non-finite bf16 logits")
-    check(in_vocab and tuple(gen.shape) == (B, N + 1),
-          f"serve_lm {cfg.name}: tokens {tuple(gen.shape)} outside the vocabulary")
-    check(decode_peak <= DECODE_PEAK_SHARE * w_bytes,
-          f"serve_lm {cfg.name}: decode took {decode_peak} bytes above what it held, more "
-          f"than {DECODE_PEAK_SHARE} of the {w_bytes} bf16 weight bytes (a cast per step?)")
-    check(f32_rel <= SERVE_LM_REL,
-          f"serve_lm {cfg.name}: float32 prefill of {S} against {S - k} + {k} decode steps, "
-          f"rel err {f32_rel:.3g} > {SERVE_LM_REL}")
+    serving_checks(f"serve_lm {cfg.name}", run, w_bytes, f32_rel, B, N, S, k, cfg.vocab)
     return row
 
 
-def serve_lm_card_vs_cpu(dev) -> dict:
-    """The reduced configs of both families (every layout), parameters
-    drawn on the CPU in the JAX layout: prefill of 6 tokens and 9 decode
-    steps (the hybrid's ring of 8 wraps) on the card against the CPU."""
+def serve_lm_card_vs_cpu(dev, reduced=SERVE_LM_REDUCED) -> dict:
+    """The reduced configs ``reduced`` ((arch, config changes) pairs; by
+    default both phase 15 families, every layout), parameters drawn on the
+    CPU in the JAX layout: prefill of 6 tokens and 9 decode steps (the
+    hybrid's ring of 8 wraps) on the card against the CPU."""
     import copy
     import torch
     from repro_torch.models import build_model, get_config
     from repro_torch.models.params import tree_items
     out = {}
-    for arch, kw in SERVE_LM_REDUCED:
+    for arch, kw in reduced:
         cfg = get_config(arch).reduced().replace(**kw)
         cpu = build_model(cfg, seed=3, device="cpu")
         card = copy.deepcopy(cpu).to(dev)
@@ -2210,6 +2326,303 @@ def horner_shape_check(key, by_run, sig_kernel, dev, rng, name, power) -> None:
               z, N, *geo), 5), "plain_ms": time_ms(lambda: sig_kernel.horner_plain(z, N), 2),
           "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
           else "operations", "card": name, "power_limit": power})
+
+
+@contextlib.contextmanager
+def routing_log():
+    """Wrap ``repro_torch.models.moe.route`` while a MoE model runs: yields a
+    list that gets, for every call (one MoE layer), its router margin
+    (``moe.router_margin``) and each expert's kept assignments and
+    assignments, (E,) tensors on the call's device."""
+    from repro_torch.models import moe
+    log, route = [], moe.route
+
+    def logged(p, xg, cfg):
+        r = route(p, xg, cfg)
+        log.append({"margin": moe.router_margin(r.logits, cfg.n_experts_per_tok),
+                    "kept": r.keep.sum((0, 1)), "assigned": r.onehot.sum((0, 1, 2))})
+        return r
+
+    moe.route = logged
+    try:
+        yield log
+    finally:
+        moe.route = route
+
+
+def cast_master_(model, dtype) -> None:
+    """Each parameter cast to ``dtype`` in place, one at a time (its
+    float32 storage freed before the next is cast): the peak is the
+    float32 tree and one cast leaf, not two trees."""
+    import torch
+    with torch.no_grad():
+        for p in model.parameters():
+            p.data = p.data.to(dtype)
+
+
+def serve_moe_model(spec, dev, name, power) -> dict:
+    """One model of phase 17 at full width: built in float32 (the build's
+    peak held to the tree, one layer and one leaf), cast in place to a bf16
+    master, served from it in bf16 (prefill, greedy decode; routing logged
+    on untimed steps), then the float32 prefill-against-decode check on the
+    same parameters."""
+    import gc
+    import torch
+    from repro_torch.models import build_model, get_config
+    from repro_torch.models.api import padded_vocab
+    from repro_torch.models.moe import capacity, group_size
+    from repro_torch.models.params import tree_items
+    from repro_torch.serve.step import compute_params
+    full = get_config(spec["arch"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    depth = serve_depth(full, torch.cuda.mem_get_info(dev)[0], serve_bytes=2)
+    cfg = full.replace(n_layers=depth, param_dtype="bfloat16")
+    cut = (None if depth == full.n_layers else
+           f"n_layers {full.n_layers} -> {depth} (the float32 build of more layers does not "
+           f"fit beside what the card holds)")
+    if cut:
+        print(f"moe {cfg.name}: depth cut, {cut}")
+    B, P, N = spec["batch"], spec["prompt"], spec["tokens"]
+    S, k = spec["check"]
+    E, F_, d, L_ = cfg.n_experts, cfg.moe_d_ff, cfg.d_model, cfg.n_layers
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    model = build_model(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    build_peak = torch.cuda.max_memory_allocated(dev) - base
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == lm_param_count(cfg),
+          f"moe {cfg.name}: {n_params} parameters, the shapes say {lm_param_count(cfg)}")
+    leaf = max(p.numel() for p in model.parameters())
+    build_bound = 4 * (n_params + max(layer_param_counts(cfg)) + leaf)
+    check(build_peak <= build_bound,
+          f"moe {cfg.name}: the build peaked at {build_peak} bytes, above the float32 tree, "
+          f"one layer and one leaf ({build_bound})")
+    torch.cuda.reset_peak_memory_stats(dev)
+    cast_master_(model, getattr(torch, cfg.param_dtype))
+    torch.cuda.synchronize()
+    cast_peak = torch.cuda.max_memory_allocated(dev) - base
+    check(cast_peak <= 4 * n_params + 2 * leaf + (64 << 20),
+          f"moe {cfg.name}: the cast to bf16 peaked at {cast_peak} bytes")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (B, max(P, S)), generator=g, device=dev)
+
+    with torch.inference_mode():
+        params = compute_params(model)
+        check(params["embed"]["table"] is model.embed.table,
+              f"moe {cfg.name}: compute_params copied the bf16 master")
+        w_bytes = sum(t.numel() * t.element_size() for _, t in tree_items(params))
+        run = timed_serving(model, params, toks, P, N, P + N + PROFILE_STEPS + MOE_LOG_STEPS,
+                            dev)
+        # untimed, with the routing logged: decode steps (the experts each
+        # layer's tokens route to), then a prefill (what capacity kept)
+        with routing_log() as dec_log:
+            for t in range(run["pos"], run["pos"] + MOE_LOG_STEPS):
+                run["nxt"], _, run["caches"] = run["decode"](run["caches"], run["nxt"], t)
+        used = [int((r["kept"] > 0).sum()) for r in dec_log]
+        with routing_log() as pre_log:
+            run["prefill"]({"tokens": toks[:, :P]})
+        del params, run["prefill"], run["decode"], run["caches"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        # both prefills dropless (B·S <= 128 tokens a group)
+        with routing_log() as f32_log:
+            f32_rel, f32_prefill_ms = float32_check(model, cfg, toks, S, k)
+    peak = torch.cuda.max_memory_allocated(dev)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    kept_by_layer = [float(r["kept"].sum()) / float(r["assigned"].sum()) for r in pre_log]
+    kept = sum(float(r["kept"].sum()) for r in pre_log)
+    assigned = sum(float(r["assigned"].sum()) for r in pre_log)
+    f32_dropless = all(torch.equal(r["kept"], r["assigned"]) for r in f32_log)
+    f32_margin = min(r["margin"] for r in f32_log)
+
+    # bounds at H100 SXM peaks.  Decode by bytes, two ways: the bf16 weights
+    # the dense dispatch reads (every expert; not the input embedding, B rows
+    # of it) with the KV slots at the median step; and the same with only the
+    # experts the logged steps' tokens routed to.  Prefill by operations: the
+    # bf16 products over the cap slots the dispatch computes (and its one-hot
+    # dispatch / combine products), the float32 attention products
+    vp = padded_vocab(cfg)
+    expert_bytes = 3 * d * F_ * 2
+    mid = P + N // 2
+    step_bytes = (w_bytes - vp * d * 2 + B * d * 2
+                  + L_ * 2 * B * (mid + 1) * cfg.n_kv_heads * cfg.hd * 2)
+    decode_bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    used_per_step = [sum(used[i:i + L_]) for i in range(0, len(used), L_)]
+    routed_bytes = step_bytes - L_ * E * expert_bytes + float(np.mean(used_per_step)) * expert_bytes
+    routed_bound_ms = routed_bytes / HBM_BYTES_PER_S * 1e3
+    T_ = B * P
+    g_ = group_size(T_)
+    cap = capacity(g_, cfg.n_experts_per_tok, E)
+    slots = (T_ // g_) * E * cap
+    attn_p = d * cfg.hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+    shared = 3 * d * cfg.n_shared_experts * F_ + d if cfg.n_shared_experts else 0
+    per_layer = (2 * T_ * (attn_p + d * E + shared) + 2 * slots * 3 * d * F_
+                 + 2 * 2 * T_ * E * cap * d)
+    mm = L_ * per_layer + 2 * B * d * vp
+    f32_ops = L_ * 2 * 2 * B * cfg.n_heads * cfg.hd * P * P // 2
+    prefill_ops_ms = (mm / BF16_FLOPS_PER_S + f32_ops / FP32_FLOPS_PER_S) * 1e3
+    prefill_bytes_ms = w_bytes / HBM_BYTES_PER_S * 1e3
+    first = pre_log[0]
+    row = {"config": cfg.name, "family": cfg.family, "params": n_params, "n_layers": L_,
+           "d_model": d, "n_experts": E, "experts_per_token": cfg.n_experts_per_tok,
+           "n_shared_experts": cfg.n_shared_experts, "reduced": cut,
+           "master_dtype": cfg.param_dtype, "compute_dtype": "bfloat16", "batch": B,
+           "prompt": P, "decode_steps": N, "build_s": build_s, "bf16_weight_bytes": w_bytes,
+           **serving_row(run, B, P, N),
+           "prefill_bound_ms": max(prefill_ops_ms, prefill_bytes_ms),
+           "prefill_bound_by": "operations" if prefill_ops_ms >= prefill_bytes_ms else "bytes",
+           "prefill_capacity": cap, "prefill_slots": slots,
+           "prefill_assignments": T_ * cfg.n_experts_per_tok,
+           "prefill_kept_share": kept / assigned, "prefill_kept_share_by_layer": kept_by_layer,
+           "first_layer_load": {"kept": first["kept"].tolist(),
+                                "assigned": first["assigned"].tolist()},
+           "decode_bound_ms": decode_bound_ms, "decode_bound_by": "bytes",
+           "decode_routed_bound_ms": routed_bound_ms,
+           "decode_experts_routed_per_step": used_per_step,
+           "build_peak_bytes": build_peak, "build_bound_bytes": build_bound,
+           "cast_peak_bytes": cast_peak, "float32_check_peak_bytes": peak,
+           "float32_check": {"S": S, "k": k, "rel_err": f32_rel, "dropless": f32_dropless,
+                             "router_margin": f32_margin, "prefill_ms": f32_prefill_ms},
+           "card": name, "power_limit": power}
+    check(len(pre_log) == L_ and 0 < kept <= assigned == T_ * cfg.n_experts_per_tok * L_,
+          f"moe {cfg.name}: prefill routed {kept} of {assigned} assignments")
+    check(f32_dropless, f"moe {cfg.name}: the float32 check's prefills dropped assignments")
+    serving_checks(f"moe {cfg.name} (float32 router margin {f32_margin:.3g})", run, w_bytes,
+                   f32_rel, B, N, S, k, cfg.vocab)
+    return row
+
+
+def moe_train(dev) -> dict:
+    """Phase 17 (b): the MoE LM at qwen2-moe-a2.7b's width, its depth cut,
+    ``sig_loss`` on, trained as phase 12 trains the dense LM."""
+    from repro_torch.models import get_config
+    full = get_config(MOE_TRAIN["arch"])
+    cfg = full.replace(n_layers=MOE_TRAIN["layers"], sig_loss=True,
+                       sig_loss_dim=MOE_TRAIN["sig_dim"])
+    n_params, steps, peak = lm_train(cfg, MOE_TRAIN, dev)
+    ms = float(np.median([r["ms"] for r in steps[1:]]))
+    return {"config": cfg.name, "params": n_params, "d_model": cfg.d_model,
+            "n_experts": cfg.n_experts, "compute_dtype": cfg.compute_dtype,
+            "reduced": f"n_layers {full.n_layers} -> {cfg.n_layers} (float32 Adam state for "
+                       f"14 B parameters does not fit one card)",
+            "seq": MOE_TRAIN["seq"], "batch": MOE_TRAIN["batch"],
+            "microbatches": MOE_TRAIN["microbatches"], "steps": steps,
+            "ms_per_step_median_after_first": ms,
+            "tokens_per_s": MOE_TRAIN["batch"] * MOE_TRAIN["seq"] / (ms / 1e3),
+            "peak_memory_bytes": peak}
+
+
+def sharpen_(model, seed: int) -> None:
+    """Routers ×50 and one offset on every embedding row (a direction all
+    tokens share), so that a group of 256 overflows its experts."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        table = model.embed.table
+        table += (torch.randn(table.shape[1], generator=g) * 0.02).to(table.device)
+        for pname, p in model.named_parameters():
+            if pname.endswith("moe.router"):
+                p *= 50
+
+
+def moe_card_vs_cpu(dev) -> dict:
+    """Phase 17 (c): the reduced MoE configs (stacked with shared experts,
+    per layer without), parameters drawn on the CPU: prefill of 6 tokens and
+    9 decode steps, then, with the routers sharpened, the loss and every
+    parameter gradient at B·S = 256 (capacity drops), card against CPU.
+    Every MoE block's router logits must keep the margin."""
+    import copy
+    import torch
+    from repro_torch.models import build_model, get_config
+    with routing_log() as log:
+        out = {f"serve {k}": v for k, v in serve_lm_card_vs_cpu(dev, MOE_REDUCED).items()}
+    margins = [r["margin"] for r in log]
+    for arch, kw in MOE_REDUCED:
+        cfg = get_config(arch).reduced().replace(**kw)
+        cpu = build_model(cfg, seed=3, device="cpu")
+        sharpen_(cpu, 6)
+        card = copy.deepcopy(cpu).to(dev)
+        toks = torch.randint(0, cfg.vocab, (2, 129), generator=torch.Generator().manual_seed(7))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+        def loss_and_grads(m, where):
+            with routing_log() as lg_:
+                loss, met = m.loss({k_: v.to(where) for k_, v in batch.items()})
+            grads = torch.autograd.grad(loss, list(m.parameters()))
+            return loss.detach(), met["aux"].detach(), grads, lg_
+
+        la, aa, ga, log_a = loss_and_grads(card, dev)
+        lb, ab, gb, log_b = loss_and_grads(cpu, "cpu")
+        what = f"train {arch}{'' if not kw else ' ' + str(kw)}"
+        out[what] = max([rel_err(la.cpu(), lb), rel_err(aa.cpu(), ab)]
+                        + [rel_err(a.cpu(), b) for a, b in zip(ga, gb)])
+        kept = [float(r["kept"].sum()) for r in log_b]
+        assigned = [float(r["assigned"].sum()) for r in log_b]
+        check(all(a < b for a, b in zip(kept, assigned)),
+              f"reduced {what}: no capacity drop ({kept} of {assigned})")
+        margins += [r["margin"] for r in log_a + log_b]
+        check(out[what] <= SERVE_LM_CARD_CPU_REL,
+              f"reduced {what}: card against CPU rel err {out[what]:.3g}")
+    out["least_router_margin"] = min(margins)
+    check(min(margins) >= MOE_MARGIN,
+          f"reduced MoE: a near tie in the router logits, margin {min(margins):.3g}")
+    return out
+
+
+def moe_shape_checks(moe_shapes, checked, kernel, dev, rng, name, power) -> None:
+    """shape_check of every (Goursat key, refinement, scheme, interior
+    dtype) phase 17 ran that is not in ``checked``."""
+    for key, by_run, ran_at in moe_shapes:
+        for lam1, lam2, scheme, idt in sorted(ran_at):
+            check(lam1 == lam2, f"moe: {key} launched at refinement ({lam1}, {lam2})")
+            if (key, lam1, scheme, idt) not in checked:
+                shape_check(key, by_run, kernel, fwd_cps, dev, rng, name, power, lam=lam1,
+                            variants=((scheme, idt),))
+
+
+def moe_phase(dev, reset_all, kernel, sig_kernel, name, power) -> list:
+    """Phase 17: the MoE family served at full width (:data:`SERVE_MOE`),
+    trained at qwen2-moe-a2.7b's width (:data:`MOE_TRAIN`) and held card
+    against CPU on the reduced configs; the launch counts set to 0 just
+    before and read just after (serving reaches no hand-written kernel, the
+    trainer's signature-kernel auxiliary loss the Goursat kernels).
+    Returns [(Goursat launch key, {run: launches}, the (λ1, λ2, scheme,
+    interior dtype) it ran at)]."""
+    import torch
+    torch.cuda.empty_cache()
+    reset_all()
+    t_phase = time.time()
+    rows = [serve_moe_model(spec, dev, name, power) for spec in SERVE_MOE]
+    serve_counts = {**kernel.launch_counts(), **sig_kernel.launch_counts()}
+    train = moe_train(dev)
+    card_vs_cpu = moe_card_vs_cpu(dev)
+    counts = {**kernel.launch_counts(), **sig_kernel.launch_counts()}
+    shapes, ran_at = kernel.launch_shapes(), kernel.launch_variants()
+    emit({"moe_path": {"serve": rows, "train": train, "reduced_card_vs_cpu_rel": card_vs_cpu},
+          "serve_launches": serve_counts, "launches": counts,
+          "launches_by_shape": shape_rows(shapes), "seconds": round(time.time() - t_phase, 3),
+          "card": name, "power_limit": power})
+    losses = [r["loss"] for r in train["steps"]]
+    check(all(np.isfinite(losses + [r["sig"] for r in train["steps"]])),
+          f"moe LM: non-finite loss or sig {train['steps']}")
+    check(all(np.isfinite(r["aux"]) and r["aux"] > 0 for r in train["steps"]),
+          f"moe LM: aux not finite and positive {train['steps']}")
+    check(losses[-1] < losses[0], f"moe LM: the loss did not fall {losses}")
+    check(not any(serve_counts.values()), f"moe serving launched a kernel {serve_counts}")
+    for kname in TRAIN_PATH:
+        check(counts[kname] > 0, f"moe path never launched {kname}")
+    check(counts["fwd_fused"] + counts["gram_fused"] > 0, "moe path launched neither fused kernel")
+    return [(k, {"moe_train": n}, ran_at[k]) for k, n in sorted(shapes.items(), key=str)]
 
 
 if __name__ == "__main__":

@@ -5,7 +5,7 @@ and the RG-LRU state).
 The PyTorch counterpart of ``examples/serve_lm.py``, with its flags and
 defaults (the ``.reduced()`` config of ``--arch``, random parameters from a
 seed); it runs on the card unless given ``--device cpu``.  The port builds
-the dense and hybrid families; any other raises ``NotImplementedError``.
+the dense, MoE and hybrid families; any other raises ``NotImplementedError``.
 
     PYTHONPATH=src python examples/serve_lm_torch.py --arch recurrentgemma-2b --tokens 32
 """

@@ -11,5 +11,5 @@ CONFIG = register(ArchConfig(
 # Gram-engine settings for the dry-run / roofline cells: per-device row
 # blocks keep live Δ memory at row_block·By·L² floats, and the CPU-lowered
 # compile cells use the antidiag wavefront.  The JAX package's dry run reads
-# these; the port's dry run waits for ROADMAP item 8b.
+# these; the port's dry run waits for ROADMAP Queue A item A5.
 GRAM_ENGINE_DEFAULTS = dict(backend="antidiag", row_block=2)

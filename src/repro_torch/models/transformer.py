@@ -1,11 +1,13 @@
-"""Decoder-only layer stacks: the dense and hybrid families, over full
+"""Decoder-only layer stacks: the dense, MoE and hybrid families, over full
 sequences and with decode caches.
 
 Counterpart of ``repro/models/transformer.py`` for the ``dense`` layer (an
-attention block and an MLP, each behind an RMSNorm) and the hybrid
-family's ``rec`` (RG-LRU block and MLP) and ``attn`` (sliding-window
-attention and MLP) layers, RecurrentGemma's (rec, rec, attn) pattern.
-Three parameter layouts, as in the JAX package:
+attention block and an MLP, each behind an RMSNorm), the ``moe`` layer
+(attention and a Mixture-of-Experts block, :mod:`.moe`, whose auxiliary
+loss the stack sums) and the hybrid family's ``rec`` (RG-LRU block and
+MLP) and ``attn`` (sliding-window attention and MLP) layers,
+RecurrentGemma's (rec, rec, attn) pattern.  Three parameter layouts, as
+in the JAX package:
 
 * stacked, ``{"stacked": ...}`` with a leading layer axis: ``cfg.scan_layers``
   on a uniform family;
@@ -21,7 +23,9 @@ their slices.  ``cfg.remat`` recomputes each layer in the backward
 caches take the parameters' layout; :func:`stack_prefill` fills them and
 :func:`stack_decode` updates the caches it is given in place (the JAX
 package's scan carries donated cache buffers), one layer's slot at a time.
-The moe and ssm kinds wait for ROADMAP item 8b.
+A stacked tree is allocated once and each layer is written into its slice
+as it is drawn, so a build holds the parameters once (and one layer's
+draw).  The ssm kind waits for ROADMAP Queue A item A2.
 """
 
 from __future__ import annotations
@@ -34,17 +38,24 @@ from torch.utils.checkpoint import checkpoint
 
 from . import attention as A
 from . import layers as L
+from . import moe as MOE
 from . import rglru as RG
-from .params import tree_map
+from .params import tree_items, tree_map
+
+#: the ROADMAP Queue A item that ports each family the port does not build
+WAITING = {"ssm": "A2", "encdec": "A3", "vlm": "A4"}
 
 
 def layer_kind(cfg, idx: int) -> str:
     if cfg.family == "hybrid":
         return cfg.block_pattern[idx % len(cfg.block_pattern)]
+    if cfg.family == "moe":
+        return "moe"
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family's layers are not ported yet "
-            f"(ROADMAP Queue A item 8b); the port builds the 'dense' and 'hybrid' families")
+            f"{cfg.name}: the {cfg.family!r} family's layers are not ported yet (ROADMAP "
+            f"Queue A item {WAITING.get(cfg.family, '?')}); the port builds the 'dense', "
+            f"'moe' and 'hybrid' families")
     return "dense"
 
 
@@ -57,15 +68,26 @@ def layer_init(generator: torch.Generator, cfg, kind: str):
     p = {"ln1": L.rmsnorm_init(cfg.d_model, dev), "ln2": L.rmsnorm_init(cfg.d_model, dev)}
     if kind == "rec":
         p["rec"] = RG.rglru_init(generator, cfg)
-    else:  # dense or local-attention hybrid layer
+    else:  # dense, moe or local-attention hybrid layer
         p["attn"] = A.attn_init(generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                                 cfg.qkv_bias)
-    p["mlp"] = L.mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.act)
+    if kind == "moe":
+        p["moe"] = MOE.moe_init(generator, cfg)
+    else:
+        p["mlp"] = L.mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.act)
     return p
 
 
+def _ffn(p, h, cfg, kind: str):
+    """The layer's second block on the normed input: (out, aux)."""
+    if kind == "moe":
+        return MOE.moe_apply(p["moe"], h, cfg)
+    return L.mlp(p["mlp"], h, cfg.act), None
+
+
 def layer_apply(p, x, positions, cfg, kind: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence layer.  Returns (x, aux_loss); these kinds' aux is 0."""
+    """Full-sequence layer.  Returns (x, aux_loss); aux is the MoE block's,
+    0 for the other kinds."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind == "rec":
@@ -73,9 +95,8 @@ def layer_apply(p, x, positions, cfg, kind: str) -> Tuple[torch.Tensor, torch.Te
     else:
         x = x + A.attention(p["attn"], h, positions, rope_theta=cfg.rope_theta, causal=True,
                             window=_window(cfg, kind))
-    h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    x = x + L.mlp(p["mlp"], h, cfg.act)
-    return x, aux
+    y, a = _ffn(p, L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, kind)
+    return x + y, aux if a is None else a
 
 
 # ---------------------------------------------------------------------------
@@ -104,8 +125,8 @@ def layer_decode(p, x, cache, cur_len: int, cfg, kind: str):
         h, cache = A.decode_attention(p["attn"], h, cache, cur_len, rope_theta=cfg.rope_theta,
                                       window=_window(cfg, kind))
     x = x + h
-    h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + L.mlp(p["mlp"], h, cfg.act), cache
+    y, _ = _ffn(p, L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, kind)
+    return x + y, cache
 
 
 def _layer_prefill(p, h, cache, positions, cfg, kind: str):
@@ -134,8 +155,8 @@ def _layer_prefill(p, h, cache, positions, cfg, kind: str):
                                  f"{slots} slots (max_len)")
             cache["k"][:, :S] = k
             cache["v"][:, :S] = v
-    hn = L.rmsnorm(p["ln2"], h, cfg.norm_eps)
-    return h + L.mlp(p["mlp"], hn, cfg.act)
+    y, _ = _ffn(p, L.rmsnorm(p["ln2"], h, cfg.norm_eps), cfg, kind)
+    return h + y
 
 
 # ---------------------------------------------------------------------------
@@ -156,29 +177,44 @@ def _group_split(cfg):
     return cfg.n_layers // g, cfg.n_layers % g   # (n_groups, n_rest)
 
 
-def _stack(trees):
-    """Trees of one structure as one tree with a leading axis on each leaf."""
-    return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
-            else torch.stack([t[k] for t in trees]) for k, v in trees[0].items()}
-
-
-def _layout(layers: List[Dict], cfg) -> Dict:
-    """Per-layer trees (parameters or caches, in layer order) in cfg's
-    layout."""
+def _slot(cfg, i: int):
+    """Where layer ``i`` lives in cfg's layout: (path of keys, index along
+    the stacked axis or None, that axis' length)."""
     if _uniform(cfg):
-        return {"stacked": _stack(layers)}
+        return ("stacked",), i, cfg.n_layers
     if _grouped(cfg):
         g = len(cfg.block_pattern)
         n_groups, _ = _group_split(cfg)
-        tree = {"groups": {f"pos_{j}": _stack([layers[i * g + j] for i in range(n_groups)])
-                           for j in range(g)}}
-        tree.update({f"layer_{i}": layers[i] for i in range(n_groups * g, cfg.n_layers)})
-        return tree
-    return {f"layer_{i}": lp for i, lp in enumerate(layers)}
+        if i < n_groups * g:
+            return ("groups", f"pos_{i % g}"), i // g, n_groups
+    return (f"layer_{i}",), None, 1
+
+
+def _build(make, cfg) -> Dict:
+    """The per-layer trees ``make(i)``, made in layer order, in cfg's
+    layout.  A stacked leaf is allocated when its first layer is made and
+    each layer is copied into its slice before the next is made, so the
+    build holds the stacked trees once beside one layer's tree."""
+    tree: Dict = {}
+    for i in range(cfg.n_layers):
+        keys, idx, n = _slot(cfg, i)
+        lp = make(i)
+        node = tree
+        for key in keys[:-1]:
+            node = node.setdefault(key, {})
+        if idx is None:
+            node[keys[-1]] = lp
+            continue
+        if keys[-1] not in node:
+            node[keys[-1]] = tree_map(lambda a: a.new_empty((n,) + a.shape), lp)
+        for (_, dst), (_, src) in zip(tree_items(node[keys[-1]]), tree_items(lp)):
+            dst[idx].copy_(src)
+        del lp
+    return tree
 
 
 def _layers(tree: Dict, cfg) -> List[Dict]:
-    """The inverse of :func:`_layout`: a tree's per-layer subtrees in layer
+    """The inverse of :func:`_build`: a tree's per-layer subtrees in layer
     order, the stacked ones as views of their slices (an in-place write to
     one lands in the stack)."""
     if _uniform(cfg):
@@ -199,7 +235,7 @@ def _kinds(cfg) -> List[str]:
 def stack_init(generator: torch.Generator, cfg):
     """The layers' parameters in cfg's layout, drawn in layer order."""
     kinds = _kinds(cfg)
-    return _layout([layer_init(generator, cfg, kind) for kind in kinds], cfg)
+    return _build(lambda i: layer_init(generator, cfg, kinds[i]), cfg)
 
 
 def stack_apply(params, x, positions, cfg):
@@ -217,8 +253,8 @@ def stack_apply(params, x, positions, cfg):
 
 def stack_cache_init(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
     """Zeroed decode caches of every layer, in cfg's layout."""
-    return _layout([layer_cache_init(cfg, kind, batch, max_len, dtype, device)
-                    for kind in _kinds(cfg)], cfg)
+    kinds = _kinds(cfg)
+    return _build(lambda i: layer_cache_init(cfg, kinds[i], batch, max_len, dtype, device), cfg)
 
 
 def stack_decode(params, x, caches, cur_len: int, cfg):

@@ -10,8 +10,13 @@ through :func:`repro_torch.models.params_from_jax`, in both layer layouts
 (``scan_layers`` on: stacked, off: ``layer_{i}``); their losses and metrics
 agree within 5e-5 relative and every parameter gradient within 2e-4
 norm-relative against ``jax.grad`` (whose signature-kernel backward runs
-the ``"reference"`` / ``"antidiag"`` solvers on the CPU).  The configs are
-the JAX package's, field for field.
+the ``"reference"`` / ``"antidiag"`` solvers on the CPU).  So do the
+reduced MoE LMs (qwen2-moe-a2.7b stacked, dbrx-132b per layer), their
+``aux`` metric included, dropless at 24 tokens and with capacity drops at
+one group of 256 (the routers ×50, an offset on every embedding row); every
+MoE block keeps its router logits off a tie (``tests/test_torch_moe.py``).
+A stacked build's parameters equal a per-layer build's from the same seed
+bit for bit.  The configs are the JAX package's, field for field.
 """
 
 import dataclasses
@@ -39,7 +44,10 @@ from repro_torch.models import (ParamTree, build_model, get_config, list_configs
                                 params_from_jax)
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 from repro_torch.models.api import _logits, padded_vocab
+from repro_torch.models.params import tree_items
+from test_torch_moe import assert_margins, record_routing
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
@@ -209,9 +217,9 @@ def test_configs_are_the_jax_packages():
 
 
 @pytest.mark.parametrize("name", [n for n in ASSIGNED
-                                  if get_config(n).family not in ("dense", "hybrid")])
+                                  if get_config(n).family not in ("dense", "moe", "hybrid")])
 def test_other_families_are_refused(name):
-    with pytest.raises(NotImplementedError, match="8b"):
+    with pytest.raises(NotImplementedError, match="Queue A item A[234]"):
         build_model(get_config(name).reduced(), device="cpu")
 
 
@@ -237,29 +245,36 @@ def test_param_tree_round_trips():
 # ---------------------------------------------------------------------------
 
 B, S = 2, 12
+#: the LMs held to JAX: (arch, scan_layers)
+LMS = {"layers": ("deepseek-7b", False), "stacked": ("deepseek-7b", True),
+       "qwen2_moe_stacked": ("qwen2-moe-a2.7b", True), "dbrx_layers": ("dbrx-132b", False)}
 
 
-def lm_config(pkg_get, scan):
-    return pkg_get("deepseek-7b").reduced().replace(sig_loss=True, scan_layers=scan,
-                                                    remat=scan)
+def lm_config(pkg_get, scan, arch="deepseek-7b"):
+    return pkg_get(arch).reduced().replace(sig_loss=True, scan_layers=scan, remat=scan)
 
 
-def lm_batch(cfg, seed=0):
+def lm_batch(cfg, seed=0, seq=S):
     rng = np.random.default_rng(seed)
-    toks = rng.integers(0, cfg.vocab, size=(B, S + 1))
+    toks = rng.integers(0, cfg.vocab, size=(B, seq + 1))
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:],
             "sig_target": np.cumsum(f32(rng, B, 32, cfg.sig_loss_dim, scale=0.1), axis=1)}
 
 
-@pytest.fixture(scope="module", params=[False, True], ids=["layers", "stacked"])
-def lm_pair(request):
-    scan = request.param
-    jcfg, cfg = lm_config(jget_config, scan), lm_config(get_config, scan)
-    jm = jbuild_model(jcfg)
-    jp = jm.init(jax.random.PRNGKey(0))
-    tm = build_model(cfg, device="cpu")
-    tm.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jp)))
+def make_lm_pair(which, edit=None):
+    arch, scan = LMS[which]
+    jm = jbuild_model(lm_config(jget_config, scan, arch))
+    jp = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
+    if edit:
+        jp = edit(jp)
+    tm = build_model(lm_config(get_config, scan, arch), device="cpu")
+    tm.load_state_dict(params_from_jax(jp))
     return jm, jp, tm
+
+
+@pytest.fixture(scope="module", params=list(LMS))
+def lm_pair(request):
+    return make_lm_pair(request.param)
 
 
 def test_lm_layouts_carry_the_jax_names(lm_pair):
@@ -277,13 +292,14 @@ def test_params_from_jax_refuses_the_other_layout():
         tm.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jp)))
 
 
-def test_lm_loss_and_gradients_match_jax(lm_pair):
-    jm, jp, tm = lm_pair
-    batch = lm_batch(tm.cfg)
+def loss_and_grads_match_jax(jm, jp, tm, batch):
+    """The loss, its metrics and every parameter gradient against JAX's;
+    returns the port's routing record (empty for a dense LM)."""
     (jl, jmet), jg = jax.value_and_grad(jm.loss, has_aux=True)(
         jp, {k: jnp.asarray(v) for k, v in batch.items()})
     tm.zero_grad()
-    loss, met = tm.loss({k: t(v) for k, v in batch.items()})
+    with record_routing() as calls:
+        loss, met = tm.loss({k: t(v) for k, v in batch.items()})
     loss.backward()
     close(loss, jl, LOSS_RTOL)
     assert set(met) == set(jmet) == {"ce", "aux", "sig"}
@@ -291,6 +307,61 @@ def test_lm_loss_and_gradients_match_jax(lm_pair):
         close(met[k], jmet[k], LOSS_RTOL)
     assert float(met["sig"].detach()) > 0
     assert_grads_close(tm, jax_grads_by_name(jg))
+    if tm.cfg.family == "moe":
+        assert_margins(calls)
+        assert len(calls) == tm.cfg.n_layers and float(met["aux"].detach()) > 0
+    else:
+        assert not calls and float(met["aux"].detach()) == 0
+    return calls
+
+
+def test_lm_loss_and_gradients_match_jax(lm_pair):
+    jm, jp, tm = lm_pair
+    loss_and_grads_match_jax(jm, jp, tm, lm_batch(tm.cfg))
+
+
+def sharpen(jp):
+    """Routers ×50 and one offset on every embedding row (a direction all
+    tokens share), so that one group of 256 overflows its experts."""
+    u = np.random.default_rng(1).normal(size=jp["embed"]["table"].shape[1]) * 0.02
+    jp["embed"]["table"] = (jp["embed"]["table"] + u).astype(np.float32)
+    layers = jp["layers"]
+    for lp in [layers["stacked"]] if "stacked" in layers else layers.values():
+        lp["moe"]["router"] = lp["moe"]["router"] * np.float32(50)
+    return jp
+
+
+@pytest.mark.parametrize("which", ["qwen2_moe_stacked", "dbrx_layers"])
+def test_moe_lm_loss_and_gradients_with_capacity_drops_match_jax(which):
+    """B·S = 2 × 128: one group of 256 tokens, capacity 160 an expert."""
+    jm, jp, tm = make_lm_pair(which, sharpen)
+    calls = loss_and_grads_match_jax(jm, jp, tm, lm_batch(tm.cfg, seed=2, seq=128))
+    assert all(kept < assigned for _, kept, assigned, _ in calls), calls
+
+
+@pytest.mark.parametrize("which", ["stacked", "qwen2_moe_stacked", "hybrid_grouped"])
+def test_stacked_build_equals_the_per_layer_draws(which):
+    """The stacked (or grouped) build writes each layer's draw into its
+    slice as it is drawn: every parameter equals a per-layer build's from
+    the same seed, bit for bit, layer by layer."""
+    if which == "hybrid_grouped":
+        cfg = get_config("recurrentgemma-2b").reduced().replace(n_layers=7)
+    else:
+        arch, _ = LMS[which]
+        cfg = get_config(arch).reduced()
+    stacked = build_model(cfg.replace(scan_layers=True), seed=5, device="cpu")
+    per_layer = build_model(cfg.replace(scan_layers=False), seed=5, device="cpu")
+    assert ("groups" if which == "hybrid_grouped" else "stacked") in stacked.tree()["layers"]
+    a = T._layers(stacked.tree()["layers"], stacked.cfg)
+    b = T._layers(per_layer.tree()["layers"], per_layer.cfg)
+    assert len(a) == len(b) == cfg.n_layers
+    for la, lb in zip(a, b):
+        pa, pb = dict(tree_items(la)), dict(tree_items(lb))
+        assert pa.keys() == pb.keys()
+        for name in pa:
+            assert torch.equal(pa[name], pb[name]), name
+    for name in ("embed.table", "lm_head.table", "final_norm.scale"):
+        assert torch.equal(stacked.state_dict()[name], per_layer.state_dict()[name])
 
 
 def generator_pair(scan):

@@ -8,13 +8,24 @@ from a seed in float32, with the JAX initialiser's parameters carried by
 :func:`repro_torch.models.params_from_jax`: reduced deepseek-7b in the
 stacked and per-layer layouts, reduced recurrentgemma-2b (3 layers,
 unrolled) and a 7-layer variant of it in the grouped layout (2 groups of
-(rec, rec, attn) and 1 layer after them).  Logits and every cache leaf
+(rec, rec, attn) and 1 layer after them), reduced qwen2-moe-a2.7b stacked
+(shared experts) and dbrx-132b per layer (none).  Every MoE block that
+runs must keep each token's k+1 largest router logits apart
+(``tests/test_torch_moe.py``'s margin), or the test errs.  Logits and every cache leaf
 agree within 5e-5 relative, the hybrid model's loss too, and its parameter
 gradients within 2e-4 norm-relative of ``jax.grad``.  The JAX tests'
 prefill-against-decode checks (``tests/test_models.py``) run on the port
-at their 2e-4 gate.  ``make_decode_step``: greedy tokens equal JAX's,
-sampling is reproducible under a seeded generator and its frequencies pass
-a chi-square test against ``softmax(logits / T)``.  The example
+at their 2e-4 gate.  In bf16 compute, the logits of a prefill and 9 decode
+steps lie as far from the float32 model's as the JAX package's bf16 logits
+lie from its own float32 ones, within a factor of 1.5 either way (dense,
+hybrid and MoE).  For MoE the prompt is one on which every block chooses
+the same experts in bf16 as in float32, which the test checks: bf16's
+rounding of the hidden states exceeds the gaps between router logits often
+enough that about half of random prompts at this size flip a choice, and a
+flipped expert is a different output, not a rounding distance.
+``make_decode_step``: greedy tokens equal JAX's, sampling is reproducible
+under a seeded generator and its frequencies pass a chi-square test against
+``softmax(logits / T)``.  The example
 ``examples/serve_lm_torch.py`` runs from its command line.
 """
 
@@ -37,8 +48,10 @@ from repro.serve.step import make_decode_step as jmake_decode_step
 from repro_torch.models import build_model, get_config, params_from_jax
 from repro_torch.models import attention as A
 from repro_torch.models import rglru as RG
+from repro_torch.models.api import Model
 from repro_torch.models.params import tree_items
 from repro_torch.serve.step import compute_params, make_decode_step, make_prefill_step
+from test_torch_moe import assert_margins, record_routing
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
@@ -233,7 +246,18 @@ MODELS = {
     "deepseek_stacked": lambda get: get("deepseek-7b").reduced().replace(scan_layers=True),
     "hybrid_layers": lambda get: hybrid_cfg(get),
     "hybrid_grouped": lambda get: hybrid_cfg(get, 7),
+    "qwen2_moe_stacked": lambda get: get("qwen2-moe-a2.7b").reduced().replace(scan_layers=True),
+    "dbrx_layers": lambda get: get("dbrx-132b").reduced(),
 }
+
+
+@pytest.fixture(autouse=True)
+def moe_margins():
+    """Every MoE block a test runs keeps its router logits off a tie."""
+    with record_routing() as calls:
+        yield
+    if calls:
+        assert_margins(calls)
 
 
 def model_pair(which, **replace):
@@ -262,6 +286,10 @@ def test_layouts_carry_the_jax_names(pair):
     if cfg.family == "hybrid" and cfg.scan_layers:
         assert "layers.groups.pos_0.rec.w_x" in want and "layers.layer_6.rec.lam" in want
         assert want["layers.groups.pos_2.attn.wq"][0] == 2
+    if cfg.family == "moe":
+        key = "layers.stacked.moe.w_gate" if cfg.scan_layers else "layers.layer_1.moe.w_gate"
+        assert want[key][-3:] == (cfg.n_experts, cfg.d_model, cfg.moe_d_ff)
+        assert ("layers.stacked.moe.shared.w_up" in want) == bool(cfg.n_shared_experts)
 
 
 def test_params_from_jax_refuses_the_other_hybrid_layout():
@@ -269,6 +297,14 @@ def test_params_from_jax_refuses_the_other_hybrid_layout():
     tm = build_model(hybrid_cfg(get_config, 7).replace(scan_layers=False), device="cpu")
     with pytest.raises(RuntimeError):
         tm.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jp)))
+
+
+@pytest.mark.parametrize("which", ["qwen2_moe_stacked", "dbrx_layers"])
+def test_params_from_jax_refuses_the_other_moe_layout(which):
+    _, jp, tm = model_pair(which)
+    other = build_model(tm.cfg.replace(scan_layers=not tm.cfg.scan_layers), device="cpu")
+    with pytest.raises(RuntimeError):
+        other.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jp)))
 
 
 def test_cache_init_matches_jax(pair):
@@ -329,6 +365,56 @@ def test_hybrid_loss_and_gradients_match_jax(which):
         assert err <= GRAD_RTOL, f"{name}: gradient norm-relative error {err:.3g}"
 
 
+#: the port's bf16-against-float32 distance over the JAX package's own, at most
+#: this factor apart either way (measured: 0.79 to 1.10)
+BF16_FACTOR = 1.5
+
+
+def serve_steps(prefill, decode, toks):
+    """Prefill 6 tokens (capacity 16), then decode 9: every step's logits,
+    float32, (B, 10, padded vocab)."""
+    logits, caches = prefill(toks[:, :6])
+    out = [logits]
+    for cur in range(6, 15):
+        logits, caches = decode(caches, toks[:, cur:cur + 1], cur)
+        out.append(logits)
+    return np.concatenate([np.asarray(o.float() if torch.is_tensor(o) else o, np.float32)
+                           for o in out], axis=1)
+
+
+@pytest.mark.parametrize("which", ["deepseek_layers", "hybrid_grouped", "qwen2_moe_stacked",
+                                   "dbrx_layers"])
+def test_bf16_serving_tracks_the_jax_packages_own_distance(which):
+    jm, jp, tm = model_pair(which)
+    cfg, V = tm.cfg, tm.cfg.vocab
+    jm16 = jbuild_model(jm.cfg.replace(compute_dtype="bfloat16"))
+    tm16 = Model(cfg.replace(compute_dtype="bfloat16"), tm.tree())
+    toks = tokens(cfg, 2, 15, seed=12)
+
+    def jax_run(m):
+        return serve_steps(
+            lambda p: m.prefill(jp, {"tokens": jnp.asarray(p), "max_len": 16}),
+            lambda c, tok, cur: m.decode(jp, c, jnp.asarray(tok), jnp.asarray(cur, jnp.int32)),
+            toks)
+
+    def port_run(m):
+        with record_routing() as calls:
+            out = serve_steps(lambda p: m.prefill({"tokens": t(p), "max_len": 16}),
+                              lambda c, tok, cur: m.decode(c, t(tok), cur), toks)
+        return out, [c[3] for c in calls]
+
+    def dist(a, b):
+        a, b = a[..., :V].astype(np.float64), b[..., :V].astype(np.float64)
+        return np.abs(a - b).max() / np.abs(b).max()
+
+    (t32, r32), (t16, r16) = port_run(tm), port_run(tm16)
+    assert len(r16) == len(r32) and all(torch.equal(a, b) for a, b in zip(r16, r32))
+    assert bool(r32) == (cfg.family == "moe")
+    d_jax, d_port = dist(jax_run(jm16), jax_run(jm)), dist(t16, t32)
+    assert np.all(np.isfinite(t16)) and d_jax > 1e-3
+    assert d_jax / BF16_FACTOR <= d_port <= BF16_FACTOR * d_jax, (d_port, d_jax)
+
+
 # the JAX tests' own consistency checks (tests/test_models.py), on the port
 
 def test_prefill_decode_consistency(pair):
@@ -362,7 +448,8 @@ def test_long_recurrent_decode(which):
 # serve/step.py
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("which", ["deepseek_stacked", "hybrid_grouped"])
+@pytest.mark.parametrize("which", ["deepseek_stacked", "hybrid_grouped", "qwen2_moe_stacked",
+                                   "dbrx_layers"])
 def test_greedy_decode_step_tokens_equal_jax(which):
     jm, jp, tm = model_pair(which)
     prompt = tokens(tm.cfg, 3, 6, seed=7)
@@ -469,4 +556,4 @@ def test_serve_lm_example_runs_on_the_cpu(arch):
 def test_serve_lm_example_refuses_an_unported_family():
     done = run_example("--arch", "mamba2-780m", "--tokens", "2")
     assert done.returncode != 0
-    assert "NotImplementedError" in done.stderr and "8b" in done.stderr
+    assert "NotImplementedError" in done.stderr and "item A2" in done.stderr

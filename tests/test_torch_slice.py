@@ -204,6 +204,7 @@ def test_port_imports_no_jax():
             "assert 'repro_torch.train.step' in names, names; "
             "assert 'repro_torch.serve.step' in names, names; "
             "assert 'repro_torch.models.rglru' in names, names; "
+            "assert 'repro_torch.models.moe' in names, names; "
             f"examples = {examples!r}; "
             "specs = [importlib.util.spec_from_file_location(e, f'examples/{e}.py') "
             "for e in examples]; "

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Run chip_smoke.py's phases 15 (LM serving at full size) and 16 (the
-``_torch`` examples) alone on one CUDA card, with phase 16's shape checks:
-both kernel libraries are built first, as the smoke builds them, and every
-line the phases print is the smoke's own.  A quicker way than the whole
-smoke to measure the serving path again.
+``_torch`` examples), or phase 17 (the MoE family), alone on one CUDA card,
+with their shape checks: both kernel libraries are built first, as the smoke
+builds them, and every line the phases print is the smoke's own.  A quicker
+way than the whole smoke to measure the serving path again.
 
-    python3 tools/serving_probe.py
+    python3 tools/serving_probe.py              # phases 15 and 16
+    python3 tools/serving_probe.py --phase 17   # phase 17 alone
 """
 
+import argparse
 import os
 import sys
 import tempfile
@@ -21,7 +23,11 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phase", type=int, action="append", choices=(15, 16, 17),
+                    help="the phases to run (repeatable; default 15 and 16)")
+    phases = ap.parse_args(argv).phase or [15, 16]
     if not torch.cuda.is_available():
         print("serving_probe: CUDA is not available", file=sys.stderr)
         return 1
@@ -39,14 +45,19 @@ def main() -> int:
         sig_kernel.reset_launch_counts()
 
     rng = np.random.default_rng(0)
-    cs.serve_lm_phase(dev, reset_all, kernel, sig_kernel, name, power)
-    goursat, horner = cs.examples_phase(dev, reset_all, kernel, sig_kernel, name, power)
-    for key, (by_run, ran_at) in sorted(goursat.items(), key=str):
-        for lam1, _, scheme, idt in sorted(ran_at):
-            cs.shape_check(key, by_run, kernel, cs.fwd_cps, dev, rng, name, power, lam=lam1,
-                           variants=((scheme, idt),))
-    for key, by_run in sorted(horner.items(), key=str):
-        cs.horner_shape_check(key, by_run, sig_kernel, dev, rng, name, power)
+    if 15 in phases:
+        cs.serve_lm_phase(dev, reset_all, kernel, sig_kernel, name, power)
+    if 16 in phases:
+        goursat, horner = cs.examples_phase(dev, reset_all, kernel, sig_kernel, name, power)
+        for key, (by_run, ran_at) in sorted(goursat.items(), key=str):
+            for lam1, _, scheme, idt in sorted(ran_at):
+                cs.shape_check(key, by_run, kernel, cs.fwd_cps, dev, rng, name, power,
+                               lam=lam1, variants=((scheme, idt),))
+        for key, by_run in sorted(horner.items(), key=str):
+            cs.horner_shape_check(key, by_run, sig_kernel, dev, rng, name, power)
+    if 17 in phases:
+        moe_shapes = cs.moe_phase(dev, reset_all, kernel, sig_kernel, name, power)
+        cs.moe_shape_checks(moe_shapes, set(), kernel, dev, rng, name, power)
     print(card)
     return 0
 
