@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's signature and signature-kernel paths, forward and
-gradient, its LM serving path, its example scripts and the MoE family, on
-one CUDA card.
+gradient, its LM serving path, its example scripts and the MoE and SSM
+families, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -199,11 +199,30 @@ Phases (any failure exits non-zero; nothing runs without CUDA):
    with the routers sharpened (capacity drops), card against CPU within
    1e-4, every router margin >= 1e-4 (``tests/test_torch_moe.py``).
 
-Phases 8-17 run after phase 7's timing and before the ``kernels`` line;
+18. ``ssm_path``: the SSM family, mamba2-780m (48 Mamba-2 layers of width
+   1536, SSD chunks of 128, 857,846,016 parameters, stacked).  (a) At full
+   size in bf16 from the float32 master, as phase 15 serves: 4 prompts of
+   2,048 tokens, 64 greedy tokens; phase 15's row fields, profiles and
+   checks, with (c) the float32 prefill-against-decode check at S = 2,008,
+   k = 8 (both prefills end in a padded chunk) within 1e-4.  (b) One prompt
+   of 32,768 tokens (the JAX package's ``prefill_32k``), 32 greedy tokens:
+   the decode cache's bytes must be (a)'s for one sequence and a decode
+   step at most twice (a)'s (the state is O(1) in the context); its
+   prefill is timed but not profiled.  (d) The LM
+   at full size, ``sig_loss`` on, remat as configured, bf16 compute:
+   ``make_train_step``, two microbatches on ``TokenLM(50280, 512, 4)``, 5
+   steps; the loss must fall and ``sig`` stay finite; B1-cps, B2 and a
+   fused kernel must launch, and every Goursat shape and variant no earlier
+   check took goes through ``shape_check``.  (e) The reduced config per
+   layer and stacked, drawn on the CPU: prefill of 13 tokens (chunk 8) and
+   9 decode steps with every cache leaf, then the loss and every parameter
+   gradient, card against CPU within 1e-4.  Serving must launch no kernel.
+
+Phases 8-18 run after phase 7's timing and before the ``kernels`` line;
 each sets the launch counts to 0 just before it and reads them just after
 (phase 11 and 16's distributed example in each rank).  ``python3
-tools/serving_probe.py --phase 17`` runs phase 17 alone with its shape
-checks.  Phase 4 also times the host build of the
+tools/serving_probe.py --phase 17`` (or ``--phase 18``) runs that phase
+alone with its shape checks.  Phase 4 also times the host build of the
 ``"brackets"`` basis change at d = 16, N = 4.  Every phase reads, and
 phases 13 and 14 write, an autotune cache under a temporary directory the
 script makes and removes (``REPRO_AUTOTUNE_CACHE``; phase 14 a fresh file),
@@ -352,6 +371,22 @@ MOE_REDUCED = (("qwen2-moe-a2.7b", {"scan_layers": True}), ("dbrx-132b", {}))
 #: least gap between a token's k+1 largest router logits, relative
 #: (tests/test_torch_moe.py's margin)
 MOE_MARGIN = 1e-4
+# phase 18: the SSM family.  (a) mamba2-780m at full size serves phase 15's
+# recurrentgemma-2b cell; "check" as in phase 15, at (S, k) where both
+# prefills (2,000 and 2,008 tokens) end in a padded SSD chunk of 128
+SERVE_SSM = {"arch": "mamba2-780m", "batch": 4, "prompt": 2048, "tokens": 64,
+             "check": (2008, 8)}
+#: (b) one prompt at the JAX package's prefill_32k length
+#: (src/repro/launch/shapes.py:25), then greedy steps
+SSM_LONG_FULL = 32768
+SSM_LONG = {"prompt": SSM_LONG_FULL, "tokens": 32}
+#: (b)'s decode ms a token over (a)'s, at most (the SSM state is O(1) in the
+#: context; (b) decodes one sequence, (a) four)
+SSM_LONG_DECODE_FACTOR = 2.0
+#: (e) the reduced config card against CPU, per layer and stacked, on a
+#: prompt that ends in a padded chunk of 8
+SSM_REDUCED = (("mamba2-780m", {}), ("mamba2-780m", {"scan_layers": True}))
+SSM_REDUCED_PROMPT = 13
 # phase 16: the port's example scripts at their defaults, in this order
 EXAMPLES_DIR = os.path.join(ROOT, "examples")
 EXAMPLES = ("serve_lm_torch", "quickstart_torch", "serve_sig_features_torch",
@@ -361,6 +396,8 @@ GAN = dict(batch=64, length=256, dim=8, dyadic=1, steps=30, timed=10, lr=1e-5, w
 LM = dict(layers=2, seq=512, batch=4, microbatches=2, steps=5, sig_dim=4)
 #: phase 17 (b): the trainer at qwen2-moe-a2.7b's width, its depth cut, as phase 12's LM
 MOE_TRAIN = {**LM, "arch": "qwen2-moe-a2.7b"}
+#: phase 18 (d): the trainer at mamba2-780m's full size, as phase 12's LM
+SSM_TRAIN = {**LM, "arch": "mamba2-780m", "layers": 48}
 GAN_SMALL = (8, 32, 8)
 TRAIN_CARD_CPU_REL = 1e-4
 TRAIN_PATH = ("fwd_cps", "bwd")     # and at least one of fwd_fused, gram_fused
@@ -1051,11 +1088,14 @@ def main() -> int:
     for key, by_run in sorted(horner.items(), key=str):
         horner_shape_check(key, by_run, sig_kernel, dev, rng, name, power)
 
-    # the MoE trainer's Goursat shapes at each variant no earlier check took
+    # the MoE and SSM trainers' Goursat shapes at each variant no earlier
+    # check took
     checked = {(k, 0, "order1", "float32") for k in seen}
     checked |= {(k, l1, s, i) for k, (_, ran) in goursat.items() for l1, _, s, i in ran}
     moe_shapes = moe_phase(dev, reset_all, kernel, sig_kernel, name, power)
-    moe_shape_checks(moe_shapes, checked, kernel, dev, rng, name, power)
+    trainer_shape_checks("moe", moe_shapes, checked, kernel, dev, rng, name, power)
+    ssm_shapes = ssm_phase(dev, reset_all, kernel, sig_kernel, name, power)
+    trainer_shape_checks("ssm", ssm_shapes, checked, kernel, dev, rng, name, power)
 
     emit({"kernels": rows})
     return finish(card)
@@ -1867,26 +1907,38 @@ def autotune_phase(rt, dev, rng, reset_all, kernel, sig_kernel, sig_ops, name,
 
 
 def layer_param_counts(cfg) -> list:
-    """Parameters of each layer of the dense, MoE or hybrid LM of ``cfg``,
-    from its shapes."""
+    """Parameters of each layer of the dense, MoE, SSM or hybrid LM of
+    ``cfg``, from its shapes."""
     from repro_torch.models.transformer import layer_kind
-    d, hd, W = cfg.d_model, cfg.hd, cfg.lru_width
-    attn = d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
-    attn += hd * (cfg.n_heads + 2 * cfg.n_kv_heads) if cfg.qkv_bias else 0
-    rec = 3 * d * W + 2 * W * W + 8 * W      # w_x, w_y, w_out; w_a, w_i; conv, biases, Λ
+    d, W = cfg.d_model, cfg.lru_width
 
     def mlp(width):
         return (2 if cfg.act == "relu2" else 3) * d * width
 
-    E, F, ns = cfg.n_experts, cfg.moe_d_ff, cfg.n_shared_experts
-    moe = d * E + 3 * E * d * F + (mlp(ns * F) + d if ns else 0)   # router, experts, shared
-    block = {"rec": rec + mlp(cfg.d_ff), "moe": attn + moe}
-    return [block.get(layer_kind(cfg, i), attn + mlp(cfg.d_ff)) + 2 * d
+    def attn():
+        hd = cfg.hd
+        return (d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+                + (hd * (cfg.n_heads + 2 * cfg.n_kv_heads) if cfg.qkv_bias else 0))
+
+    def ssm():   # in_proj, conv weights and bias, A_log / D / dt_bias, gated norm, out_proj
+        d_inner = cfg.ssm_expand * d
+        H, N = d_inner // cfg.ssm_head_dim, cfg.ssm_state
+        return (d * (2 * d_inner + 2 * N + H) + (cfg.ssm_conv + 1) * (d_inner + 2 * N) + 3 * H
+                + d_inner + d_inner * d)
+
+    def moe():   # router, experts, shared experts and their gate
+        E, F, ns = cfg.n_experts, cfg.moe_d_ff, cfg.n_shared_experts
+        return d * E + 3 * E * d * F + (mlp(ns * F) + d if ns else 0)
+
+    block = {"ssm": lambda: ssm() + d,                       # one norm, no MLP
+             "rec": lambda: 3 * d * W + 2 * W * W + 8 * W + mlp(cfg.d_ff) + 2 * d,
+             "moe": lambda: attn() + moe() + 2 * d}          # rec: w_x, w_y, w_out; w_a, w_i
+    return [block.get(layer_kind(cfg, i), lambda: attn() + mlp(cfg.d_ff) + 2 * d)()
             for i in range(cfg.n_layers)]
 
 
 def lm_param_count(cfg) -> int:
-    """Parameters of the dense, MoE or hybrid LM of ``cfg``, from its shapes."""
+    """Parameters of the dense, MoE, SSM or hybrid LM of ``cfg``, from its shapes."""
     from repro_torch.models.api import padded_vocab
     d = cfg.d_model
     return (sum(layer_param_counts(cfg)) + padded_vocab(cfg) * d * (1 if cfg.tie_embeddings
@@ -1950,11 +2002,14 @@ def device_profile(fn, steps: int = 1) -> dict:
                                for e in top] if measured else None}
 
 
-def timed_serving(model, params, toks, P: int, N: int, max_len: int, dev) -> dict:
+def timed_serving(model, params, toks, P: int, N: int, max_len: int, dev,
+                  profile_prefill: bool = True) -> dict:
     """bf16 serving on the compute tree ``params``: a first prefill of
-    ``toks[:, :P]``, one under torch.profiler, one timed (CUDA events); N
-    greedy decode steps, each timed, then PROFILE_STEPS more under the
-    profiler.  Returns the timings, peaks, tokens and cache bytes, with the
+    ``toks[:, :P]``, one under torch.profiler (unless ``profile_prefill`` is
+    false: the profiler's own processing of a 32k-token SSM prefill's
+    ~350k launches takes minutes), one timed (CUDA events); N greedy decode
+    steps, each timed, then PROFILE_STEPS more under the profiler.
+    Returns the timings, peaks, tokens and cache bytes, with the
     steps, the caches, the last token and the next position (``prefill``,
     ``decode``, ``caches``, ``nxt``, ``pos``) for more steps."""
     import torch
@@ -1963,7 +2018,8 @@ def timed_serving(model, params, toks, P: int, N: int, max_len: int, dev) -> dic
     prefill = make_prefill_step(model, max_len=max_len, params=params)
     decode = make_decode_step(model, params=params)
     _, first_prefill_ms = event_ms(lambda: prefill({"tokens": toks[:, :P]}))
-    prefill_prof = device_profile(lambda: prefill({"tokens": toks[:, :P]}))
+    prefill_prof = (device_profile(lambda: prefill({"tokens": toks[:, :P]}))
+                    if profile_prefill else None)
     (logits, caches), prefill_ms = event_ms(lambda: prefill({"tokens": toks[:, :P]}))
     cache_bytes = sum(t.numel() * t.element_size() for _, t in tree_items(caches))
     finite = [torch.isfinite(logits).all()]
@@ -2034,9 +2090,16 @@ def float32_check(model, cfg, toks, S: int, k: int):
 
 def serving_checks(what: str, run, w_bytes: int, f32_rel: float, B: int, N: int, S: int,
                    k: int, vocab: int) -> None:
+    """:func:`bf16_checks` and the float32 check within SERVE_LM_REL."""
+    bf16_checks(what, run, w_bytes, B, N, vocab)
+    check(f32_rel <= SERVE_LM_REL,
+          f"{what}: float32 prefill of {S} against {S - k} + {k} decode steps, rel err "
+          f"{f32_rel:.3g} > {SERVE_LM_REL}")
+
+
+def bf16_checks(what: str, run, w_bytes: int, B: int, N: int, vocab: int) -> None:
     """Finite bf16 logits, tokens in the vocabulary, decode's memory rise
-    within DECODE_PEAK_SHARE of the bf16 weights, the float32 check within
-    SERVE_LM_REL."""
+    within DECODE_PEAK_SHARE of the bf16 weights."""
     gen = run["gen"]
     check(run["all_finite"], f"{what}: non-finite bf16 logits")
     check(bool(((gen >= 0) & (gen < vocab)).all()) and tuple(gen.shape) == (B, N + 1),
@@ -2044,9 +2107,6 @@ def serving_checks(what: str, run, w_bytes: int, f32_rel: float, B: int, N: int,
     check(run["decode_peak"] <= DECODE_PEAK_SHARE * w_bytes,
           f"{what}: decode took {run['decode_peak']} bytes above what it held, more than "
           f"{DECODE_PEAK_SHARE} of the {w_bytes} bf16 weight bytes (a cast per step?)")
-    check(f32_rel <= SERVE_LM_REL,
-          f"{what}: float32 prefill of {S} against {S - k} + {k} decode steps, rel err "
-          f"{f32_rel:.3g} > {SERVE_LM_REL}")
 
 
 def serve_lm_model(spec, dev, name, power) -> dict:
@@ -2056,9 +2116,7 @@ def serve_lm_model(spec, dev, name, power) -> dict:
     import gc
     import torch
     from repro_torch.models import build_model, get_config
-    from repro_torch.models.api import padded_vocab
     from repro_torch.models.params import tree_items
-    from repro_torch.models.transformer import layer_kind
     from repro_torch.serve.step import compute_params
     full = get_config(spec["arch"])
     gc.collect()
@@ -2099,50 +2157,63 @@ def serve_lm_model(spec, dev, name, power) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # bounds at H100 SXM peaks: a decode step reads the bf16 weights but
-    # the input embedding table (B rows of it) and the cache slots it
-    # attends over, once (the median step's position); the prefill's bf16
-    # products at the tensor-core rate, its float32 attention / RG-LRU scan
-    # products at the float32 rate
-    vp, d = padded_vocab(cfg), cfg.d_model
-    embed_bytes = vp * d * 2
-    mid = P + N // 2
-    kinds = [layer_kind(cfg, i) for i in range(cfg.n_layers)]
-    step_bytes = w_bytes - embed_bytes + B * d * 2
-    read_slots = {"dense": mid + 1, "attn": min(cfg.attn_window or mid + 1, mid + 1), "rec": 0}
-    step_bytes += sum(2 * B * read_slots[kd] * cfg.n_kv_heads * cfg.hd * 2 for kd in kinds)
-    step_bytes += sum(B * cfg.lru_width * 4 * 4 * 2 for kd in kinds if kd == "rec")
-    decode_bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
-    layer_params = n_params - vp * d * (1 if cfg.tie_embeddings else 2)
-    mm = 2 * B * P * layer_params + 2 * B * d * vp
-    f32_ops = 0
-    for kd in kinds:
-        if kd == "rec":   # per chunk of 64: the (Q, Q, W) weights and their sum
-            f32_ops += B * P * 64 * cfg.lru_width * 4
-        else:             # QK and PV over the causal (windowed) triangle
-            span = min(cfg.attn_window or P, P)
-            f32_ops += 2 * 2 * B * cfg.n_heads * cfg.hd * P * span // 2
-    prefill_ops_ms = (mm / BF16_FLOPS_PER_S + f32_ops / FP32_FLOPS_PER_S) * 1e3
-    prefill_bytes_ms = w_bytes / HBM_BYTES_PER_S * 1e3
     row = {"config": cfg.name, "family": cfg.family, "params": n_params,
-           "n_layers": cfg.n_layers, "d_model": d, "reduced": cut, "compute_dtype": "bfloat16",
-           "batch": B, "prompt": P, "decode_steps": N, "build_s": build_s,
-           "bf16_weight_bytes": w_bytes, **serving_row(run, B, P, N),
-           "prefill_bound_ms": max(prefill_ops_ms, prefill_bytes_ms),
-           "prefill_bound_by": "operations" if prefill_ops_ms >= prefill_bytes_ms else "bytes",
-           "decode_bound_ms": decode_bound_ms, "decode_bound_by": "bytes",
-           "build_peak_bytes": build_peak, "float32_check_peak_bytes": peak,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model, "reduced": cut,
+           "compute_dtype": "bfloat16", "batch": B, "prompt": P, "decode_steps": N,
+           "build_s": build_s, "bf16_weight_bytes": w_bytes, **serving_row(run, B, P, N),
+           **serving_bounds(cfg, w_bytes, n_params, B, P, N), "build_peak_bytes": build_peak,
+           "float32_check_peak_bytes": peak,
            "float32_check": {"S": S, "k": k, "rel_err": f32_rel, "prefill_ms": f32_prefill_ms},
            "card": name, "power_limit": power}
     serving_checks(f"serve_lm {cfg.name}", run, w_bytes, f32_rel, B, N, S, k, cfg.vocab)
     return row
 
 
-def serve_lm_card_vs_cpu(dev, reduced=SERVE_LM_REDUCED) -> dict:
+def serving_bounds(cfg, w_bytes: int, n_params: int, B: int, P: int, N: int) -> dict:
+    """The prefill and decode bounds of serving ``cfg`` in bf16 (weights of
+    ``w_bytes``), B prompts of P tokens then N steps, at H100 SXM peaks.  A
+    decode step reads the bf16 weights but the input embedding table (B
+    rows of it) and, once, the cache it attends over (the median step's
+    KV slots) or carries (the RG-LRU and SSM states and conv windows, read
+    and written).  The prefill's bf16 products run at the tensor-core rate,
+    its float32 attention, RG-LRU scan and SSD products at the float32
+    rate."""
+    from repro_torch.models.api import padded_vocab
+    from repro_torch.models.ssm import ssd_dims
+    from repro_torch.models.transformer import layer_kind
+    vp, d = padded_vocab(cfg), cfg.d_model
+    mid = P + N // 2
+    step_bytes = w_bytes - vp * d * 2 + B * d * 2
+    f32_ops = 0
+    for kd in (layer_kind(cfg, i) for i in range(cfg.n_layers)):
+        if kd == "ssm":   # a chunk of Q: C·Bᵀ, the (Q, Q, H) weights by x, C·S, the state update
+            d_inner, H, N_ = ssd_dims(cfg)
+            Q, P_ = min(cfg.ssm_chunk, P), cfg.ssm_head_dim
+            step_bytes += 2 * B * (H * N_ * P_ + (cfg.ssm_conv - 1) * (d_inner + 2 * N_)) * 4
+            f32_ops += -(-P // Q) * 2 * B * Q * (Q * N_ + Q * H * P_ + 2 * N_ * H * P_)
+        elif kd == "rec":   # per chunk of 64: the (Q, Q, W) weights and their sum
+            step_bytes += B * cfg.lru_width * 4 * 4 * 2
+            f32_ops += B * P * 64 * cfg.lru_width * 4
+        else:             # QK and PV over the causal (windowed) triangle
+            slots = mid + 1 if kd == "dense" else min(cfg.attn_window or mid + 1, mid + 1)
+            step_bytes += 2 * B * slots * cfg.n_kv_heads * cfg.hd * 2
+            span = min(cfg.attn_window or P, P)
+            f32_ops += 2 * 2 * B * cfg.n_heads * cfg.hd * P * span // 2
+    layer_params = n_params - vp * d * (1 if cfg.tie_embeddings else 2)
+    mm = 2 * B * P * layer_params + 2 * B * d * vp
+    prefill_ops_ms = (mm / BF16_FLOPS_PER_S + f32_ops / FP32_FLOPS_PER_S) * 1e3
+    prefill_bytes_ms = w_bytes / HBM_BYTES_PER_S * 1e3
+    return {"prefill_bound_ms": max(prefill_ops_ms, prefill_bytes_ms),
+            "prefill_bound_by": "operations" if prefill_ops_ms >= prefill_bytes_ms else "bytes",
+            "decode_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3, "decode_bound_by": "bytes"}
+
+
+def serve_lm_card_vs_cpu(dev, reduced=SERVE_LM_REDUCED, prompt: int = 6) -> dict:
     """The reduced configs ``reduced`` ((arch, config changes) pairs; by
     default both phase 15 families, every layout), parameters drawn on the
-    CPU in the JAX layout: prefill of 6 tokens and 9 decode steps (the
-    hybrid's ring of 8 wraps) on the card against the CPU."""
+    CPU in the JAX layout: prefill of ``prompt`` tokens and 9 decode steps
+    (at 6, the hybrid's ring of 8 wraps) on the card against the CPU, the
+    logits and every cache leaf."""
     import copy
     import torch
     from repro_torch.models import build_model, get_config
@@ -2152,13 +2223,14 @@ def serve_lm_card_vs_cpu(dev, reduced=SERVE_LM_REDUCED) -> dict:
         cfg = get_config(arch).reduced().replace(**kw)
         cpu = build_model(cfg, seed=3, device="cpu")
         card = copy.deepcopy(cpu).to(dev)
-        toks = torch.randint(0, cfg.vocab, (2, 15), generator=torch.Generator().manual_seed(4))
+        toks = torch.randint(0, cfg.vocab, (2, prompt + 9),
+                             generator=torch.Generator().manual_seed(4))
 
         def run(m, where):
             with torch.inference_mode():
-                lg, c = m.prefill({"tokens": toks[:, :6].to(where), "max_len": 16})
+                lg, c = m.prefill({"tokens": toks[:, :prompt].to(where), "max_len": prompt + 10})
                 steps = [lg]
-                for t in range(6, 15):
+                for t in range(prompt, prompt + 9):
                     lg, c = m.decode(c, toks[:, t:t + 1].to(where), t)
                     steps.append(lg)
             return torch.cat(steps, dim=1), dict(tree_items(c))
@@ -2579,15 +2651,18 @@ def moe_card_vs_cpu(dev) -> dict:
     return out
 
 
-def moe_shape_checks(moe_shapes, checked, kernel, dev, rng, name, power) -> None:
+def trainer_shape_checks(what: str, shapes, checked: set, kernel, dev, rng, name,
+                         power) -> None:
     """shape_check of every (Goursat key, refinement, scheme, interior
-    dtype) phase 17 ran that is not in ``checked``."""
-    for key, by_run, ran_at in moe_shapes:
+    dtype) a phase ran (``shapes``, as :func:`moe_phase` returns them) that
+    is not in ``checked``; adds each to ``checked``."""
+    for key, by_run, ran_at in shapes:
         for lam1, lam2, scheme, idt in sorted(ran_at):
-            check(lam1 == lam2, f"moe: {key} launched at refinement ({lam1}, {lam2})")
+            check(lam1 == lam2, f"{what}: {key} launched at refinement ({lam1}, {lam2})")
             if (key, lam1, scheme, idt) not in checked:
                 shape_check(key, by_run, kernel, fwd_cps, dev, rng, name, power, lam=lam1,
                             variants=((scheme, idt),))
+                checked.add((key, lam1, scheme, idt))
 
 
 def moe_phase(dev, reset_all, kernel, sig_kernel, name, power) -> list:
@@ -2623,6 +2698,147 @@ def moe_phase(dev, reset_all, kernel, sig_kernel, name, power) -> list:
         check(counts[kname] > 0, f"moe path never launched {kname}")
     check(counts["fwd_fused"] + counts["gram_fused"] > 0, "moe path launched neither fused kernel")
     return [(k, {"moe_train": n}, ran_at[k]) for k, n in sorted(shapes.items(), key=str)]
+
+
+def serve_ssm_long(spec, base: dict, dev, name, power) -> dict:
+    """Phase 18 (b): mamba2-780m at full size, one prompt of
+    ``spec["prompt"]`` tokens then ``spec["tokens"]`` greedy steps, as
+    phase 15 serves (bf16 on one compute copy) but with no profile of the
+    prefill.  The state does not grow
+    with the prompt: the decode cache's bytes must be (a)'s (``base``) for
+    one sequence, and a decode step at most SSM_LONG_DECODE_FACTOR of
+    (a)'s."""
+    import gc
+    import torch
+    from repro_torch.models import build_model, get_config
+    from repro_torch.models.params import tree_items
+    from repro_torch.serve.step import compute_params
+    cfg = get_config(SERVE_SSM["arch"])
+    B, P, N = 1, spec["prompt"], spec["tokens"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    model = build_model(cfg, seed=0, device=dev)
+    toks = torch.randint(0, cfg.vocab, (B, P), generator=torch.Generator(device=dev).manual_seed(2),
+                         device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.inference_mode():
+        params = compute_params(model)
+        w_bytes = sum(t.numel() * t.element_size() for _, t in tree_items(params))
+        run = timed_serving(model, params, toks, P, N, P + N + PROFILE_STEPS, dev,
+                            profile_prefill=False)
+        del params, run["prefill"], run["decode"], run["caches"]
+    n_params = sum(p.numel() for p in model.parameters())
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = {"config": cfg.name, "family": cfg.family, "params": n_params,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "reduced": (None if P == SSM_LONG_FULL else
+                       f"prompt {SSM_LONG_FULL} -> {P} (the {SSM_LONG_FULL}-token prefill took "
+                       f"over 30 s)"),
+           "compute_dtype": "bfloat16", "batch": B, "prompt": P, "decode_steps": N,
+           "bf16_weight_bytes": w_bytes, **serving_row(run, B, P, N),
+           **serving_bounds(cfg, w_bytes, n_params, B, P, N),
+           "seconds": time.time() - t0, "card": name, "power_limit": power}
+    bf16_checks(f"ssm {cfg.name} prompt {P}", run, w_bytes, B, N, cfg.vocab)
+    check(row["cache_bytes"] * base["batch"] == base["cache_bytes"] * B,
+          f"ssm {cfg.name}: the decode cache holds {row['cache_bytes']} bytes after {P} "
+          f"tokens, not {base['cache_bytes']} / {base['batch']} as after {base['prompt']}")
+    ratio = row["decode_ms_per_token_median"] / base["decode_ms_per_token_median"]
+    row["decode_ms_over_a"] = ratio
+    check(ratio <= SSM_LONG_DECODE_FACTOR,
+          f"ssm {cfg.name}: a decode step after {P} tokens took {ratio:.3g}x one after "
+          f"{base['prompt']} (the state is O(1) in the context)")
+    return row
+
+
+def ssm_train(dev) -> dict:
+    """Phase 18 (d): the SSM LM at mamba2-780m's full size, ``sig_loss``
+    on, trained as phase 12 trains the dense LM."""
+    from repro_torch.models import get_config
+    full = get_config(SSM_TRAIN["arch"])
+    cfg = full.replace(n_layers=SSM_TRAIN["layers"], sig_loss=True,
+                       sig_loss_dim=SSM_TRAIN["sig_dim"])
+    n_params, steps, peak = lm_train(cfg, SSM_TRAIN, dev)
+    ms = float(np.median([r["ms"] for r in steps[1:]]))
+    return {"config": cfg.name, "params": n_params, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "compute_dtype": cfg.compute_dtype, "remat": cfg.remat,
+            "reduced": None if cfg.n_layers == full.n_layers else
+            f"n_layers {full.n_layers} -> {cfg.n_layers}",
+            "seq": SSM_TRAIN["seq"], "batch": SSM_TRAIN["batch"],
+            "microbatches": SSM_TRAIN["microbatches"], "steps": steps,
+            "ms_per_step_median_after_first": ms,
+            "tokens_per_s": SSM_TRAIN["batch"] * SSM_TRAIN["seq"] / (ms / 1e3),
+            "peak_memory_bytes": peak}
+
+
+def ssm_card_vs_cpu(dev) -> dict:
+    """Phase 18 (e): reduced mamba2-780m per layer and stacked, parameters
+    drawn on the CPU: prefill of SSM_REDUCED_PROMPT tokens (chunk 8: a
+    padded last chunk) and 9 decode steps, every cache leaf compared, then
+    the loss and every parameter gradient on as many tokens, card against
+    CPU."""
+    import copy
+    import torch
+    from repro_torch.models import build_model, get_config
+    out = {f"serve {k}": v for k, v in
+           serve_lm_card_vs_cpu(dev, SSM_REDUCED, SSM_REDUCED_PROMPT).items()}
+    for arch, kw in SSM_REDUCED:
+        cfg = get_config(arch).reduced().replace(**kw)
+        cpu = build_model(cfg, seed=3, device="cpu")
+        card = copy.deepcopy(cpu).to(dev)
+        toks = torch.randint(0, cfg.vocab, (2, SSM_REDUCED_PROMPT + 1),
+                             generator=torch.Generator().manual_seed(8))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+        def loss_and_grads(m, where):
+            loss, _ = m.loss({k_: v.to(where) for k_, v in batch.items()})
+            return loss.detach(), torch.autograd.grad(loss, list(m.parameters()))
+
+        (la, ga), (lb, gb) = loss_and_grads(card, dev), loss_and_grads(cpu, "cpu")
+        what = f"train {arch}{'' if not kw else ' ' + str(kw)}"
+        out[what] = max([rel_err(la.cpu(), lb)] + [rel_err(a.cpu(), b) for a, b in zip(ga, gb)])
+        check(all(bool(torch.isfinite(g).all()) for g in ga), f"reduced {what}: NaN gradients")
+        check(out[what] <= SERVE_LM_CARD_CPU_REL,
+              f"reduced {what}: card against CPU rel err {out[what]:.3g}")
+    return out
+
+
+def ssm_phase(dev, reset_all, kernel, sig_kernel, name, power) -> list:
+    """Phase 18: the SSM family.  mamba2-780m served at full size
+    (:data:`SERVE_SSM`, with its float32 check) and on one long prompt
+    (:data:`SSM_LONG`), trained at full size (:data:`SSM_TRAIN`) and held
+    card against CPU on the reduced config in both layouts; the launch
+    counts set to 0 just before and read just after (serving reaches no
+    hand-written kernel, the trainer's signature-kernel auxiliary loss the
+    Goursat kernels).  Returns [(Goursat launch key, {run: launches}, the
+    (λ1, λ2, scheme, interior dtype) it ran at)]."""
+    import torch
+    torch.cuda.empty_cache()
+    reset_all()
+    t_phase = time.time()
+    serve = serve_lm_model(SERVE_SSM, dev, name, power)
+    long_row = serve_ssm_long(SSM_LONG, serve, dev, name, power)
+    serve_counts = {**kernel.launch_counts(), **sig_kernel.launch_counts()}
+    train = ssm_train(dev)
+    card_vs_cpu = ssm_card_vs_cpu(dev)
+    counts = {**kernel.launch_counts(), **sig_kernel.launch_counts()}
+    shapes, ran_at = kernel.launch_shapes(), kernel.launch_variants()
+    emit({"ssm_path": {"serve": serve, "long": long_row, "train": train,
+                       "reduced_card_vs_cpu_rel": card_vs_cpu},
+          "serve_launches": serve_counts, "launches": counts,
+          "launches_by_shape": shape_rows(shapes), "seconds": round(time.time() - t_phase, 3),
+          "card": name, "power_limit": power})
+    losses = [r["loss"] for r in train["steps"]]
+    check(all(np.isfinite(losses + [r["sig"] for r in train["steps"]])),
+          f"ssm LM: non-finite loss or sig {train['steps']}")
+    check(losses[-1] < losses[0], f"ssm LM: the loss did not fall {losses}")
+    check(not any(serve_counts.values()), f"ssm serving launched a kernel {serve_counts}")
+    for kname in TRAIN_PATH:
+        check(counts[kname] > 0, f"ssm path never launched {kname}")
+    check(counts["fwd_fused"] + counts["gram_fused"] > 0, "ssm path launched neither fused kernel")
+    return [(k, {"ssm_train": n}, ran_at[k]) for k, n in sorted(shapes.items(), key=str)]
 
 
 if __name__ == "__main__":

@@ -1,11 +1,13 @@
 """Serve a small LM with the PyTorch port: batched prefill, then greedy
 decode with KV caches (and, for the hybrid family, the sliding-window ring
-and the RG-LRU state).
+and the RG-LRU state; for the SSM family, mamba2-780m, the conv window and
+the SSD state, O(1) in the context).
 
 The PyTorch counterpart of ``examples/serve_lm.py``, with its flags and
 defaults (the ``.reduced()`` config of ``--arch``, random parameters from a
 seed); it runs on the card unless given ``--device cpu``.  The port builds
-the dense, MoE and hybrid families; any other raises ``NotImplementedError``.
+the dense, MoE, SSM and hybrid families; any other raises
+``NotImplementedError``.
 
     PYTHONPATH=src python examples/serve_lm_torch.py --arch recurrentgemma-2b --tokens 32
 """

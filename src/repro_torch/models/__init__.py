@@ -1,7 +1,7 @@
-"""Model zoo of the port: the architecture configs and the dense, MoE and
-hybrid LMs as modules whose parameters carry the JAX package's names, with
-their serving methods.  Counterpart of ``repro.models``; the ssm, encdec and
-vlm families wait for ROADMAP Queue A items A2, A3 and A4."""
+"""Model zoo of the port: the architecture configs and the dense, MoE, SSM
+and hybrid LMs as modules whose parameters carry the JAX package's names,
+with their serving methods.  Counterpart of ``repro.models``; the encdec and
+vlm families wait for ROADMAP Queue A items A3 and A4."""
 
 from .api import Model, build_model
 from .config import ArchConfig, get_config, list_configs, register

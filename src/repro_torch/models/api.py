@@ -2,13 +2,13 @@
 ``loss(batch)`` gives ``(loss, metrics)`` and whose ``prefill``,
 ``cache_init`` and ``decode`` serve it.
 
-Counterpart of ``repro/models/api.py`` for the dense, MoE and hybrid
-(RecurrentGemma) decoder-only families.  The paper's technique attaches as
-the optional signature-kernel auxiliary loss on the hidden-state trajectory
-(``cfg.sig_loss``), through the port's
+Counterpart of ``repro/models/api.py`` for the dense, MoE, SSM (Mamba-2)
+and hybrid (RecurrentGemma) decoder-only families.  The paper's technique
+attaches as the optional signature-kernel auxiliary loss on the hidden-state
+trajectory (``cfg.sig_loss``), through the port's
 :func:`repro_torch.core.losses.sig_aux_loss`, whose exact backward runs the
-Goursat kernels on the card.  The ssm, encdec and vlm families wait for
-ROADMAP Queue A items A2, A3 and A4.
+Goursat kernels on the card.  The encdec and vlm families wait for ROADMAP
+Queue A items A3 and A4.
 """
 
 from __future__ import annotations
@@ -56,14 +56,15 @@ def _sig_aux(params, hidden, batch, cfg):
 class Model(ParamTree):
     """A decoder-only LM.  Its parameters carry the JAX package's names
     (``embed.table``, ``layers.stacked.attn.wq``, ``layers.layer_0.attn.wq``,
-    ``layers.stacked.moe.w_gate`` or ``layers.groups.pos_0.rec.w_x``, ``final_norm.scale``,
+    ``layers.stacked.moe.w_gate``, ``layers.stacked.mixer.in_proj`` or
+    ``layers.groups.pos_0.rec.w_x``, ``final_norm.scale``,
     ``lm_head.table``, ``sig_proj``); every method takes them from the
     module, or from ``params`` (a nested dict of the same shape, e.g. a
     compute-dtype copy, :func:`repro_torch.train.step.cast_compute`).
 
     The serving methods run without autograd.  Decode caches take the
     parameters' layer layout; KV caches hold the compute dtype, RG-LRU
-    states float32."""
+    and SSM states (and the SSM conv windows) float32."""
 
     def __init__(self, cfg, tree: Dict):
         super().__init__(tree)
@@ -139,10 +140,10 @@ def init_params(generator: torch.Generator, cfg) -> Dict:
 
 def build_model(cfg, *, seed: int = 0, device=None) -> Model:
     """The LM of ``cfg`` with parameters drawn from ``seed``, on the card
-    unless ``device="cpu"``.  The dense, moe and hybrid families build."""
-    if cfg.family not in ("dense", "moe", "hybrid"):
+    unless ``device="cpu"``.  The dense, moe, ssm and hybrid families build."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"{cfg.name}: build_model builds the 'dense', 'moe' and 'hybrid' families; "
+            f"{cfg.name}: build_model builds the 'dense', 'moe', 'ssm' and 'hybrid' families; "
             f"{cfg.family!r} waits for ROADMAP Queue A item {T.WAITING.get(cfg.family, '?')}")
     g = torch.Generator(device=card_device(device, "build_model"))
     g.manual_seed(seed)

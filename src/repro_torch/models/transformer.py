@@ -1,11 +1,12 @@
-"""Decoder-only layer stacks: the dense, MoE and hybrid families, over full
-sequences and with decode caches.
+"""Decoder-only layer stacks: the dense, MoE, SSM and hybrid families, over
+full sequences and with decode caches.
 
 Counterpart of ``repro/models/transformer.py`` for the ``dense`` layer (an
 attention block and an MLP, each behind an RMSNorm), the ``moe`` layer
 (attention and a Mixture-of-Experts block, :mod:`.moe`, whose auxiliary
-loss the stack sums) and the hybrid family's ``rec`` (RG-LRU block and
-MLP) and ``attn`` (sliding-window attention and MLP) layers,
+loss the stack sums), the ``ssm`` layer (a Mamba-2 block, :mod:`.ssm`,
+behind one RMSNorm, with no MLP) and the hybrid family's ``rec`` (RG-LRU
+block and MLP) and ``attn`` (sliding-window attention and MLP) layers,
 RecurrentGemma's (rec, rec, attn) pattern.  Three parameter layouts, as
 in the JAX package:
 
@@ -25,7 +26,7 @@ caches take the parameters' layout; :func:`stack_prefill` fills them and
 package's scan carries donated cache buffers), one layer's slot at a time.
 A stacked tree is allocated once and each layer is written into its slice
 as it is drawn, so a build holds the parameters once (and one layer's
-draw).  The ssm kind waits for ROADMAP Queue A item A2.
+draw).
 """
 
 from __future__ import annotations
@@ -40,13 +41,16 @@ from . import attention as A
 from . import layers as L
 from . import moe as MOE
 from . import rglru as RG
+from . import ssm as SSM
 from .params import tree_items, tree_map
 
 #: the ROADMAP Queue A item that ports each family the port does not build
-WAITING = {"ssm": "A2", "encdec": "A3", "vlm": "A4"}
+WAITING = {"encdec": "A3", "vlm": "A4"}
 
 
 def layer_kind(cfg, idx: int) -> str:
+    if cfg.family == "ssm":
+        return "ssm"
     if cfg.family == "hybrid":
         return cfg.block_pattern[idx % len(cfg.block_pattern)]
     if cfg.family == "moe":
@@ -55,7 +59,7 @@ def layer_kind(cfg, idx: int) -> str:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family's layers are not ported yet (ROADMAP "
             f"Queue A item {WAITING.get(cfg.family, '?')}); the port builds the 'dense', "
-            f"'moe' and 'hybrid' families")
+            f"'moe', 'ssm' and 'hybrid' families")
     return "dense"
 
 
@@ -65,6 +69,8 @@ def _window(cfg, kind: str) -> int:
 
 def layer_init(generator: torch.Generator, cfg, kind: str):
     dev = generator.device
+    if kind == "ssm":
+        return {"ln": L.rmsnorm_init(cfg.d_model, dev), "mixer": SSM.ssm_init(generator, cfg)}
     p = {"ln1": L.rmsnorm_init(cfg.d_model, dev), "ln2": L.rmsnorm_init(cfg.d_model, dev)}
     if kind == "rec":
         p["rec"] = RG.rglru_init(generator, cfg)
@@ -89,6 +95,8 @@ def layer_apply(p, x, positions, cfg, kind: str) -> Tuple[torch.Tensor, torch.Te
     """Full-sequence layer.  Returns (x, aux_loss); aux is the MoE block's,
     0 for the other kinds."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == "ssm":
+        return x + SSM.ssm_apply(p["mixer"], L.rmsnorm(p["ln"], x, cfg.norm_eps), cfg), aux
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind == "rec":
         x = x + RG.rglru_apply(p["rec"], h, cfg)
@@ -105,9 +113,11 @@ def layer_apply(p, x, positions, cfg, kind: str) -> Tuple[torch.Tensor, torch.Te
 
 def layer_cache_init(cfg, kind: str, batch: int, max_len: int, dtype=torch.bfloat16,
                      device=None):
-    """A layer's decode cache: the RG-LRU state (float32), a ring of
-    min(window, max_len) slots, or a full KV cache of max_len slots (both
-    in ``dtype``)."""
+    """A layer's decode cache: the SSM conv window and state or the RG-LRU
+    state (float32, whatever ``dtype``), a ring of min(window, max_len)
+    slots, or a full KV cache of max_len slots (both in ``dtype``)."""
+    if kind == "ssm":
+        return SSM.ssm_cache_init(batch, cfg, device=device)
     if kind == "rec":
         return RG.rglru_cache_init(batch, cfg, device=device)
     if _window(cfg, kind):
@@ -118,6 +128,9 @@ def layer_cache_init(cfg, kind: str, batch: int, max_len: int, dtype=torch.bfloa
 
 def layer_decode(p, x, cache, cur_len: int, cfg, kind: str):
     """One token through one layer; updates ``cache`` in place."""
+    if kind == "ssm":
+        h, cache = SSM.ssm_decode(p["mixer"], L.rmsnorm(p["ln"], x, cfg.norm_eps), cache, cfg)
+        return x + h, cache
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind == "rec":
         h, cache = RG.rglru_decode(p["rec"], h, cache, cfg)
@@ -131,6 +144,12 @@ def layer_decode(p, x, cache, cur_len: int, cfg, kind: str):
 
 def _layer_prefill(p, h, cache, positions, cfg, kind: str):
     """A layer over the prompt, writing its decode cache into ``cache``."""
+    if kind == "ssm":   # O(1) in the prompt's length: no max_len to check
+        y, sc = SSM.ssm_apply(p["mixer"], L.rmsnorm(p["ln"], h, cfg.norm_eps), cfg,
+                              return_cache=True)
+        for k, v in sc.items():
+            cache[k].copy_(v)
+        return h + y
     hn = L.rmsnorm(p["ln1"], h, cfg.norm_eps)
     if kind == "rec":
         y, rc = RG.rglru_apply(p["rec"], hn, cfg, return_cache=True)

@@ -15,6 +15,9 @@ reduced MoE LMs (qwen2-moe-a2.7b stacked, dbrx-132b per layer), their
 ``aux`` metric included, dropless at 24 tokens and with capacity drops at
 one group of 256 (the routers ×50, an offset on every embedding row); every
 MoE block keeps its router logits off a tie (``tests/test_torch_moe.py``).
+So do the reduced mamba2-780m LMs in both layouts, with ``sig_loss`` on
+(the JAX tests' own hook test, ``tests/test_models.py``), their 12 tokens
+a padded last SSD chunk of 8 and their chunk scans rematerialised.
 A stacked build's parameters equal a per-layer build's from the same seed
 bit for bit.  The configs are the JAX package's, field for field.
 """
@@ -217,7 +220,8 @@ def test_configs_are_the_jax_packages():
 
 
 @pytest.mark.parametrize("name", [n for n in ASSIGNED
-                                  if get_config(n).family not in ("dense", "moe", "hybrid")])
+                                  if get_config(n).family not in ("dense", "moe", "ssm",
+                                                                  "hybrid")])
 def test_other_families_are_refused(name):
     with pytest.raises(NotImplementedError, match="Queue A item A[234]"):
         build_model(get_config(name).reduced(), device="cpu")
@@ -247,7 +251,8 @@ def test_param_tree_round_trips():
 B, S = 2, 12
 #: the LMs held to JAX: (arch, scan_layers)
 LMS = {"layers": ("deepseek-7b", False), "stacked": ("deepseek-7b", True),
-       "qwen2_moe_stacked": ("qwen2-moe-a2.7b", True), "dbrx_layers": ("dbrx-132b", False)}
+       "qwen2_moe_stacked": ("qwen2-moe-a2.7b", True), "dbrx_layers": ("dbrx-132b", False),
+       "mamba2_layers": ("mamba2-780m", False), "mamba2_stacked": ("mamba2-780m", True)}
 
 
 def lm_config(pkg_get, scan, arch="deepseek-7b"):
@@ -281,7 +286,8 @@ def test_lm_layouts_carry_the_jax_names(lm_pair):
     jm, jp, tm = lm_pair
     names = set(jax_grads_by_name(jp))
     assert set(dict(tm.named_parameters())) == names
-    key = "layers.stacked.attn.wq" if tm.cfg.scan_layers else "layers.layer_1.attn.wq"
+    block = "mixer.in_proj" if tm.cfg.family == "ssm" else "attn.wq"
+    key = f"layers.stacked.{block}" if tm.cfg.scan_layers else f"layers.layer_1.{block}"
     assert key in names
 
 
@@ -339,7 +345,8 @@ def test_moe_lm_loss_and_gradients_with_capacity_drops_match_jax(which):
     assert all(kept < assigned for _, kept, assigned, _ in calls), calls
 
 
-@pytest.mark.parametrize("which", ["stacked", "qwen2_moe_stacked", "hybrid_grouped"])
+@pytest.mark.parametrize("which", ["stacked", "qwen2_moe_stacked", "mamba2_stacked",
+                                   "hybrid_grouped"])
 def test_stacked_build_equals_the_per_layer_draws(which):
     """The stacked (or grouped) build writes each layer's draw into its
     slice as it is drawn: every parameter equals a per-layer build's from

@@ -9,7 +9,10 @@ from a seed in float32, with the JAX initialiser's parameters carried by
 stacked and per-layer layouts, reduced recurrentgemma-2b (3 layers,
 unrolled) and a 7-layer variant of it in the grouped layout (2 groups of
 (rec, rec, attn) and 1 layer after them), reduced qwen2-moe-a2.7b stacked
-(shared experts) and dbrx-132b per layer (none).  Every MoE block that
+(shared experts) and dbrx-132b per layer (none), reduced mamba2-780m per
+layer and stacked (SSD chunks of 8: the 12- and 20-token prompts end in a
+padded chunk; its caches are float32 conv windows and states, written in
+place; ``tests/test_torch_ssm.py`` holds the block itself).  Every MoE block that
 runs must keep each token's k+1 largest router logits apart
 (``tests/test_torch_moe.py``'s margin), or the test errs.  Logits and every cache leaf
 agree within 5e-5 relative, the hybrid model's loss too, and its parameter
@@ -18,7 +21,7 @@ prefill-against-decode checks (``tests/test_models.py``) run on the port
 at their 2e-4 gate.  In bf16 compute, the logits of a prefill and 9 decode
 steps lie as far from the float32 model's as the JAX package's bf16 logits
 lie from its own float32 ones, within a factor of 1.5 either way (dense,
-hybrid and MoE).  For MoE the prompt is one on which every block chooses
+hybrid, MoE and SSM).  For MoE the prompt is one on which every block chooses
 the same experts in bf16 as in float32, which the test checks: bf16's
 rounding of the hidden states exceeds the gaps between router logits often
 enough that about half of random prompts at this size flip a choice, and a
@@ -248,6 +251,8 @@ MODELS = {
     "hybrid_grouped": lambda get: hybrid_cfg(get, 7),
     "qwen2_moe_stacked": lambda get: get("qwen2-moe-a2.7b").reduced().replace(scan_layers=True),
     "dbrx_layers": lambda get: get("dbrx-132b").reduced(),
+    "mamba2_layers": lambda get: get("mamba2-780m").reduced(),
+    "mamba2_stacked": lambda get: get("mamba2-780m").reduced().replace(scan_layers=True),
 }
 
 
@@ -290,6 +295,11 @@ def test_layouts_carry_the_jax_names(pair):
         key = "layers.stacked.moe.w_gate" if cfg.scan_layers else "layers.layer_1.moe.w_gate"
         assert want[key][-3:] == (cfg.n_experts, cfg.d_model, cfg.moe_d_ff)
         assert ("layers.stacked.moe.shared.w_up" in want) == bool(cfg.n_shared_experts)
+    if cfg.family == "ssm":
+        key = "layers.stacked.mixer.in_proj" if cfg.scan_layers else "layers.layer_1.mixer.in_proj"
+        assert want[key][-2:] == (cfg.d_model, 4 * cfg.d_model + 2 * cfg.ssm_state
+                                  + 2 * cfg.d_model // cfg.ssm_head_dim)
+        assert not any(".attn." in k or ".mlp." in k for k in want)
 
 
 def test_params_from_jax_refuses_the_other_hybrid_layout():
@@ -383,7 +393,7 @@ def serve_steps(prefill, decode, toks):
 
 
 @pytest.mark.parametrize("which", ["deepseek_layers", "hybrid_grouped", "qwen2_moe_stacked",
-                                   "dbrx_layers"])
+                                   "dbrx_layers", "mamba2_layers", "mamba2_stacked"])
 def test_bf16_serving_tracks_the_jax_packages_own_distance(which):
     jm, jp, tm = model_pair(which)
     cfg, V = tm.cfg, tm.cfg.vocab
@@ -429,9 +439,11 @@ def test_prefill_decode_consistency(pair):
     assert float(err) < CONSISTENCY, float(err)
 
 
-@pytest.mark.parametrize("which", ["hybrid_layers", "hybrid_grouped"])
+@pytest.mark.parametrize("which", ["hybrid_layers", "hybrid_grouped", "mamba2_layers",
+                                   "mamba2_stacked"])
 def test_long_recurrent_decode(which):
-    """Decode far past the local-attention window (8): prompt 3, 17 steps."""
+    """Decode far past the local-attention window (8), or through the SSM
+    recurrence past two chunks of 8: prompt 3, 17 steps."""
     _, _, tm = model_pair(which)
     cfg = tm.cfg
     S2 = 20
@@ -449,7 +461,7 @@ def test_long_recurrent_decode(which):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("which", ["deepseek_stacked", "hybrid_grouped", "qwen2_moe_stacked",
-                                   "dbrx_layers"])
+                                   "dbrx_layers", "mamba2_layers", "mamba2_stacked"])
 def test_greedy_decode_step_tokens_equal_jax(which):
     jm, jp, tm = model_pair(which)
     prompt = tokens(tm.cfg, 3, 6, seed=7)
@@ -542,7 +554,7 @@ def run_example(*args):
                           env={**os.environ, "PYTHONPATH": "src"}, timeout=300)
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "deepseek-7b"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "deepseek-7b", "mamba2-780m"])
 def test_serve_lm_example_runs_on_the_cpu(arch):
     done = run_example("--arch", arch, "--tokens", "8")
     assert done.returncode == 0, done.stdout + done.stderr
@@ -554,6 +566,6 @@ def test_serve_lm_example_runs_on_the_cpu(arch):
 
 
 def test_serve_lm_example_refuses_an_unported_family():
-    done = run_example("--arch", "mamba2-780m", "--tokens", "2")
+    done = run_example("--arch", "whisper-large-v3", "--tokens", "2")
     assert done.returncode != 0
-    assert "NotImplementedError" in done.stderr and "item A2" in done.stderr
+    assert "NotImplementedError" in done.stderr and "item A3" in done.stderr

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Run chip_smoke.py's phases 15 (LM serving at full size) and 16 (the
-``_torch`` examples), or phase 17 (the MoE family), alone on one CUDA card,
-with their shape checks: both kernel libraries are built first, as the smoke
-builds them, and every line the phases print is the smoke's own.  A quicker
+``_torch`` examples), or phase 17 (the MoE family) or 18 (the SSM family),
+alone on one CUDA card, with their shape checks: both kernel libraries are
+built first, as the smoke builds them, and every line the phases print is
+the smoke's own.  A quicker
 way than the whole smoke to measure the serving path again.
 
     python3 tools/serving_probe.py              # phases 15 and 16
     python3 tools/serving_probe.py --phase 17   # phase 17 alone
+    python3 tools/serving_probe.py --phase 18   # phase 18 alone
 """
 
 import argparse
@@ -25,7 +27,7 @@ import chip_smoke as cs  # noqa: E402
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", type=int, action="append", choices=(15, 16, 17),
+    ap.add_argument("--phase", type=int, action="append", choices=(15, 16, 17, 18),
                     help="the phases to run (repeatable; default 15 and 16)")
     phases = ap.parse_args(argv).phase or [15, 16]
     if not torch.cuda.is_available():
@@ -45,6 +47,7 @@ def main(argv=None) -> int:
         sig_kernel.reset_launch_counts()
 
     rng = np.random.default_rng(0)
+    checked = set()
     if 15 in phases:
         cs.serve_lm_phase(dev, reset_all, kernel, sig_kernel, name, power)
     if 16 in phases:
@@ -57,7 +60,10 @@ def main(argv=None) -> int:
             cs.horner_shape_check(key, by_run, sig_kernel, dev, rng, name, power)
     if 17 in phases:
         moe_shapes = cs.moe_phase(dev, reset_all, kernel, sig_kernel, name, power)
-        cs.moe_shape_checks(moe_shapes, set(), kernel, dev, rng, name, power)
+        cs.trainer_shape_checks("moe", moe_shapes, checked, kernel, dev, rng, name, power)
+    if 18 in phases:
+        ssm_shapes = cs.ssm_phase(dev, reset_all, kernel, sig_kernel, name, power)
+        cs.trainer_shape_checks("ssm", ssm_shapes, checked, kernel, dev, rng, name, power)
     print(card)
     return 0
 
