@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's signature and signature-kernel paths, forward and
-gradient, its LM serving path, its example scripts and the MoE and SSM
-families, on one CUDA card.
+gradient, its LM serving path, its example scripts and the MoE, SSM and
+encoder-decoder families, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -218,11 +218,31 @@ Phases (any failure exits non-zero; nothing runs without CUDA):
    9 decode steps with every cache leaf, then the loss and every parameter
    gradient, card against CPU within 1e-4.  Serving must launch no kernel.
 
-Phases 8-18 run after phase 7's timing and before the ``kernels`` line;
+19. ``encdec_path``: the encoder-decoder family, whisper-large-v3 (32
+   encoder and 32 decoder layers of width 1280, 20 heads of 64, the tied
+   table of 51,968 rows, 1,954,370,560 parameters, stacked) at full size.
+   (a) bf16 from the float32 master, as phase 15 serves: 4 streams of 1,500
+   stub frames (0.1·N(0, 1); the encoder's blocked attention runs two KV
+   chunks of 1,024, the second with 548 masked slots), a decoder prompt of
+   64 tokens and 64 greedy steps (caches of 128 positions, inside Whisper's
+   448); the encoder timed alone, phase 15's row fields, profiles and
+   checks, and the prefill and decode bounds from the shapes
+   (``encdec_bounds``).  (b) The float32 check at (S, k) = (64, 8) on the
+   same frames within 1e-4.  (c) The trainer at full size, ``sig_loss`` on,
+   remat, bf16: ``make_train_step``, two microbatches on ``TokenLM(51866,
+   448, 4, n_frames=1500)``, 5 steps; the loss must fall and ``sig`` stay
+   finite; B1-cps, B2 and a fused kernel must launch, and every Goursat
+   shape and variant no earlier check took goes through ``shape_check``.
+   (d) The reduced config per layer and stacked, at its 16 frames and at
+   1,500, drawn on the CPU: prefill of 6 and 9 decode steps with every
+   cache leaf, then the loss and every parameter gradient, card against
+   CPU within 1e-4.  Serving must launch no kernel.
+
+Phases 8-19 run after phase 7's timing and before the ``kernels`` line;
 each sets the launch counts to 0 just before it and reads them just after
 (phase 11 and 16's distributed example in each rank).  ``python3
-tools/serving_probe.py --phase 17`` (or ``--phase 18``) runs that phase
-alone with its shape checks.  Phase 4 also times the host build of the
+tools/serving_probe.py --phase 17`` (or 18, or 19) runs that phase alone
+with its shape checks.  Phase 4 also times the host build of the
 ``"brackets"`` basis change at d = 16, N = 4.  Every phase reads, and
 phases 13 and 14 write, an autotune cache under a temporary directory the
 script makes and removes (``REPRO_AUTOTUNE_CACHE``; phase 14 a fresh file),
@@ -387,6 +407,19 @@ SSM_LONG_DECODE_FACTOR = 2.0
 #: prompt that ends in a padded chunk of 8
 SSM_REDUCED = (("mamba2-780m", {}), ("mamba2-780m", {"scan_layers": True}))
 SSM_REDUCED_PROMPT = 13
+# phase 19: the encoder-decoder family.  (a) whisper-large-v3 at full size
+# (src/repro/configs/whisper_large_v3.py): 1,500 stub frames a stream (the
+# conv front end's output length), a decoder prompt and greedy steps well
+# inside Whisper's native 448 positions; "check" as in phase 15, on the
+# same frames
+SERVE_ENCDEC = {"arch": "whisper-large-v3", "batch": 4, "frames": 1500, "prompt": 64,
+                "tokens": 64, "check": (64, 8)}
+#: (a) timed encoder calls after a first one
+ENCODER_REPS = 3
+#: (d) the reduced config card against CPU, per layer and stacked, at its
+#: 16 frames and at 1,500 (the padded KV chunk of 1,024)
+ENCDEC_REDUCED = tuple(("whisper-large-v3", {**layout, "n_audio_frames": F})
+                       for layout in ({}, {"scan_layers": True}) for F in (16, 1500))
 # phase 16: the port's example scripts at their defaults, in this order
 EXAMPLES_DIR = os.path.join(ROOT, "examples")
 EXAMPLES = ("serve_lm_torch", "quickstart_torch", "serve_sig_features_torch",
@@ -398,6 +431,9 @@ LM = dict(layers=2, seq=512, batch=4, microbatches=2, steps=5, sig_dim=4)
 MOE_TRAIN = {**LM, "arch": "qwen2-moe-a2.7b"}
 #: phase 18 (d): the trainer at mamba2-780m's full size, as phase 12's LM
 SSM_TRAIN = {**LM, "arch": "mamba2-780m", "layers": 48}
+#: phase 19 (c): the trainer at whisper-large-v3's full size, 448 decoder
+#: tokens (Whisper's native length) on 1,500 frames a sequence
+ENCDEC_TRAIN = {**LM, "arch": "whisper-large-v3", "layers": 32, "seq": 448, "frames": 1500}
 GAN_SMALL = (8, 32, 8)
 TRAIN_CARD_CPU_REL = 1e-4
 TRAIN_PATH = ("fwd_cps", "bwd")     # and at least one of fwd_fused, gram_fused
@@ -1088,14 +1124,16 @@ def main() -> int:
     for key, by_run in sorted(horner.items(), key=str):
         horner_shape_check(key, by_run, sig_kernel, dev, rng, name, power)
 
-    # the MoE and SSM trainers' Goursat shapes at each variant no earlier
-    # check took
+    # the MoE, SSM and encoder-decoder trainers' Goursat shapes at each
+    # variant no earlier check took
     checked = {(k, 0, "order1", "float32") for k in seen}
     checked |= {(k, l1, s, i) for k, (_, ran) in goursat.items() for l1, _, s, i in ran}
     moe_shapes = moe_phase(dev, reset_all, kernel, sig_kernel, name, power)
     trainer_shape_checks("moe", moe_shapes, checked, kernel, dev, rng, name, power)
     ssm_shapes = ssm_phase(dev, reset_all, kernel, sig_kernel, name, power)
     trainer_shape_checks("ssm", ssm_shapes, checked, kernel, dev, rng, name, power)
+    encdec_shapes = encdec_phase(dev, reset_all, kernel, sig_kernel, name, power)
+    trainer_shape_checks("encdec", encdec_shapes, checked, kernel, dev, rng, name, power)
 
     emit({"kernels": rows})
     return finish(card)
@@ -1682,8 +1720,9 @@ def lm_train(cfg, spec, dev):
     """``spec["steps"]`` steps of ``make_train_step`` (AdamW on a cosine
     schedule, ``spec["microbatches"]`` microbatches) of the LM of ``cfg``,
     built on the card, on one ``TokenLM`` batch of ``spec["batch"]`` ×
-    ``spec["seq"]`` tokens.  Returns (parameters, each step's metrics and
-    ms, peak bytes)."""
+    ``spec["seq"]`` tokens (and ``spec["frames"]`` stub frames a sequence,
+    where given).  Returns (parameters, each step's metrics and ms, peak
+    bytes)."""
     import torch
     from repro_torch.data import TokenLM
     from repro_torch.models import build_model
@@ -1695,6 +1734,7 @@ def lm_train(cfg, spec, dev):
     train_step = make_train_step(model, AdamW(model.parameters(), lr=cosine_schedule(1e-3, 2, 50)),
                                  num_microbatches=spec["microbatches"])
     batch = TokenLM(vocab=cfg.vocab, seq=spec["seq"], batch=spec["batch"],
+                    n_frames=spec.get("frames", 0), d_model=cfg.d_model,
                     sig_target_dim=cfg.sig_loss_dim, device=dev).batch_at(0)
     steps = []
     for _ in range(spec["steps"]):
@@ -2003,9 +2043,10 @@ def device_profile(fn, steps: int = 1) -> dict:
 
 
 def timed_serving(model, params, toks, P: int, N: int, max_len: int, dev,
-                  profile_prefill: bool = True) -> dict:
+                  profile_prefill: bool = True, extra=None) -> dict:
     """bf16 serving on the compute tree ``params``: a first prefill of
-    ``toks[:, :P]``, one under torch.profiler (unless ``profile_prefill`` is
+    ``toks[:, :P]`` (with ``extra``'s inputs, an encdec model's frames), one
+    under torch.profiler (unless ``profile_prefill`` is
     false: the profiler's own processing of a 32k-token SSM prefill's
     ~350k launches takes minutes), one timed (CUDA events); N greedy decode
     steps, each timed, then PROFILE_STEPS more under the profiler.
@@ -2017,10 +2058,10 @@ def timed_serving(model, params, toks, P: int, N: int, max_len: int, dev,
     from repro_torch.serve.step import make_decode_step, make_prefill_step
     prefill = make_prefill_step(model, max_len=max_len, params=params)
     decode = make_decode_step(model, params=params)
-    _, first_prefill_ms = event_ms(lambda: prefill({"tokens": toks[:, :P]}))
-    prefill_prof = (device_profile(lambda: prefill({"tokens": toks[:, :P]}))
-                    if profile_prefill else None)
-    (logits, caches), prefill_ms = event_ms(lambda: prefill({"tokens": toks[:, :P]}))
+    batch = {"tokens": toks[:, :P], **(extra or {})}
+    _, first_prefill_ms = event_ms(lambda: prefill(batch))
+    prefill_prof = device_profile(lambda: prefill(batch)) if profile_prefill else None
+    (logits, caches), prefill_ms = event_ms(lambda: prefill(batch))
     cache_bytes = sum(t.numel() * t.element_size() for _, t in tree_items(caches))
     finite = [torch.isfinite(logits).all()]
     nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
@@ -2072,16 +2113,18 @@ def serving_row(run, B: int, P: int, N: int) -> dict:
             "cache_bytes": run["cache_bytes"], "sample": run["gen"][0, :16].tolist()}
 
 
-def float32_check(model, cfg, toks, S: int, k: int):
+def float32_check(model, cfg, toks, S: int, k: int, extra=None):
     """float32 on the model's own parameters (no copy): the logits of a
     prefill of S tokens against those of a prefill of S - k then k decode
-    steps.  Returns (their relative error, the full prefill's ms)."""
-    from repro_torch.models.api import Model
-    m32 = Model(cfg.replace(compute_dtype="float32"), model.tree())
+    steps (both prefills with ``extra``'s inputs).  Returns (their relative
+    error, the full prefill's ms)."""
+    m32 = type(model)(cfg.replace(compute_dtype="float32"), model.tree())
     check(m32.embed.table.data_ptr() == model.embed.table.data_ptr(),
           f"{cfg.name}: the float32 model copied the parameters")
-    (l_full, _), ms = event_ms(lambda: m32.prefill({"tokens": toks[:, :S], "max_len": S}))
-    _, c32 = m32.prefill({"tokens": toks[:, :S - k], "max_len": S})
+    extra = extra or {}
+    (l_full, _), ms = event_ms(lambda: m32.prefill({"tokens": toks[:, :S], "max_len": S,
+                                                    **extra}))
+    _, c32 = m32.prefill({"tokens": toks[:, :S - k], "max_len": S, **extra})
     for t in range(S - k, S):
         l_dec, c32 = m32.decode(c32, toks[:, t:t + 1], t)
     V = cfg.vocab
@@ -2208,12 +2251,22 @@ def serving_bounds(cfg, w_bytes: int, n_params: int, B: int, P: int, N: int) -> 
             "decode_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3, "decode_bound_by": "bytes"}
 
 
+def reduced_frames(cfg, B: int, seed: int) -> dict:
+    """An encdec config's stub frames on the CPU, {"frames": 0.1·N(0, 1) of
+    (B, n_audio_frames, d_model)}; {} for the other families."""
+    import torch
+    if cfg.family != "encdec":
+        return {}
+    return {"frames": 0.1 * torch.randn((B, cfg.n_audio_frames, cfg.d_model),
+                                        generator=torch.Generator().manual_seed(seed))}
+
+
 def serve_lm_card_vs_cpu(dev, reduced=SERVE_LM_REDUCED, prompt: int = 6) -> dict:
     """The reduced configs ``reduced`` ((arch, config changes) pairs; by
     default both phase 15 families, every layout), parameters drawn on the
-    CPU in the JAX layout: prefill of ``prompt`` tokens and 9 decode steps
-    (at 6, the hybrid's ring of 8 wraps) on the card against the CPU, the
-    logits and every cache leaf."""
+    CPU in the JAX layout: prefill of ``prompt`` tokens (and an encdec
+    config's frames) and 9 decode steps (at 6, the hybrid's ring of 8
+    wraps) on the card against the CPU, the logits and every cache leaf."""
     import copy
     import torch
     from repro_torch.models import build_model, get_config
@@ -2225,10 +2278,12 @@ def serve_lm_card_vs_cpu(dev, reduced=SERVE_LM_REDUCED, prompt: int = 6) -> dict
         card = copy.deepcopy(cpu).to(dev)
         toks = torch.randint(0, cfg.vocab, (2, prompt + 9),
                              generator=torch.Generator().manual_seed(4))
+        frames = reduced_frames(cfg, 2, 5)
 
         def run(m, where):
             with torch.inference_mode():
-                lg, c = m.prefill({"tokens": toks[:, :prompt].to(where), "max_len": prompt + 10})
+                lg, c = m.prefill({"tokens": toks[:, :prompt].to(where), "max_len": prompt + 10,
+                                   **{k_: v.to(where) for k_, v in frames.items()}})
                 steps = [lg]
                 for t in range(prompt, prompt + 9):
                     lg, c = m.decode(c, toks[:, t:t + 1].to(where), t)
@@ -2773,24 +2828,24 @@ def ssm_train(dev) -> dict:
             "peak_memory_bytes": peak}
 
 
-def ssm_card_vs_cpu(dev) -> dict:
-    """Phase 18 (e): reduced mamba2-780m per layer and stacked, parameters
-    drawn on the CPU: prefill of SSM_REDUCED_PROMPT tokens (chunk 8: a
-    padded last chunk) and 9 decode steps, every cache leaf compared, then
-    the loss and every parameter gradient on as many tokens, card against
-    CPU."""
+def family_card_vs_cpu(dev, reduced, prompt: int) -> dict:
+    """Phases 18 (e) and 19 (d): the reduced configs ``reduced`` ((arch,
+    config changes) pairs), parameters drawn on the CPU: prefill of
+    ``prompt`` tokens and 9 decode steps, every cache leaf compared
+    (:func:`serve_lm_card_vs_cpu`), then the loss and every parameter
+    gradient on as many tokens (and an encdec config's frames), card
+    against CPU."""
     import copy
     import torch
     from repro_torch.models import build_model, get_config
-    out = {f"serve {k}": v for k, v in
-           serve_lm_card_vs_cpu(dev, SSM_REDUCED, SSM_REDUCED_PROMPT).items()}
-    for arch, kw in SSM_REDUCED:
+    out = {f"serve {k}": v for k, v in serve_lm_card_vs_cpu(dev, reduced, prompt).items()}
+    for arch, kw in reduced:
         cfg = get_config(arch).reduced().replace(**kw)
         cpu = build_model(cfg, seed=3, device="cpu")
         card = copy.deepcopy(cpu).to(dev)
-        toks = torch.randint(0, cfg.vocab, (2, SSM_REDUCED_PROMPT + 1),
+        toks = torch.randint(0, cfg.vocab, (2, prompt + 1),
                              generator=torch.Generator().manual_seed(8))
-        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:], **reduced_frames(cfg, 2, 9)}
 
         def loss_and_grads(m, where):
             loss, _ = m.loss({k_: v.to(where) for k_, v in batch.items()})
@@ -2822,7 +2877,7 @@ def ssm_phase(dev, reset_all, kernel, sig_kernel, name, power) -> list:
     long_row = serve_ssm_long(SSM_LONG, serve, dev, name, power)
     serve_counts = {**kernel.launch_counts(), **sig_kernel.launch_counts()}
     train = ssm_train(dev)
-    card_vs_cpu = ssm_card_vs_cpu(dev)
+    card_vs_cpu = family_card_vs_cpu(dev, SSM_REDUCED, SSM_REDUCED_PROMPT)
     counts = {**kernel.launch_counts(), **sig_kernel.launch_counts()}
     shapes, ran_at = kernel.launch_shapes(), kernel.launch_variants()
     emit({"ssm_path": {"serve": serve, "long": long_row, "train": train,
@@ -2839,6 +2894,180 @@ def ssm_phase(dev, reset_all, kernel, sig_kernel, name, power) -> list:
         check(counts[kname] > 0, f"ssm path never launched {kname}")
     check(counts["fwd_fused"] + counts["gram_fused"] > 0, "ssm path launched neither fused kernel")
     return [(k, {"ssm_train": n}, ran_at[k]) for k, n in sorted(shapes.items(), key=str)]
+
+
+def encdec_param_count(cfg) -> int:
+    """Parameters of the encoder-decoder of ``cfg``, from its shapes: the
+    encoder's layers (attention, the gated MLP, two LayerNorms of scale and
+    bias), the decoder's (a cross-attention and a third LayerNorm more),
+    the tied table, ``ln_enc`` and ``ln_out`` (and ``sig_proj`` under
+    ``sig_loss``)."""
+    from repro_torch.models.api import padded_vocab
+    d = cfg.d_model
+    attn = d * cfg.hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+    mlp = 3 * d * cfg.d_ff
+    return (cfg.n_enc_layers * (attn + mlp + 4 * d) + cfg.n_layers * (2 * attn + mlp + 6 * d)
+            + padded_vocab(cfg) * d + 4 * d + (d * cfg.sig_loss_dim if cfg.sig_loss else 0))
+
+
+def encdec_bounds(cfg, w_bytes: int, B: int, F: int, P: int, N: int) -> dict:
+    """The encoder, prefill and decode bounds of serving ``cfg`` in bf16
+    (weights of ``w_bytes``): B streams of F frames, a prompt of P tokens,
+    then N steps, at H100 SXM peaks.  The prefill's bf16 products (the
+    encoder's layers, the cross K/V over the frames, the decoder's layers
+    on the prompt, the last position's logits) run at the tensor-core
+    rate, its float32 attention products (the encoder's F × F, the
+    decoder's causal P × P and its P × F cross) at the float32 rate.  A
+    decode step reads the bf16 weights it uses (each decoder layer but its
+    cross wk and wv, the tied table, ``ln_out``), the cross K/V and the
+    self-attention KV slots at the median step."""
+    from repro_torch.models.api import padded_vocab
+    vp, d, hd, H, KV = padded_vocab(cfg), cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    ne, nd = cfg.n_enc_layers, cfg.n_layers
+    attn, mlp = d * hd * (2 * H + 2 * KV), 3 * d * cfg.d_ff
+    kv_proj = 2 * d * hd * KV                    # a layer's cross wk and wv
+    enc_mm = 2 * B * F * ne * (attn + mlp)
+    enc_f32 = 4 * B * H * hd * F * F * ne
+    dec_mm = 2 * B * P * nd * (2 * attn - kv_proj + mlp) + 2 * B * F * nd * kv_proj + 2 * B * d * vp
+    dec_f32 = 4 * B * H * hd * nd * (P * P // 2 + P * F)
+    enc_ms = (enc_mm / BF16_FLOPS_PER_S + enc_f32 / FP32_FLOPS_PER_S) * 1e3
+    prefill_ops_ms = enc_ms + (dec_mm / BF16_FLOPS_PER_S + dec_f32 / FP32_FLOPS_PER_S) * 1e3
+    prefill_bytes_ms = w_bytes / HBM_BYTES_PER_S * 1e3
+    mid = P + N // 2
+    step_bytes = (2 * (nd * (2 * attn - kv_proj + mlp + 6 * d) + vp * d + 2 * d)
+                  + 2 * 2 * nd * B * (F + mid + 1) * KV * hd)
+    return {"encoder_bound_ms": enc_ms, "encoder_bound_by": "operations",
+            "prefill_bound_ms": max(prefill_ops_ms, prefill_bytes_ms),
+            "prefill_bound_by": "operations" if prefill_ops_ms >= prefill_bytes_ms else "bytes",
+            "decode_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3, "decode_bound_by": "bytes",
+            "decode_step_bytes": step_bytes}
+
+
+def serve_encdec_model(spec, dev, name, power) -> dict:
+    """Phase 19 (a) and (b): whisper-large-v3 at full size, bf16 on one
+    compute copy: the encoder timed alone, then serving (prefill, greedy
+    decode) as phase 15 times it, on ``spec["frames"]`` stub frames a
+    stream; then the float32 prefill-against-decode check on the same
+    parameters and frames."""
+    import gc
+    import torch
+    from repro_torch.models import build_model, get_config
+    from repro_torch.models.params import tree_items
+    from repro_torch.serve.step import compute_params
+    cfg = get_config(spec["arch"])
+    B, F, P, N = spec["batch"], spec["frames"], spec["prompt"], spec["tokens"]
+    S, k = spec["check"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    model = build_model(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    build_peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == encdec_param_count(cfg),
+          f"encdec {cfg.name}: {n_params} parameters, the shapes say {encdec_param_count(cfg)}")
+    g = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (B, max(P, S)), generator=g, device=dev)
+    frames = {"frames": 0.1 * torch.randn((B, F, cfg.d_model), generator=g, device=dev)}
+
+    with torch.inference_mode():
+        params = compute_params(model)
+        w_bytes = sum(t.numel() * t.element_size() for _, t in tree_items(params))
+        enc, first_encoder_ms = event_ms(lambda: model.encode(frames, params))
+        check(tuple(enc.shape) == (B, F, cfg.d_model) and enc.dtype == torch.bfloat16
+              and bool(torch.isfinite(enc).all()),
+              f"encdec {cfg.name}: encoder states {tuple(enc.shape)} {enc.dtype}, or not finite")
+        del enc
+        encoder_ms = [event_ms(lambda: model.encode(frames, params))[1]
+                      for _ in range(ENCODER_REPS)]
+        run = timed_serving(model, params, toks, P, N, P + N + PROFILE_STEPS, dev,
+                            extra=frames)
+        del params, run["prefill"], run["decode"], run["caches"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        f32_rel, f32_prefill_ms = float32_check(model, cfg, toks, S, k, extra=frames)
+    peak = torch.cuda.max_memory_allocated(dev)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = {"config": cfg.name, "family": cfg.family, "params": n_params,
+           "n_enc_layers": cfg.n_enc_layers, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "reduced": None, "compute_dtype": "bfloat16", "batch": B, "frames": F, "prompt": P,
+           "decode_steps": N, "build_s": build_s, "bf16_weight_bytes": w_bytes,
+           "first_encoder_ms": first_encoder_ms,
+           "encoder_ms_median": float(np.median(encoder_ms)), "encoder_ms": encoder_ms,
+           **serving_row(run, B, P, N), **encdec_bounds(cfg, w_bytes, B, F, P, N),
+           "build_peak_bytes": build_peak, "float32_check_peak_bytes": peak,
+           "float32_check": {"S": S, "k": k, "rel_err": f32_rel, "prefill_ms": f32_prefill_ms},
+           "card": name, "power_limit": power}
+    serving_checks(f"encdec {cfg.name}", run, w_bytes, f32_rel, B, N, S, k, cfg.vocab)
+    return row
+
+
+def encdec_train(dev) -> dict:
+    """Phase 19 (c): the encoder-decoder at whisper-large-v3's full size,
+    ``sig_loss`` on, trained as phase 12 trains the dense LM on
+    ``ENCDEC_TRAIN["frames"]`` stub frames a sequence (both stacks cut to
+    ``ENCDEC_TRAIN["layers"]`` where that is below the full depth)."""
+    from repro_torch.models import get_config
+    full = get_config(ENCDEC_TRAIN["arch"])
+    depth = ENCDEC_TRAIN["layers"]
+    cfg = full.replace(n_layers=depth, n_enc_layers=depth, sig_loss=True,
+                       sig_loss_dim=ENCDEC_TRAIN["sig_dim"])
+    n_params, steps, peak = lm_train(cfg, ENCDEC_TRAIN, dev)
+    check(n_params == encdec_param_count(cfg),
+          f"encdec trainer: {n_params} parameters, the shapes say {encdec_param_count(cfg)}")
+    ms = float(np.median([r["ms"] for r in steps[1:]]))
+    return {"config": cfg.name, "params": n_params, "n_enc_layers": cfg.n_enc_layers,
+            "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "compute_dtype": cfg.compute_dtype, "remat": cfg.remat,
+            "reduced": None if depth == full.n_layers else
+            f"n_layers and n_enc_layers {full.n_layers} -> {depth}",
+            "seq": ENCDEC_TRAIN["seq"], "frames": ENCDEC_TRAIN["frames"],
+            "batch": ENCDEC_TRAIN["batch"], "microbatches": ENCDEC_TRAIN["microbatches"],
+            "steps": steps, "ms_per_step_median_after_first": ms,
+            "tokens_per_s": ENCDEC_TRAIN["batch"] * ENCDEC_TRAIN["seq"] / (ms / 1e3),
+            "frames_per_s": ENCDEC_TRAIN["batch"] * ENCDEC_TRAIN["frames"] / (ms / 1e3),
+            "peak_memory_bytes": peak}
+
+
+def encdec_phase(dev, reset_all, kernel, sig_kernel, name, power) -> list:
+    """Phase 19: the encoder-decoder family.  whisper-large-v3 served at
+    full size (:data:`SERVE_ENCDEC`, with its float32 check), trained at
+    full size (:data:`ENCDEC_TRAIN`) and held card against CPU on the
+    reduced config in both layouts at 16 and 1,500 frames; the launch
+    counts set to 0 just before and read just after (serving reaches no
+    hand-written kernel, the trainer's signature-kernel auxiliary loss the
+    Goursat kernels).  Returns [(Goursat launch key, {run: launches}, the
+    (λ1, λ2, scheme, interior dtype) it ran at)]."""
+    import torch
+    torch.cuda.empty_cache()
+    reset_all()
+    t_phase = time.time()
+    serve = serve_encdec_model(SERVE_ENCDEC, dev, name, power)
+    serve_counts = {**kernel.launch_counts(), **sig_kernel.launch_counts()}
+    train = encdec_train(dev)
+    card_vs_cpu = family_card_vs_cpu(dev, ENCDEC_REDUCED, 6)
+    counts = {**kernel.launch_counts(), **sig_kernel.launch_counts()}
+    shapes, ran_at = kernel.launch_shapes(), kernel.launch_variants()
+    emit({"encdec_path": {"serve": serve, "train": train, "reduced_card_vs_cpu_rel": card_vs_cpu},
+          "serve_launches": serve_counts, "launches": counts,
+          "launches_by_shape": shape_rows(shapes), "seconds": round(time.time() - t_phase, 3),
+          "card": name, "power_limit": power})
+    losses = [r["loss"] for r in train["steps"]]
+    check(all(np.isfinite(losses + [r["sig"] for r in train["steps"]])),
+          f"encdec: non-finite loss or sig {train['steps']}")
+    check(losses[-1] < losses[0], f"encdec: the loss did not fall {losses}")
+    check(not any(serve_counts.values()), f"encdec serving launched a kernel {serve_counts}")
+    for kname in TRAIN_PATH:
+        check(counts[kname] > 0, f"encdec path never launched {kname}")
+    check(counts["fwd_fused"] + counts["gram_fused"] > 0,
+          "encdec path launched neither fused kernel")
+    return [(k, {"encdec_train": n}, ran_at[k]) for k, n in sorted(shapes.items(), key=str)]
 
 
 if __name__ == "__main__":

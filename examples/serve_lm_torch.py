@@ -1,12 +1,14 @@
 """Serve a small LM with the PyTorch port: batched prefill, then greedy
 decode with KV caches (and, for the hybrid family, the sliding-window ring
 and the RG-LRU state; for the SSM family, mamba2-780m, the conv window and
-the SSD state, O(1) in the context).
+the SSD state, O(1) in the context; for the encoder-decoder,
+whisper-large-v3, stubbed audio frames through the encoder and each decoder
+layer's cross K/V).
 
 The PyTorch counterpart of ``examples/serve_lm.py``, with its flags and
 defaults (the ``.reduced()`` config of ``--arch``, random parameters from a
 seed); it runs on the card unless given ``--device cpu``.  The port builds
-the dense, MoE, SSM and hybrid families; any other raises
+the dense, MoE, SSM, hybrid and encdec families; the vlm family raises
 ``NotImplementedError``.
 
     PYTHONPATH=src python examples/serve_lm_torch.py --arch recurrentgemma-2b --tokens 32
@@ -42,10 +44,14 @@ def main(argv=None):
     g = torch.Generator(device=dev).manual_seed(1)
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), generator=g,
                            device=dev)
+    batch = {"tokens": prompt}
+    if cfg.family == "encdec":
+        batch["frames"] = 0.1 * torch.randn((args.batch, cfg.n_audio_frames, cfg.d_model),
+                                            generator=g, device=dev)
 
     t0 = time.time()
     with torch.inference_mode():
-        logits, caches = prefill({"tokens": prompt})
+        logits, caches = prefill(batch)
         nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
         out = [nxt]
         for t in range(args.prompt_len, max_len - 1):

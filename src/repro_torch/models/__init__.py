@@ -1,7 +1,8 @@
 """Model zoo of the port: the architecture configs and the dense, MoE, SSM
-and hybrid LMs as modules whose parameters carry the JAX package's names,
-with their serving methods.  Counterpart of ``repro.models``; the encdec and
-vlm families wait for ROADMAP Queue A items A3 and A4."""
+and hybrid LMs and the encoder-decoder (Whisper) as modules whose
+parameters carry the JAX package's names, with their serving methods.
+Counterpart of ``repro.models``; the vlm family waits for ROADMAP Queue A
+item A4."""
 
 from .api import Model, build_model
 from .config import ArchConfig, get_config, list_configs, register

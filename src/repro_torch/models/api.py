@@ -3,12 +3,13 @@
 ``cache_init`` and ``decode`` serve it.
 
 Counterpart of ``repro/models/api.py`` for the dense, MoE, SSM (Mamba-2)
-and hybrid (RecurrentGemma) decoder-only families.  The paper's technique
+and hybrid (RecurrentGemma) decoder-only families and the encoder-decoder
+(Whisper) family, :class:`EncDecModel`.  The paper's technique
 attaches as the optional signature-kernel auxiliary loss on the hidden-state
 trajectory (``cfg.sig_loss``), through the port's
 :func:`repro_torch.core.losses.sig_aux_loss`, whose exact backward runs the
-Goursat kernels on the card.  The encdec and vlm families wait for ROADMAP
-Queue A items A3 and A4.
+Goursat kernels on the card.  The vlm family waits for ROADMAP Queue A
+item A4.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from ..core.config import GridConfig
 from ..core.losses import sig_aux_loss
 from . import layers as L
 from . import transformer as T
+from . import whisper as W
 from .params import ParamTree
 
 VOCAB_ALIGN = 256
@@ -54,7 +56,8 @@ def _sig_aux(params, hidden, batch, cfg):
 
 
 class Model(ParamTree):
-    """A decoder-only LM.  Its parameters carry the JAX package's names
+    """A decoder-only LM (:class:`EncDecModel`, its subclass, is the
+    encoder-decoder).  Its parameters carry the JAX package's names
     (``embed.table``, ``layers.stacked.attn.wq``, ``layers.layer_0.attn.wq``,
     ``layers.stacked.moe.w_gate``, ``layers.stacked.mixer.in_proj`` or
     ``layers.groups.pos_0.rec.w_x``, ``final_norm.scale``,
@@ -124,9 +127,83 @@ class Model(ParamTree):
         return _logits(p, x, cfg), caches
 
 
+class EncDecModel(Model):
+    """The encoder-decoder (Whisper).  Its parameters carry the JAX
+    package's names (``enc.stacked.attn.wq``, ``dec.layer_0.cross.wk``,
+    ``embed.table``, ``ln_enc.scale``, ``ln_out.bias``, ``sig_proj``); the
+    embedding is tied (no ``lm_head``).  Every method takes
+    ``batch["frames"]`` (B, n_audio_frames, d_model), the stubbed front
+    end's frame embeddings, beside the tokens, cast to the compute dtype.
+    Decode caches hold, per decoder layer, its KV cache and its cross K/V
+    (``ck``, ``cv``), all in the compute dtype."""
+
+    def encode(self, batch: Dict, params: Optional[Dict] = None) -> torch.Tensor:
+        """The encoder states of ``batch["frames"]``, after ``ln_enc``."""
+        p = self.tree() if params is None else params
+        enc = W.encoder_apply(p["enc"], batch["frames"].to(self.compute_dtype), self.cfg)
+        return L.layernorm(p["ln_enc"], enc, self.cfg.norm_eps)
+
+    def loss(self, batch: Dict, params: Optional[Dict] = None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        cfg = self.cfg
+        p = self.tree() if params is None else params
+        enc = self.encode(batch, p)
+        temb = L.embed(p["embed"], batch["tokens"], self.compute_dtype)
+        x = W.decoder_apply(p["dec"], temb, enc, cfg)
+        x = L.layernorm(p["ln_out"], x, cfg.norm_eps)
+        ce = L.cross_entropy(_logits(p, x, cfg), batch["labels"])
+        metrics = {"ce": ce}
+        total = ce
+        if cfg.sig_loss:
+            sl = _sig_aux(p, x, batch, cfg)
+            total = total + cfg.sig_loss_weight * sl
+            metrics["sig"] = sl
+        return total, metrics
+
+    @torch.no_grad()
+    def prefill(self, batch: Dict, params: Optional[Dict] = None):
+        """The frames through the encoder and the prompt ``batch["tokens"]``
+        (B, S) through the decoder, building the decode caches of
+        ``batch.get("max_len", S)`` positions.  Returns (the last
+        position's logits (B, 1, padded vocab), caches)."""
+        cfg = self.cfg
+        p = self.tree() if params is None else params
+        enc = self.encode(batch, p)
+        max_len = int(batch.get("max_len", batch["tokens"].shape[1]))
+        temb = L.embed(p["embed"], batch["tokens"], self.compute_dtype)
+        x, caches = W.decoder_prefill(p, temb, enc, cfg, max_len, self.compute_dtype)
+        x = L.layernorm(p["ln_out"], x, cfg.norm_eps)
+        return _logits(p, x[:, -1:], cfg), caches
+
+    def cache_init(self, batch_size: int, max_len: int) -> Dict:
+        """Decode caches for ``batch_size`` sequences of up to ``max_len``
+        positions, the cross K/V those of zero encoder states (serving
+        fills them with :meth:`prefill`)."""
+        cfg = self.cfg
+        enc = torch.zeros((batch_size, cfg.n_audio_frames, cfg.d_model),
+                          dtype=self.compute_dtype, device=self.embed.table.device)
+        return W.dec_cache_init(self.tree(), enc, cfg, batch_size, max_len, self.compute_dtype)
+
+    @torch.no_grad()
+    def decode(self, caches: Dict, tokens: torch.Tensor, cur_len, params: Optional[Dict] = None):
+        """One token a sequence, ``tokens`` (B, 1), at position ``cur_len``;
+        updates ``caches`` in place and returns (logits, caches)."""
+        cfg = self.cfg
+        p = self.tree() if params is None else params
+        x = L.embed(p["embed"], tokens, self.compute_dtype)
+        x, caches = W.decoder_decode(p, x, caches, int(cur_len), cfg)
+        x = L.layernorm(p["ln_out"], x, cfg.norm_eps)
+        return _logits(p, x, cfg), caches
+
+
 def init_params(generator: torch.Generator, cfg) -> Dict:
-    """The LM's parameter tree, drawn on the generator's device."""
+    """The model's parameter tree, drawn on the generator's device."""
     vp = padded_vocab(cfg)
+    if cfg.family == "encdec":
+        params = W.init(generator, cfg.replace(vocab=vp))
+        if cfg.sig_loss:
+            params["sig_proj"] = L.dense_init(generator, cfg.d_model, cfg.sig_loss_dim)
+        return params
     dev = generator.device
     params = {"embed": L.embed_init(generator, vp, cfg.d_model),
               "final_norm": L.rmsnorm_init(cfg.d_model, dev),
@@ -139,12 +216,14 @@ def init_params(generator: torch.Generator, cfg) -> Dict:
 
 
 def build_model(cfg, *, seed: int = 0, device=None) -> Model:
-    """The LM of ``cfg`` with parameters drawn from ``seed``, on the card
-    unless ``device="cpu"``.  The dense, moe, ssm and hybrid families build."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+    """The model of ``cfg`` with parameters drawn from ``seed``, on the card
+    unless ``device="cpu"``: an :class:`EncDecModel` for the encdec family,
+    else a :class:`Model`.  The dense, moe, ssm, hybrid and encdec families
+    build."""
+    if cfg.family in T.WAITING:
         raise NotImplementedError(
-            f"{cfg.name}: build_model builds the 'dense', 'moe', 'ssm' and 'hybrid' families; "
-            f"{cfg.family!r} waits for ROADMAP Queue A item {T.WAITING.get(cfg.family, '?')}")
+            f"{cfg.name}: build_model builds the 'dense', 'moe', 'ssm', 'hybrid' and 'encdec' "
+            f"families; {cfg.family!r} waits for ROADMAP Queue A item {T.WAITING[cfg.family]}")
     g = torch.Generator(device=card_device(device, "build_model"))
     g.manual_seed(seed)
-    return Model(cfg, init_params(g, cfg))
+    return (EncDecModel if cfg.family == "encdec" else Model)(cfg, init_params(g, cfg))

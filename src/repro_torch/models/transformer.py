@@ -45,7 +45,7 @@ from . import ssm as SSM
 from .params import tree_items, tree_map
 
 #: the ROADMAP Queue A item that ports each family the port does not build
-WAITING = {"encdec": "A3", "vlm": "A4"}
+WAITING = {"vlm": "A4"}
 
 
 def layer_kind(cfg, idx: int) -> str:
@@ -55,11 +55,10 @@ def layer_kind(cfg, idx: int) -> str:
         return cfg.block_pattern[idx % len(cfg.block_pattern)]
     if cfg.family == "moe":
         return "moe"
-    if cfg.family != "dense":
+    if cfg.family in WAITING:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family's layers are not ported yet (ROADMAP "
-            f"Queue A item {WAITING.get(cfg.family, '?')}); the port builds the 'dense', "
-            f"'moe', 'ssm' and 'hybrid' families")
+            f"Queue A item {WAITING[cfg.family]})")
     return "dense"
 
 
@@ -183,7 +182,7 @@ def _layer_prefill(p, h, cache, positions, cfg, kind: str):
 # ---------------------------------------------------------------------------
 
 def _uniform(cfg) -> bool:
-    return cfg.scan_layers and cfg.family in ("dense", "moe", "vlm", "ssm")
+    return cfg.scan_layers and cfg.family in ("dense", "moe", "vlm", "ssm", "encdec")
 
 
 def _grouped(cfg) -> bool:

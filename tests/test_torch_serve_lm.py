@@ -12,7 +12,10 @@ unrolled) and a 7-layer variant of it in the grouped layout (2 groups of
 (shared experts) and dbrx-132b per layer (none), reduced mamba2-780m per
 layer and stacked (SSD chunks of 8: the 12- and 20-token prompts end in a
 padded chunk; its caches are float32 conv windows and states, written in
-place; ``tests/test_torch_ssm.py`` holds the block itself).  Every MoE block that
+place; ``tests/test_torch_ssm.py`` holds the block itself), reduced
+whisper-large-v3 per layer and stacked (16 stubbed frames of 0.1·N(0, 1);
+its caches add each decoder layer's cross K/V, ``ck`` and ``cv``;
+``tests/test_torch_whisper.py`` holds it at 1,500 frames).  Every MoE block that
 runs must keep each token's k+1 largest router logits apart
 (``tests/test_torch_moe.py``'s margin), or the test errs.  Logits and every cache leaf
 agree within 5e-5 relative, the hybrid model's loss too, and its parameter
@@ -21,7 +24,7 @@ prefill-against-decode checks (``tests/test_models.py``) run on the port
 at their 2e-4 gate.  In bf16 compute, the logits of a prefill and 9 decode
 steps lie as far from the float32 model's as the JAX package's bf16 logits
 lie from its own float32 ones, within a factor of 1.5 either way (dense,
-hybrid, MoE and SSM).  For MoE the prompt is one on which every block chooses
+hybrid, MoE, SSM and encoder-decoder).  For MoE the prompt is one on which every block chooses
 the same experts in bf16 as in float32, which the test checks: bf16's
 rounding of the hidden states exceeds the gaps between router logits often
 enough that about half of random prompts at this size flip a choice, and a
@@ -51,7 +54,6 @@ from repro.serve.step import make_decode_step as jmake_decode_step
 from repro_torch.models import build_model, get_config, params_from_jax
 from repro_torch.models import attention as A
 from repro_torch.models import rglru as RG
-from repro_torch.models.api import Model
 from repro_torch.models.params import tree_items
 from repro_torch.serve.step import compute_params, make_decode_step, make_prefill_step
 from test_torch_moe import assert_margins, record_routing
@@ -253,6 +255,8 @@ MODELS = {
     "dbrx_layers": lambda get: get("dbrx-132b").reduced(),
     "mamba2_layers": lambda get: get("mamba2-780m").reduced(),
     "mamba2_stacked": lambda get: get("mamba2-780m").reduced().replace(scan_layers=True),
+    "whisper_layers": lambda get: get("whisper-large-v3").reduced(),
+    "whisper_stacked": lambda get: get("whisper-large-v3").reduced().replace(scan_layers=True),
 }
 
 
@@ -283,6 +287,28 @@ def tokens(cfg, B, S, seed=0):
     return np.random.default_rng(seed).integers(0, cfg.vocab, size=(B, S)).astype(np.int32)
 
 
+def frames(cfg, B, seed=0):
+    """An encdec config's stubbed audio frames, {"frames": 0.1·N(0, 1) of
+    (B, n_audio_frames, d_model)}, as numpy; {} for the other families."""
+    if cfg.family != "encdec":
+        return {}
+    fr = 0.1 * np.random.default_rng(seed).normal(size=(B, cfg.n_audio_frames, cfg.d_model))
+    return {"frames": fr.astype(np.float32)}
+
+
+def jax_batch(cfg, toks, **kw):
+    """A prefill batch for the JAX model: the tokens, an encdec config's
+    frames, and ``kw`` (``max_len``) as they are."""
+    return {"tokens": jnp.asarray(toks), **{k: jnp.asarray(v) for k, v in
+                                            frames(cfg, toks.shape[0]).items()}, **kw}
+
+
+def port_batch(cfg, toks, **kw):
+    """:func:`jax_batch` for the port (``toks`` numpy or a tensor)."""
+    return {"tokens": toks if torch.is_tensor(toks) else t(toks),
+            **{k: t(v) for k, v in frames(cfg, toks.shape[0]).items()}, **kw}
+
+
 def test_layouts_carry_the_jax_names(pair):
     jm, jp, tm = pair
     want = {k: v.shape for k, v in jax_leaves(jp).items()}
@@ -300,6 +326,10 @@ def test_layouts_carry_the_jax_names(pair):
         assert want[key][-2:] == (cfg.d_model, 4 * cfg.d_model + 2 * cfg.ssm_state
                                   + 2 * cfg.d_model // cfg.ssm_head_dim)
         assert not any(".attn." in k or ".mlp." in k for k in want)
+    if cfg.family == "encdec":
+        stack = "stacked" if cfg.scan_layers else "layer_1"
+        assert f"enc.{stack}.attn.wq" in want and f"dec.{stack}.cross.wk" in want
+        assert "ln_enc.scale" in want and "lm_head.table" not in want
 
 
 def test_params_from_jax_refuses_the_other_hybrid_layout():
@@ -328,9 +358,8 @@ def test_prefill_and_decode_match_jax(pair):
     jm, jp, tm = pair
     cfg = tm.cfg
     toks = tokens(cfg, 2, 15)
-    batch = {"tokens": toks[:, :6], "max_len": 16}
-    jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(batch["tokens"]), "max_len": 16})
-    logits, caches = tm.prefill({"tokens": t(batch["tokens"]), "max_len": 16})
+    jl, jc = jm.prefill(jp, jax_batch(cfg, toks[:, :6], max_len=16))
+    logits, caches = tm.prefill(port_batch(cfg, toks[:, :6], max_len=16))
     assert logits.shape == (2, 1, 256) and not logits.requires_grad
     close(logits, jl, VALUE_RTOL, "prefill logits")
     assert_caches_close(caches, jc)
@@ -393,23 +422,24 @@ def serve_steps(prefill, decode, toks):
 
 
 @pytest.mark.parametrize("which", ["deepseek_layers", "hybrid_grouped", "qwen2_moe_stacked",
-                                   "dbrx_layers", "mamba2_layers", "mamba2_stacked"])
+                                   "dbrx_layers", "mamba2_layers", "mamba2_stacked",
+                                   "whisper_layers"])
 def test_bf16_serving_tracks_the_jax_packages_own_distance(which):
     jm, jp, tm = model_pair(which)
     cfg, V = tm.cfg, tm.cfg.vocab
     jm16 = jbuild_model(jm.cfg.replace(compute_dtype="bfloat16"))
-    tm16 = Model(cfg.replace(compute_dtype="bfloat16"), tm.tree())
+    tm16 = type(tm)(cfg.replace(compute_dtype="bfloat16"), tm.tree())
     toks = tokens(cfg, 2, 15, seed=12)
 
     def jax_run(m):
         return serve_steps(
-            lambda p: m.prefill(jp, {"tokens": jnp.asarray(p), "max_len": 16}),
+            lambda p: m.prefill(jp, jax_batch(cfg, p, max_len=16)),
             lambda c, tok, cur: m.decode(jp, c, jnp.asarray(tok), jnp.asarray(cur, jnp.int32)),
             toks)
 
     def port_run(m):
         with record_routing() as calls:
-            out = serve_steps(lambda p: m.prefill({"tokens": t(p), "max_len": 16}),
+            out = serve_steps(lambda p: m.prefill(port_batch(cfg, p, max_len=16)),
                               lambda c, tok, cur: m.decode(c, t(tok), cur), toks)
         return out, [c[3] for c in calls]
 
@@ -432,8 +462,8 @@ def test_prefill_decode_consistency(pair):
     cfg = tm.cfg
     S = 12
     toks = t(tokens(cfg, 2, S, seed=2))
-    l_full, _ = tm.prefill({"tokens": toks, "max_len": 32})
-    _, cache = tm.prefill({"tokens": toks[:, :S - 1], "max_len": 32})
+    l_full, _ = tm.prefill(port_batch(cfg, toks, max_len=32))
+    _, cache = tm.prefill(port_batch(cfg, toks[:, :S - 1], max_len=32))
     l_dec, _ = tm.decode(cache, toks[:, S - 1:], S - 1)
     err = (l_full[..., :cfg.vocab] - l_dec[..., :cfg.vocab]).abs().max()
     assert float(err) < CONSISTENCY, float(err)
@@ -461,14 +491,15 @@ def test_long_recurrent_decode(which):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("which", ["deepseek_stacked", "hybrid_grouped", "qwen2_moe_stacked",
-                                   "dbrx_layers", "mamba2_layers", "mamba2_stacked"])
+                                   "dbrx_layers", "mamba2_layers", "mamba2_stacked",
+                                   "whisper_stacked"])
 def test_greedy_decode_step_tokens_equal_jax(which):
     jm, jp, tm = model_pair(which)
     prompt = tokens(tm.cfg, 3, 6, seed=7)
-    jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(prompt), "max_len": 20})
+    jl, jc = jm.prefill(jp, jax_batch(tm.cfg, prompt, max_len=20))
     jstep = jmake_decode_step(jm)
     params = compute_params(tm)
-    logits, caches = make_prefill_step(tm, max_len=20, params=params)({"tokens": t(prompt)})
+    logits, caches = make_prefill_step(tm, max_len=20, params=params)(port_batch(tm.cfg, prompt))
     step = make_decode_step(tm, params=params)
     jn = jnp.argmax(jl[:, -1, :], axis=-1).astype(jnp.int32)[:, None]
     nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
@@ -554,7 +585,8 @@ def run_example(*args):
                           env={**os.environ, "PYTHONPATH": "src"}, timeout=300)
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "deepseek-7b", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "deepseek-7b", "mamba2-780m",
+                                  "whisper-large-v3"])
 def test_serve_lm_example_runs_on_the_cpu(arch):
     done = run_example("--arch", arch, "--tokens", "8")
     assert done.returncode == 0, done.stdout + done.stderr
@@ -566,6 +598,6 @@ def test_serve_lm_example_runs_on_the_cpu(arch):
 
 
 def test_serve_lm_example_refuses_an_unported_family():
-    done = run_example("--arch", "whisper-large-v3", "--tokens", "2")
+    done = run_example("--arch", "internvl2-76b", "--tokens", "2")
     assert done.returncode != 0
-    assert "NotImplementedError" in done.stderr and "item A3" in done.stderr
+    assert "NotImplementedError" in done.stderr and "item A4" in done.stderr
