@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's signature and signature-kernel paths, forward and
-gradient, its LM serving path, its example scripts and the MoE, SSM and
-encoder-decoder families, on one CUDA card.
+gradient, its LM serving path, its example scripts and the MoE, SSM,
+encoder-decoder and vlm families, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -238,10 +238,38 @@ Phases (any failure exits non-zero; nothing runs without CUDA):
    cache leaf, then the loss and every parameter gradient, card against
    CPU within 1e-4.  Serving must launch no kernel.
 
-Phases 8-19 run after phase 7's timing and before the ``kernels`` line;
+20. ``vlm_path``: the vlm family, internvl2-76b (80 dense layers of width
+   8192, 64 heads and 8 KV heads of 128, d_ff 28,672, an untied table of
+   128,256 rows, ``patch_proj`` (1024, 8192); 70,562,095,104 parameters,
+   stacked) at full width, cut in depth.  (a) Built in float32 at the most
+   layers whose build and in-place bf16 cast fit (the cut printed), cast to
+   a bf16 master (``cast_master_``) and served from it under
+   ``torch.inference_mode``: 4 sequences of 512 positions, the first 256
+   (``n_patches``) stub patch embeddings (0.1·N(0, 1) of (4, 256, 1024) in
+   bf16) projected in place of the tokens, then 32 greedy tokens; phase
+   15's row fields and profiles, the build, cast and serving peaks, the
+   prefill bound (the bf16 layer products, the patch projection and the
+   float32 attention) and the decode bound (the bf16 weights but the input
+   table and ``patch_proj``, and the KV slots), each on a line of its own
+   beside the card's name and power limit.  (b) The float32
+   prefill-against-decode check at (S, k) = (512, 8) on the same patches
+   within 1e-4.  (c) The trainer at full width, cut to the layers whose
+   weights, gradients, bf16 moments and AdamW temporaries fit (1), one
+   microbatch (the JAX package gives a >= 30B-class model one sequence a
+   device), ``sig_loss`` on, remat, bf16: ``make_train_step`` on
+   ``TokenLM(128256, 512, 4, n_patches=256)``, 5 steps; the loss must fall,
+   ``sig`` stay finite and ``patch_proj``'s gradient be finite and nonzero;
+   B1-cps, B2 and a fused kernel must launch, and every Goursat shape and
+   variant no earlier check took goes through ``shape_check``.  (d) The
+   reduced config per layer and stacked, drawn on the CPU, 8 patches on a
+   12-token prompt: prefill and 9 decode steps with every cache leaf, then
+   the loss and every parameter gradient, card against CPU within 1e-4.
+   Serving must launch no kernel.
+
+Phases 8-20 run after phase 7's timing and before the ``kernels`` line;
 each sets the launch counts to 0 just before it and reads them just after
 (phase 11 and 16's distributed example in each rank).  ``python3
-tools/serving_probe.py --phase 17`` (or 18, or 19) runs that phase alone
+tools/serving_probe.py --phase 17`` (or 18, 19, 20) runs that phase alone
 with its shape checks.  Phase 4 also times the host build of the
 ``"brackets"`` basis change at d = 16, N = 4.  Every phase reads, and
 phases 13 and 14 write, an autotune cache under a temporary directory the
@@ -420,6 +448,17 @@ ENCODER_REPS = 3
 #: 16 frames and at 1,500 (the padded KV chunk of 1,024)
 ENCDEC_REDUCED = tuple(("whisper-large-v3", {**layout, "n_audio_frames": F})
                        for layout in ({}, {"scan_layers": True}) for F in (16, 1500))
+# phase 20: the vlm family.  (a) internvl2-76b (src/repro/configs/internvl2_76b.py)
+# at full width, its depth cut to what the float32 build and the in-place
+# bf16 cast fit; each sequence's first n_patches (256) positions are patch
+# embeddings; "check" as in phase 15, at (S, k) with S - k >= the patches,
+# so that the decoded steps are text
+SERVE_VLM = {"arch": "internvl2-76b", "batch": 4, "prompt": 512, "tokens": 32,
+             "check": (512, 8)}
+#: (d) the reduced config card against CPU, per layer and stacked, its 8
+#: patches on a 12-token prompt
+VLM_REDUCED = (("internvl2-76b", {}), ("internvl2-76b", {"scan_layers": True}))
+VLM_REDUCED_PROMPT = 12
 # phase 16: the port's example scripts at their defaults, in this order
 EXAMPLES_DIR = os.path.join(ROOT, "examples")
 EXAMPLES = ("serve_lm_torch", "quickstart_torch", "serve_sig_features_torch",
@@ -434,6 +473,15 @@ SSM_TRAIN = {**LM, "arch": "mamba2-780m", "layers": 48}
 #: phase 19 (c): the trainer at whisper-large-v3's full size, 448 decoder
 #: tokens (Whisper's native length) on 1,500 frames a sequence
 ENCDEC_TRAIN = {**LM, "arch": "whisper-large-v3", "layers": 32, "seq": 448, "frames": 1500}
+#: phase 20 (c): the trainer at internvl2-76b's width, 256 patches a sequence,
+#: one microbatch (src/repro/launch/shapes.py:99-100: one sequence a device
+#: for a >= 30B-class model; an accumulator would cost 8 more bytes a
+#: parameter), its depth cut to 1: up to 16 bytes a parameter (the float32
+#: master and gradient and bf16 moments, with the bf16 copy and its gradient
+#: until the step) and AdamW's four float32 temporaries of a 128,256 x 8,192
+#: table (17 GB) fit 2.97 G parameters beside what earlier phases hold (~8
+#: GB) and the allocator's fragments, not 2 layers' 3.82 G
+VLM_TRAIN = {**LM, "arch": "internvl2-76b", "layers": 1, "microbatches": 1, "patches": 256}
 GAN_SMALL = (8, 32, 8)
 TRAIN_CARD_CPU_REL = 1e-4
 TRAIN_PATH = ("fwd_cps", "bwd")     # and at least one of fwd_fused, gram_fused
@@ -1124,7 +1172,7 @@ def main() -> int:
     for key, by_run in sorted(horner.items(), key=str):
         horner_shape_check(key, by_run, sig_kernel, dev, rng, name, power)
 
-    # the MoE, SSM and encoder-decoder trainers' Goursat shapes at each
+    # the MoE, SSM, encoder-decoder and vlm trainers' Goursat shapes at each
     # variant no earlier check took
     checked = {(k, 0, "order1", "float32") for k in seen}
     checked |= {(k, l1, s, i) for k, (_, ran) in goursat.items() for l1, _, s, i in ran}
@@ -1134,6 +1182,8 @@ def main() -> int:
     trainer_shape_checks("ssm", ssm_shapes, checked, kernel, dev, rng, name, power)
     encdec_shapes = encdec_phase(dev, reset_all, kernel, sig_kernel, name, power)
     trainer_shape_checks("encdec", encdec_shapes, checked, kernel, dev, rng, name, power)
+    vlm_shapes = vlm_phase(dev, reset_all, kernel, sig_kernel, name, power)
+    trainer_shape_checks("vlm", vlm_shapes, checked, kernel, dev, rng, name, power)
 
     emit({"kernels": rows})
     return finish(card)
@@ -1716,13 +1766,14 @@ def train_phase(dev, reset_all, kernel, name, power) -> list:
             + [(k, {"train_lm": n}, 0) for k, n in sorted(shapes_lm.items(), key=str)])
 
 
-def lm_train(cfg, spec, dev):
+def lm_train(cfg, spec, dev, on_done=None):
     """``spec["steps"]`` steps of ``make_train_step`` (AdamW on a cosine
     schedule, ``spec["microbatches"]`` microbatches) of the LM of ``cfg``,
     built on the card, on one ``TokenLM`` batch of ``spec["batch"]`` ×
-    ``spec["seq"]`` tokens (and ``spec["frames"]`` stub frames a sequence,
-    where given).  Returns (parameters, each step's metrics and ms, peak
-    bytes)."""
+    ``spec["seq"]`` tokens (and ``spec["frames"]`` stub frames or
+    ``spec["patches"]`` patch embeddings a sequence, where given), the Adam
+    moments in ``cfg.moment_dtype``.  ``on_done(model)`` runs after the last
+    step.  Returns (parameters, each step's metrics and ms, peak bytes)."""
     import torch
     from repro_torch.data import TokenLM
     from repro_torch.models import build_model
@@ -1731,10 +1782,12 @@ def lm_train(cfg, spec, dev):
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg, seed=0, device=dev)
     n_params = sum(p.numel() for p in model.parameters())
-    train_step = make_train_step(model, AdamW(model.parameters(), lr=cosine_schedule(1e-3, 2, 50)),
-                                 num_microbatches=spec["microbatches"])
+    opt = AdamW(model.parameters(), lr=cosine_schedule(1e-3, 2, 50),
+                moment_dtype=cfg.moment_dtype)
+    train_step = make_train_step(model, opt, num_microbatches=spec["microbatches"])
     batch = TokenLM(vocab=cfg.vocab, seq=spec["seq"], batch=spec["batch"],
-                    n_frames=spec.get("frames", 0), d_model=cfg.d_model,
+                    n_frames=spec.get("frames", 0), n_patches=spec.get("patches", 0),
+                    d_model=cfg.d_model,
                     sig_target_dim=cfg.sig_loss_dim, device=dev).batch_at(0)
     steps = []
     for _ in range(spec["steps"]):
@@ -1745,7 +1798,9 @@ def lm_train(cfg, spec, dev):
         steps.append({**{k: float(v) for k, v in met.items()},
                       "ms": (time.perf_counter() - t0) * 1e3})
     peak = torch.cuda.max_memory_allocated()
-    del model, train_step, batch
+    if on_done:
+        on_done(model)
+    del model, train_step, opt, batch
     torch.cuda.empty_cache()
     return n_params, steps, peak
 
@@ -1978,11 +2033,27 @@ def layer_param_counts(cfg) -> list:
 
 
 def lm_param_count(cfg) -> int:
-    """Parameters of the dense, MoE, SSM or hybrid LM of ``cfg``, from its shapes."""
+    """Parameters of the dense, MoE, vlm, SSM or hybrid LM of ``cfg``, from
+    its shapes (a vlm's ``patch_proj`` of (1024, d_model) among them)."""
     from repro_torch.models.api import padded_vocab
     d = cfg.d_model
     return (sum(layer_param_counts(cfg)) + padded_vocab(cfg) * d * (1 if cfg.tie_embeddings
-                                                                   else 2) + d)
+                                                                   else 2) + d
+            + (1024 * d if cfg.family == "vlm" else 0))
+
+
+def largest_leaf(cfg) -> int:
+    """Elements of the largest parameter of the dense, MoE or vlm LM of
+    ``cfg``: an embedding table, a vlm's ``patch_proj``, or a layer's
+    largest weight (attention's wq or wo, an MLP weight, the stacked
+    experts), times the layer count where the layers are stacked."""
+    from repro_torch.models.api import padded_vocab
+    from repro_torch.models.transformer import _uniform
+    d = cfg.d_model
+    mlp = cfg.n_experts * cfg.moe_d_ff if cfg.n_experts else cfg.d_ff
+    layer = max(d * cfg.hd * cfg.n_heads, d * mlp)
+    return max(padded_vocab(cfg) * d, 1024 * d if cfg.family == "vlm" else 0,
+               layer * (cfg.n_layers if _uniform(cfg) else 1))
 
 
 def serve_depth(cfg, free_bytes: int, serve_bytes: int = 6) -> int:
@@ -1990,14 +2061,17 @@ def serve_depth(cfg, free_bytes: int, serve_bytes: int = 6) -> int:
     whose build and bf16 serving fit in ``free_bytes`` with
     :data:`SERVE_LM_HEADROOM` to spare: the build holds the float32
     parameters once and one layer's draw; serving, ``serve_bytes`` a
-    parameter (6: a float32 master and a bf16 copy; 2: a bf16 master)."""
+    parameter (6: a float32 master and a bf16 copy; 2: a bf16 master, cast
+    in place by :func:`cast_master_`, whose peak is the float32 tree and a
+    bf16 copy of its largest leaf)."""
     step = len(cfg.block_pattern) or 1
     n = cfg.n_layers
     while n > step:
         c = cfg.replace(n_layers=n)
         total = lm_param_count(c)
         build = 4 * (total + max(layer_param_counts(c)))
-        if max(build, serve_bytes * total) + SERVE_LM_HEADROOM <= free_bytes:
+        cast = 4 * total + 2 * largest_leaf(c) if serve_bytes == 2 else 0
+        if max(build, cast, serve_bytes * total) + SERVE_LM_HEADROOM <= free_bytes:
             break
         n -= step
     return n
@@ -2212,21 +2286,24 @@ def serve_lm_model(spec, dev, name, power) -> dict:
     return row
 
 
-def serving_bounds(cfg, w_bytes: int, n_params: int, B: int, P: int, N: int) -> dict:
+def serving_bounds(cfg, w_bytes: int, n_params: int, B: int, P: int, N: int,
+                   patches: int = 0) -> dict:
     """The prefill and decode bounds of serving ``cfg`` in bf16 (weights of
-    ``w_bytes``), B prompts of P tokens then N steps, at H100 SXM peaks.  A
-    decode step reads the bf16 weights but the input embedding table (B
-    rows of it) and, once, the cache it attends over (the median step's
-    KV slots) or carries (the RG-LRU and SSM states and conv windows, read
-    and written).  The prefill's bf16 products run at the tensor-core rate,
-    its float32 attention, RG-LRU scan and SSD products at the float32
-    rate."""
+    ``w_bytes``), B prompts of P positions (the first ``patches`` of them a
+    vlm's patch embeddings) then N steps, at H100 SXM peaks.  A decode step
+    reads the bf16 weights but the input embedding table (B rows of it) and
+    a vlm's ``patch_proj``, and, once, the cache it attends over (the median
+    step's KV slots) or carries (the RG-LRU and SSM states and conv windows,
+    read and written).  The prefill's bf16 products (the patch projection's
+    among them) run at the tensor-core rate, its float32 attention, RG-LRU
+    scan and SSD products at the float32 rate."""
     from repro_torch.models.api import padded_vocab
     from repro_torch.models.ssm import ssd_dims
     from repro_torch.models.transformer import layer_kind
     vp, d = padded_vocab(cfg), cfg.d_model
     mid = P + N // 2
-    step_bytes = w_bytes - vp * d * 2 + B * d * 2
+    proj = 1024 * d if cfg.family == "vlm" else 0      # patch_proj's parameters
+    step_bytes = w_bytes - vp * d * 2 - proj * 2 + B * d * 2
     f32_ops = 0
     for kd in (layer_kind(cfg, i) for i in range(cfg.n_layers)):
         if kd == "ssm":   # a chunk of Q: C·Bᵀ, the (Q, Q, H) weights by x, C·S, the state update
@@ -2242,8 +2319,8 @@ def serving_bounds(cfg, w_bytes: int, n_params: int, B: int, P: int, N: int) -> 
             step_bytes += 2 * B * slots * cfg.n_kv_heads * cfg.hd * 2
             span = min(cfg.attn_window or P, P)
             f32_ops += 2 * 2 * B * cfg.n_heads * cfg.hd * P * span // 2
-    layer_params = n_params - vp * d * (1 if cfg.tie_embeddings else 2)
-    mm = 2 * B * P * layer_params + 2 * B * d * vp
+    layer_params = n_params - vp * d * (1 if cfg.tie_embeddings else 2) - proj
+    mm = 2 * B * P * layer_params + 2 * B * d * vp + 2 * B * patches * proj
     prefill_ops_ms = (mm / BF16_FLOPS_PER_S + f32_ops / FP32_FLOPS_PER_S) * 1e3
     prefill_bytes_ms = w_bytes / HBM_BYTES_PER_S * 1e3
     return {"prefill_bound_ms": max(prefill_ops_ms, prefill_bytes_ms),
@@ -2251,21 +2328,25 @@ def serving_bounds(cfg, w_bytes: int, n_params: int, B: int, P: int, N: int) -> 
             "decode_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3, "decode_bound_by": "bytes"}
 
 
-def reduced_frames(cfg, B: int, seed: int) -> dict:
+def reduced_inputs(cfg, B: int, seed: int) -> dict:
     """An encdec config's stub frames on the CPU, {"frames": 0.1·N(0, 1) of
-    (B, n_audio_frames, d_model)}; {} for the other families."""
+    (B, n_audio_frames, d_model)}, or a vlm config's patch embeddings,
+    {"patches": 0.1·N(0, 1) of (B, n_patches, 1024)}; {} for the other
+    families."""
     import torch
-    if cfg.family != "encdec":
-        return {}
-    return {"frames": 0.1 * torch.randn((B, cfg.n_audio_frames, cfg.d_model),
-                                        generator=torch.Generator().manual_seed(seed))}
+    g = torch.Generator().manual_seed(seed)
+    if cfg.family == "encdec":
+        return {"frames": 0.1 * torch.randn((B, cfg.n_audio_frames, cfg.d_model), generator=g)}
+    if cfg.family == "vlm":
+        return {"patches": 0.1 * torch.randn((B, cfg.n_patches, 1024), generator=g)}
+    return {}
 
 
 def serve_lm_card_vs_cpu(dev, reduced=SERVE_LM_REDUCED, prompt: int = 6) -> dict:
     """The reduced configs ``reduced`` ((arch, config changes) pairs; by
     default both phase 15 families, every layout), parameters drawn on the
     CPU in the JAX layout: prefill of ``prompt`` tokens (and an encdec
-    config's frames) and 9 decode steps (at 6, the hybrid's ring of 8
+    config's frames or a vlm config's patches) and 9 decode steps (at 6, the hybrid's ring of 8
     wraps) on the card against the CPU, the logits and every cache leaf."""
     import copy
     import torch
@@ -2278,7 +2359,7 @@ def serve_lm_card_vs_cpu(dev, reduced=SERVE_LM_REDUCED, prompt: int = 6) -> dict
         card = copy.deepcopy(cpu).to(dev)
         toks = torch.randint(0, cfg.vocab, (2, prompt + 9),
                              generator=torch.Generator().manual_seed(4))
-        frames = reduced_frames(cfg, 2, 5)
+        frames = reduced_inputs(cfg, 2, 5)
 
         def run(m, where):
             with torch.inference_mode():
@@ -2487,32 +2568,27 @@ def cast_master_(model, dtype) -> None:
             p.data = p.data.to(dtype)
 
 
-def serve_moe_model(spec, dev, name, power) -> dict:
-    """One model of phase 17 at full width: built in float32 (the build's
-    peak held to the tree, one layer and one leaf), cast in place to a bf16
-    master, served from it in bf16 (prefill, greedy decode; routing logged
-    on untimed steps), then the float32 prefill-against-decode check on the
-    same parameters."""
+def build_bf16_master(full, dev, what: str):
+    """``full`` at the most layers whose float32 build and in-place bf16 cast
+    fit the card (:func:`serve_depth` with ``serve_bytes=2``; the cut
+    printed), built on the card in float32 (the build's peak held to the
+    tree, one layer and one leaf) and cast in place to a bf16 master
+    (:func:`cast_master_`; its peak held to the float32 tree and a bf16 copy
+    of the largest leaf).  Returns (the config, the cut or None, the model,
+    its parameter count, the build and cast row fields)."""
     import gc
     import torch
-    from repro_torch.models import build_model, get_config
-    from repro_torch.models.api import padded_vocab
-    from repro_torch.models.moe import capacity, group_size
-    from repro_torch.models.params import tree_items
-    from repro_torch.serve.step import compute_params
-    full = get_config(spec["arch"])
+    from repro_torch.models import build_model
     gc.collect()
     torch.cuda.empty_cache()
-    depth = serve_depth(full, torch.cuda.mem_get_info(dev)[0], serve_bytes=2)
+    free = torch.cuda.mem_get_info(dev)[0]
+    depth = serve_depth(full, free, serve_bytes=2)
     cfg = full.replace(n_layers=depth, param_dtype="bfloat16")
     cut = (None if depth == full.n_layers else
-           f"n_layers {full.n_layers} -> {depth} (the float32 build of more layers does not "
-           f"fit beside what the card holds)")
+           f"n_layers {full.n_layers} -> {depth} (the float32 build and in-place bf16 cast of "
+           f"more layers do not fit the {free} free bytes)")
     if cut:
-        print(f"moe {cfg.name}: depth cut, {cut}")
-    B, P, N = spec["batch"], spec["prompt"], spec["tokens"]
-    S, k = spec["check"]
-    E, F_, d, L_ = cfg.n_experts, cfg.moe_d_ff, cfg.d_model, cfg.n_layers
+        print(f"{what} {cfg.name}: depth cut, {cut}", flush=True)
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.time()
@@ -2522,21 +2598,44 @@ def serve_moe_model(spec, dev, name, power) -> dict:
     build_peak = torch.cuda.max_memory_allocated(dev) - base
     n_params = sum(p.numel() for p in model.parameters())
     check(n_params == lm_param_count(cfg),
-          f"moe {cfg.name}: {n_params} parameters, the shapes say {lm_param_count(cfg)}")
+          f"{what} {cfg.name}: {n_params} parameters, the shapes say {lm_param_count(cfg)}")
     leaf = max(p.numel() for p in model.parameters())
+    check(leaf == largest_leaf(cfg),
+          f"{what} {cfg.name}: largest leaf {leaf}, the shapes say {largest_leaf(cfg)}")
     build_bound = 4 * (n_params + max(layer_param_counts(cfg)) + leaf)
     check(build_peak <= build_bound,
-          f"moe {cfg.name}: the build peaked at {build_peak} bytes, above the float32 tree, "
+          f"{what} {cfg.name}: the build peaked at {build_peak} bytes, above the float32 tree, "
           f"one layer and one leaf ({build_bound})")
     torch.cuda.reset_peak_memory_stats(dev)
     cast_master_(model, getattr(torch, cfg.param_dtype))
     torch.cuda.synchronize()
     cast_peak = torch.cuda.max_memory_allocated(dev) - base
     check(cast_peak <= 4 * n_params + 2 * leaf + (64 << 20),
-          f"moe {cfg.name}: the cast to bf16 peaked at {cast_peak} bytes")
+          f"{what} {cfg.name}: the cast to bf16 peaked at {cast_peak} bytes")
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
+    return cfg, cut, model, n_params, {"build_s": build_s, "build_peak_bytes": build_peak,
+                                       "build_bound_bytes": build_bound,
+                                       "cast_peak_bytes": cast_peak}
+
+
+def serve_moe_model(spec, dev, name, power) -> dict:
+    """One model of phase 17 at full width: built in float32 and cast in
+    place to a bf16 master (:func:`build_bf16_master`), served from it in
+    bf16 (prefill, greedy decode; routing logged on untimed steps), then the
+    float32 prefill-against-decode check on the same parameters."""
+    import gc
+    import torch
+    from repro_torch.models import get_config
+    from repro_torch.models.api import padded_vocab
+    from repro_torch.models.moe import capacity, group_size
+    from repro_torch.models.params import tree_items
+    from repro_torch.serve.step import compute_params
+    cfg, cut, model, n_params, built = build_bf16_master(get_config(spec["arch"]), dev, "moe")
+    B, P, N = spec["batch"], spec["prompt"], spec["tokens"]
+    S, k = spec["check"]
+    E, F_, d, L_ = cfg.n_experts, cfg.moe_d_ff, cfg.d_model, cfg.n_layers
     g = torch.Generator(device=dev).manual_seed(1)
     toks = torch.randint(0, cfg.vocab, (B, max(P, S)), generator=g, device=dev)
 
@@ -2604,7 +2703,7 @@ def serve_moe_model(spec, dev, name, power) -> dict:
            "d_model": d, "n_experts": E, "experts_per_token": cfg.n_experts_per_tok,
            "n_shared_experts": cfg.n_shared_experts, "reduced": cut,
            "master_dtype": cfg.param_dtype, "compute_dtype": "bfloat16", "batch": B,
-           "prompt": P, "decode_steps": N, "build_s": build_s, "bf16_weight_bytes": w_bytes,
+           "prompt": P, "decode_steps": N, "bf16_weight_bytes": w_bytes,
            **serving_row(run, B, P, N),
            "prefill_bound_ms": max(prefill_ops_ms, prefill_bytes_ms),
            "prefill_bound_by": "operations" if prefill_ops_ms >= prefill_bytes_ms else "bytes",
@@ -2615,9 +2714,8 @@ def serve_moe_model(spec, dev, name, power) -> dict:
                                 "assigned": first["assigned"].tolist()},
            "decode_bound_ms": decode_bound_ms, "decode_bound_by": "bytes",
            "decode_routed_bound_ms": routed_bound_ms,
-           "decode_experts_routed_per_step": used_per_step,
-           "build_peak_bytes": build_peak, "build_bound_bytes": build_bound,
-           "cast_peak_bytes": cast_peak, "float32_check_peak_bytes": peak,
+           "decode_experts_routed_per_step": used_per_step, **built,
+           "float32_check_peak_bytes": peak,
            "float32_check": {"S": S, "k": k, "rel_err": f32_rel, "dropless": f32_dropless,
                              "router_margin": f32_margin, "prefill_ms": f32_prefill_ms},
            "card": name, "power_limit": power}
@@ -2829,12 +2927,12 @@ def ssm_train(dev) -> dict:
 
 
 def family_card_vs_cpu(dev, reduced, prompt: int) -> dict:
-    """Phases 18 (e) and 19 (d): the reduced configs ``reduced`` ((arch,
-    config changes) pairs), parameters drawn on the CPU: prefill of
+    """Phases 18 (e), 19 (d) and 20 (d): the reduced configs ``reduced``
+    ((arch, config changes) pairs), parameters drawn on the CPU: prefill of
     ``prompt`` tokens and 9 decode steps, every cache leaf compared
     (:func:`serve_lm_card_vs_cpu`), then the loss and every parameter
-    gradient on as many tokens (and an encdec config's frames), card
-    against CPU."""
+    gradient on as many tokens (and an encdec config's frames or a vlm
+    config's patches), card against CPU."""
     import copy
     import torch
     from repro_torch.models import build_model, get_config
@@ -2845,7 +2943,7 @@ def family_card_vs_cpu(dev, reduced, prompt: int) -> dict:
         card = copy.deepcopy(cpu).to(dev)
         toks = torch.randint(0, cfg.vocab, (2, prompt + 1),
                              generator=torch.Generator().manual_seed(8))
-        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:], **reduced_frames(cfg, 2, 9)}
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:], **reduced_inputs(cfg, 2, 9)}
 
         def loss_and_grads(m, where):
             loss, _ = m.loss({k_: v.to(where) for k_, v in batch.items()})
@@ -3068,6 +3166,162 @@ def encdec_phase(dev, reset_all, kernel, sig_kernel, name, power) -> list:
     check(counts["fwd_fused"] + counts["gram_fused"] > 0,
           "encdec path launched neither fused kernel")
     return [(k, {"encdec_train": n}, ran_at[k]) for k, n in sorted(shapes.items(), key=str)]
+
+
+def vlm_lines(row, name, power) -> None:
+    """Phase 20 (a)'s numbers, a few to a line, each line with the card's
+    name and power limit."""
+    tag = f"[{name}, {power}]"
+    cfg = row["config"]
+    prof = row["decode_profile_per_step"]
+    gb = 1e9
+    print(f"vlm {cfg}: {row['params']} parameters in {row['n_layers']} layers; cut: "
+          f"{row['reduced'] or 'none'} {tag}")
+    print(f"vlm {cfg}: peaks: build {row['build_peak_bytes'] / gb:.2f} GB, cast "
+          f"{row['cast_peak_bytes'] / gb:.2f} GB, serving {row['serve_peak_bytes'] / gb:.2f} GB "
+          f"(bf16 weights {row['bf16_weight_bytes'] / gb:.2f} GB) {tag}")
+    print(f"vlm {cfg}: prefill of {row['batch']} x ({row['patches']} patches + "
+          f"{row['prompt'] - row['patches']} tokens) {row['prefill_ms']:.2f} ms (the first "
+          f"{row['first_prefill_ms']:.2f}), bound {row['prefill_bound_ms']:.2f} ms by "
+          f"{row['prefill_bound_by']} {tag}")
+    print(f"vlm {cfg}: decode {row['decode_ms_per_token_median']:.2f} ms a token (median of "
+          f"{row['decode_steps']}), {prof['kernel_launches']} launches a token, device busy "
+          f"share {prof['device_busy_share']}, bound {row['decode_bound_ms']:.3f} ms by "
+          f"{row['decode_bound_by']} {tag}")
+    print(f"vlm {cfg}: {row['decode_tokens_per_s']:.1f} decode tokens/s, "
+          f"{row['prefill_tokens_per_s']:.0f} prefill positions/s {tag}", flush=True)
+
+
+def serve_vlm_model(spec, dev, name, power) -> dict:
+    """Phase 20 (a) and (b): internvl2-76b at full width, built in float32
+    at the most layers whose build and in-place cast fit and cast to a bf16
+    master (:func:`build_bf16_master`), served from it (prefill of
+    ``n_patches`` patch embeddings and the rest of the prompt in text, then
+    greedy decode) as phase 15 times it; then the float32
+    prefill-against-decode check on the same parameters and patches."""
+    import gc
+    import torch
+    from repro_torch.models import get_config
+    from repro_torch.models.params import tree_items
+    from repro_torch.serve.step import compute_params
+    cfg, cut, model, n_params, built = build_bf16_master(get_config(spec["arch"]), dev, "vlm")
+    B, P, N, Pn = spec["batch"], spec["prompt"], spec["tokens"], cfg.n_patches
+    S, k = spec["check"]
+    check(S - k >= Pn, f"vlm {cfg.name}: the float32 check decodes patch positions")
+    g = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (B, max(P, S)), generator=g, device=dev)
+    patches = {"patches": 0.1 * torch.randn((B, Pn, 1024), generator=g, device=dev,
+                                            dtype=torch.bfloat16)}
+
+    with torch.inference_mode():
+        params = compute_params(model)
+        check(params["patch_proj"] is model.patch_proj,
+              f"vlm {cfg.name}: compute_params copied the bf16 master")
+        w_bytes = sum(t.numel() * t.element_size() for _, t in tree_items(params))
+        run = timed_serving(model, params, toks, P, N, P + N + PROFILE_STEPS, dev,
+                            extra=patches)
+        del params, run["prefill"], run["decode"], run["caches"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        f32_rel, f32_prefill_ms = float32_check(model, cfg, toks, S, k, extra=patches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = {"config": cfg.name, "family": cfg.family, "params": n_params,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model, "reduced": cut,
+           "master_dtype": cfg.param_dtype, "compute_dtype": "bfloat16", "batch": B,
+           "prompt": P, "patches": Pn, "decode_steps": N, "bf16_weight_bytes": w_bytes,
+           **serving_row(run, B, P, N),
+           **serving_bounds(cfg, w_bytes, n_params, B, P, N, patches=Pn), **built,
+           "float32_check_peak_bytes": peak,
+           "float32_check": {"S": S, "k": k, "rel_err": f32_rel, "prefill_ms": f32_prefill_ms},
+           "card": name, "power_limit": power}
+    serving_checks(f"vlm {cfg.name}", run, w_bytes, f32_rel, B, N, S, k, cfg.vocab)
+    vlm_lines(row, name, power)
+    return row
+
+
+def vlm_train(dev) -> dict:
+    """Phase 20 (c): the vlm LM at internvl2-76b's width, its depth cut,
+    ``sig_loss`` on, one microbatch with ``VLM_TRAIN["patches"]`` patch
+    embeddings a sequence, trained as phase 12 trains the dense LM.
+    ``patch_proj``'s gradient after the last step must be finite and
+    nonzero."""
+    import gc
+    import torch
+    from repro_torch.models import get_config
+    full = get_config(VLM_TRAIN["arch"])
+    cfg = full.replace(n_layers=VLM_TRAIN["layers"], sig_loss=True,
+                       sig_loss_dim=VLM_TRAIN["sig_dim"])
+    check(cfg.n_patches == VLM_TRAIN["patches"] <= VLM_TRAIN["seq"],
+          f"vlm trainer: {VLM_TRAIN['patches']} patches against the config's {cfg.n_patches}")
+    grad = {}
+
+    def patch_grad(model):
+        gp = model.patch_proj.grad
+        grad.update(finite=bool(torch.isfinite(gp).all()), abs_max=float(gp.abs().max()))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_params, steps, peak = lm_train(cfg, VLM_TRAIN, dev, on_done=patch_grad)
+    check(n_params == lm_param_count(cfg) + cfg.d_model * cfg.sig_loss_dim,
+          f"vlm trainer: {n_params} parameters, the shapes say "
+          f"{lm_param_count(cfg) + cfg.d_model * cfg.sig_loss_dim}")
+    ms = float(np.median([r["ms"] for r in steps[1:]]))
+    return {"config": cfg.name, "params": n_params, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "compute_dtype": cfg.compute_dtype, "remat": cfg.remat,
+            "moment_dtype": cfg.moment_dtype,
+            "reduced": f"n_layers {full.n_layers} -> {cfg.n_layers} (the float32 master and "
+                       f"gradient, bf16 moments, the bf16 copy and its gradient, up to 16 bytes "
+                       f"a parameter, and AdamW's float32 temporaries fit one layer on one card)",
+            "seq": VLM_TRAIN["seq"], "patches": VLM_TRAIN["patches"],
+            "batch": VLM_TRAIN["batch"], "microbatches": VLM_TRAIN["microbatches"],
+            "steps": steps, "ms_per_step_median_after_first": ms,
+            "tokens_per_s": VLM_TRAIN["batch"] * VLM_TRAIN["seq"] / (ms / 1e3),
+            "patch_proj_grad": grad, "peak_memory_bytes": peak}
+
+
+def vlm_phase(dev, reset_all, kernel, sig_kernel, name, power) -> list:
+    """Phase 20: the vlm family.  internvl2-76b served at full width cut in
+    depth (:data:`SERVE_VLM`, with its float32 check), trained at full width
+    cut to one layer (:data:`VLM_TRAIN`) and held card against CPU on the
+    reduced config in both layouts; the launch counts set to 0 just before
+    and read just after (serving reaches no hand-written kernel, the
+    trainer's signature-kernel auxiliary loss the Goursat kernels).  Returns
+    [(Goursat launch key, {run: launches}, the (λ1, λ2, scheme, interior
+    dtype) it ran at)]."""
+    import torch
+    torch.cuda.empty_cache()
+    reset_all()
+    t_phase = time.time()
+    serve = serve_vlm_model(SERVE_VLM, dev, name, power)
+    serve_counts = {**kernel.launch_counts(), **sig_kernel.launch_counts()}
+    train = vlm_train(dev)
+    card_vs_cpu = family_card_vs_cpu(dev, VLM_REDUCED, VLM_REDUCED_PROMPT)
+    counts = {**kernel.launch_counts(), **sig_kernel.launch_counts()}
+    shapes, ran_at = kernel.launch_shapes(), kernel.launch_variants()
+    emit({"vlm_path": {"serve": serve, "train": train, "reduced_card_vs_cpu_rel": card_vs_cpu},
+          "serve_launches": serve_counts, "launches": counts,
+          "launches_by_shape": shape_rows(shapes), "seconds": round(time.time() - t_phase, 3),
+          "card": name, "power_limit": power})
+    tag = f"[{name}, {power}]"
+    print(f"vlm trainer: {train['params']} parameters, cut {train['reduced']}; "
+          f"{train['ms_per_step_median_after_first']:.1f} ms a step, "
+          f"{train['tokens_per_s']:.0f} positions/s, peak {train['peak_memory_bytes'] / 1e9:.2f} "
+          f"GB {tag}", flush=True)
+    losses = [r["loss"] for r in train["steps"]]
+    check(all(np.isfinite(losses + [r["sig"] for r in train["steps"]])),
+          f"vlm LM: non-finite loss or sig {train['steps']}")
+    check(losses[-1] < losses[0], f"vlm LM: the loss did not fall {losses}")
+    check(train["patch_proj_grad"]["finite"] and train["patch_proj_grad"]["abs_max"] > 0,
+          f"vlm LM: patch_proj's gradient {train['patch_proj_grad']}")
+    check(not any(serve_counts.values()), f"vlm serving launched a kernel {serve_counts}")
+    for kname in TRAIN_PATH:
+        check(counts[kname] > 0, f"vlm path never launched {kname}")
+    check(counts["fwd_fused"] + counts["gram_fused"] > 0, "vlm path launched neither fused kernel")
+    return [(k, {"vlm_train": n}, ran_at[k]) for k, n in sorted(shapes.items(), key=str)]
 
 
 if __name__ == "__main__":

@@ -7,9 +7,9 @@ layer's cross K/V).
 
 The PyTorch counterpart of ``examples/serve_lm.py``, with its flags and
 defaults (the ``.reduced()`` config of ``--arch``, random parameters from a
-seed); it runs on the card unless given ``--device cpu``.  The port builds
-the dense, MoE, SSM, hybrid and encdec families; the vlm family raises
-``NotImplementedError``.
+seed); it runs on the card unless given ``--device cpu``.  Every family
+builds; ``--arch internvl2-76b`` (vlm) serves text only, as the JAX example
+does: it feeds no patch embeddings.
 
     PYTHONPATH=src python examples/serve_lm_torch.py --arch recurrentgemma-2b --tokens 32
 """

@@ -1,8 +1,7 @@
-"""Model zoo of the port: the architecture configs and the dense, MoE, SSM
-and hybrid LMs and the encoder-decoder (Whisper) as modules whose
+"""Model zoo of the port: the architecture configs and the dense, MoE, vlm,
+SSM and hybrid LMs and the encoder-decoder (Whisper) as modules whose
 parameters carry the JAX package's names, with their serving methods.
-Counterpart of ``repro.models``; the vlm family waits for ROADMAP Queue A
-item A4."""
+Counterpart of ``repro.models``."""
 
 from .api import Model, build_model
 from .config import ArchConfig, get_config, list_configs, register

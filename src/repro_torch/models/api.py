@@ -2,14 +2,14 @@
 ``loss(batch)`` gives ``(loss, metrics)`` and whose ``prefill``,
 ``cache_init`` and ``decode`` serve it.
 
-Counterpart of ``repro/models/api.py`` for the dense, MoE, SSM (Mamba-2)
+Counterpart of ``repro/models/api.py`` for the dense, MoE, vlm (the dense
+LM behind stubbed patch embeddings, ``batch["patches"]``), SSM (Mamba-2)
 and hybrid (RecurrentGemma) decoder-only families and the encoder-decoder
 (Whisper) family, :class:`EncDecModel`.  The paper's technique
 attaches as the optional signature-kernel auxiliary loss on the hidden-state
 trajectory (``cfg.sig_loss``), through the port's
 :func:`repro_torch.core.losses.sig_aux_loss`, whose exact backward runs the
-Goursat kernels on the card.  The vlm family waits for ROADMAP Queue A
-item A4.
+Goursat kernels on the card.
 """
 
 from __future__ import annotations
@@ -61,9 +61,16 @@ class Model(ParamTree):
     (``embed.table``, ``layers.stacked.attn.wq``, ``layers.layer_0.attn.wq``,
     ``layers.stacked.moe.w_gate``, ``layers.stacked.mixer.in_proj`` or
     ``layers.groups.pos_0.rec.w_x``, ``final_norm.scale``,
-    ``lm_head.table``, ``sig_proj``); every method takes them from the
-    module, or from ``params`` (a nested dict of the same shape, e.g. a
-    compute-dtype copy, :func:`repro_torch.train.step.cast_compute`).
+    ``lm_head.table``, ``patch_proj``, ``sig_proj``); every method takes
+    them from the module, or from ``params`` (a nested dict of the same
+    shape, e.g. a compute-dtype copy,
+    :func:`repro_torch.train.step.cast_compute`).
+
+    For the vlm family, ``loss`` and ``prefill`` take ``batch["patches"]``
+    (B, P, 1024), the stubbed vision front end's patch embeddings: projected
+    by ``patch_proj``, they take the place of the first P token embeddings
+    (:meth:`embed_inputs`).  Without them the family is the dense LM;
+    ``decode`` takes tokens only.
 
     The serving methods run without autograd.  Decode caches take the
     parameters' layer layout; KV caches hold the compute dtype, RG-LRU
@@ -77,11 +84,28 @@ class Model(ParamTree):
     def compute_dtype(self) -> torch.dtype:
         return getattr(torch, self.cfg.compute_dtype)
 
+    def embed_inputs(self, batch: Dict, p: Dict) -> torch.Tensor:
+        """The token embeddings of ``batch["tokens"]`` in the compute dtype;
+        for the vlm family with ``batch["patches"]`` (B, P, 1024), the first
+        P replaced by the patches' projection, computed in the compute dtype
+        (a prompt of fewer than P tokens becomes P positions, as in JAX)."""
+        cdt = self.compute_dtype
+        x = L.embed(p["embed"], batch["tokens"], cdt)
+        if self.cfg.family == "vlm" and "patches" in batch:
+            pe = batch["patches"].to(cdt) @ p["patch_proj"].to(cdt)
+            x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+        return x
+
     def loss(self, batch: Dict, params: Optional[Dict] = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         cfg = self.cfg
         p = self.tree() if params is None else params
-        x = L.embed(p["embed"], batch["tokens"], self.compute_dtype)
+        if cfg.family == "vlm" and "patches" in batch:
+            P, S = batch["patches"].shape[1], batch["tokens"].shape[1]
+            if P > S:
+                raise ValueError(f"{cfg.name}: {P} patches need at least {P} tokens and "
+                                 f"labels, got {S}")
+        x = self.embed_inputs(batch, p)
         positions = torch.arange(x.shape[1], device=x.device)
         x, aux = T.stack_apply(p["layers"], x, positions, cfg)
         x = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
@@ -96,12 +120,13 @@ class Model(ParamTree):
 
     @torch.no_grad()
     def prefill(self, batch: Dict, params: Optional[Dict] = None):
-        """The prompt ``batch["tokens"]`` (B, S) through the model, building
-        the decode caches, of ``batch.get("max_len", S)`` positions.
+        """The prompt ``batch["tokens"]`` (B, S) (with a vlm config's
+        ``batch["patches"]``) through the model, building the decode caches,
+        of ``batch.get("max_len", S)`` positions.
         Returns (the last position's logits (B, 1, padded vocab), caches)."""
         cfg = self.cfg
         p = self.tree() if params is None else params
-        x = L.embed(p["embed"], batch["tokens"], self.compute_dtype)
+        x = self.embed_inputs(batch, p)
         positions = torch.arange(x.shape[1], device=x.device)
         max_len = int(batch.get("max_len", x.shape[1]))
         x, caches = T.stack_prefill(p["layers"], x, positions, cfg, max_len, self.compute_dtype)
@@ -210,6 +235,8 @@ def init_params(generator: torch.Generator, cfg) -> Dict:
               "layers": T.stack_init(generator, cfg)}
     if not cfg.tie_embeddings:
         params["lm_head"] = L.embed_init(generator, vp, cfg.d_model)
+    if cfg.family == "vlm":
+        params["patch_proj"] = L.dense_init(generator, 1024, cfg.d_model)
     if cfg.sig_loss:
         params["sig_proj"] = L.dense_init(generator, cfg.d_model, cfg.sig_loss_dim)
     return params
@@ -218,12 +245,7 @@ def init_params(generator: torch.Generator, cfg) -> Dict:
 def build_model(cfg, *, seed: int = 0, device=None) -> Model:
     """The model of ``cfg`` with parameters drawn from ``seed``, on the card
     unless ``device="cpu"``: an :class:`EncDecModel` for the encdec family,
-    else a :class:`Model`.  The dense, moe, ssm, hybrid and encdec families
-    build."""
-    if cfg.family in T.WAITING:
-        raise NotImplementedError(
-            f"{cfg.name}: build_model builds the 'dense', 'moe', 'ssm', 'hybrid' and 'encdec' "
-            f"families; {cfg.family!r} waits for ROADMAP Queue A item {T.WAITING[cfg.family]}")
+    else a :class:`Model` (the dense, moe, vlm, ssm and hybrid families)."""
     g = torch.Generator(device=card_device(device, "build_model"))
     g.manual_seed(seed)
     return (EncDecModel if cfg.family == "encdec" else Model)(cfg, init_params(g, cfg))

@@ -1,13 +1,13 @@
-"""Decoder-only layer stacks: the dense, MoE, SSM and hybrid families, over
-full sequences and with decode caches.
+"""Decoder-only layer stacks: the dense, MoE, vlm, SSM and hybrid families,
+over full sequences and with decode caches.
 
 Counterpart of ``repro/models/transformer.py`` for the ``dense`` layer (an
-attention block and an MLP, each behind an RMSNorm), the ``moe`` layer
-(attention and a Mixture-of-Experts block, :mod:`.moe`, whose auxiliary
-loss the stack sums), the ``ssm`` layer (a Mamba-2 block, :mod:`.ssm`,
-behind one RMSNorm, with no MLP) and the hybrid family's ``rec`` (RG-LRU
-block and MLP) and ``attn`` (sliding-window attention and MLP) layers,
-RecurrentGemma's (rec, rec, attn) pattern.  Three parameter layouts, as
+attention block and an MLP, each behind an RMSNorm; the vlm family's
+layers too), the ``moe`` layer (attention and a Mixture-of-Experts block,
+:mod:`.moe`, whose auxiliary loss the stack sums), the ``ssm`` layer (a
+Mamba-2 block, :mod:`.ssm`, behind one RMSNorm, with no MLP) and the hybrid
+family's ``rec`` (RG-LRU block and MLP) and ``attn`` (sliding-window
+attention and MLP) layers, RecurrentGemma's (rec, rec, attn) pattern.  Three parameter layouts, as
 in the JAX package:
 
 * stacked, ``{"stacked": ...}`` with a leading layer axis: ``cfg.scan_layers``
@@ -44,10 +44,6 @@ from . import rglru as RG
 from . import ssm as SSM
 from .params import tree_items, tree_map
 
-#: the ROADMAP Queue A item that ports each family the port does not build
-WAITING = {"vlm": "A4"}
-
-
 def layer_kind(cfg, idx: int) -> str:
     if cfg.family == "ssm":
         return "ssm"
@@ -55,11 +51,7 @@ def layer_kind(cfg, idx: int) -> str:
         return cfg.block_pattern[idx % len(cfg.block_pattern)]
     if cfg.family == "moe":
         return "moe"
-    if cfg.family in WAITING:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family's layers are not ported yet (ROADMAP "
-            f"Queue A item {WAITING[cfg.family]})")
-    return "dense"
+    return "dense"       # dense and vlm
 
 
 def _window(cfg, kind: str) -> int:

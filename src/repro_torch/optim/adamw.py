@@ -53,13 +53,19 @@ class AdamW(torch.optim.Optimizer):
                 if not state:
                     state["m"] = torch.zeros(p.shape, dtype=self.moment_dtype, device=p.device)
                     state["v"] = torch.zeros(p.shape, dtype=self.moment_dtype, device=p.device)
+                # the float32 update's operations in the order of
+                # b1·m + (1 - b1)·g, b2·v + (1 - b2)·g·g,
+                # (m / b1c) / (sqrt(v / b2c) + eps) + wd·p and p - lr·upd,
+                # each temporary updated in place: at most four float32
+                # copies of the leaf at once
                 g = grad_of[id(p)].float() * scale
-                m_new = b1 * state["m"].float() + (1 - b1) * g
-                v_new = b2 * state["v"].float() + (1 - b2) * g * g
-                upd = (m_new / b1c) / (torch.sqrt(v_new / b2c) + eps)
+                m_new = state["m"].float().mul_(b1).add_((1 - b1) * g)
+                v_new = state["v"].float().mul_(b2).add_(((1 - b2) * g).mul_(g))
+                del g
+                upd = (m_new / b1c).div_((v_new / b2c).sqrt_().add_(eps))
                 if p.ndim >= 2:  # no decay on norms / scalars
-                    upd = upd + wd * p.float()
-                p.copy_(p.float() - lr * upd)
+                    upd.add_(wd * p.float())
+                p.copy_(p.float().sub_(upd.mul_(lr)))
                 state["m"].copy_(m_new)
                 state["v"].copy_(v_new)
         return {"grad_norm": gnorm}

@@ -77,14 +77,17 @@ def make_train_step(model, optimizer, *, num_microbatches: int = 1,
                 acc = [a + g.to(adt) for a, g in zip(acc, grads)]
                 loss_sum = loss_sum + loss
                 per_mb.append(metrics)
-            grads = [a / n for a in acc]
+            grads = [a.div_(n) for a in acc]
             loss = loss_sum / n
             metrics = {k: torch.stack([m[k] for m in per_mb]).mean() for k in per_mb[0]}
         else:
             loss, metrics, grads = value_and_grad(compute, leaves, batch)
-            grads = [g.float() for g in grads]
+        # the optimizer step holds neither the compute copy nor a second
+        # copy of the gradients (at a 70B-class width, 6 bytes a parameter)
+        del compute, leaves
         for (_, p), g in zip(tree_items(model.tree()), grads):
             p.grad = g.to(p.dtype)
+        del grads
         return dict(metrics, loss=loss, **optimizer.step())
 
     return train_step

@@ -15,7 +15,10 @@ padded chunk; its caches are float32 conv windows and states, written in
 place; ``tests/test_torch_ssm.py`` holds the block itself), reduced
 whisper-large-v3 per layer and stacked (16 stubbed frames of 0.1·N(0, 1);
 its caches add each decoder layer's cross K/V, ``ck`` and ``cv``;
-``tests/test_torch_whisper.py`` holds it at 1,500 frames).  Every MoE block that
+``tests/test_torch_whisper.py`` holds it at 1,500 frames), reduced
+internvl2-76b per layer and stacked (each prompt starts with 4 patch
+embeddings of 0.1·N(0, 1) in place of its first 4 tokens and ends in
+text; ``tests/test_torch_vlm.py`` holds the loss and the train step).  Every MoE block that
 runs must keep each token's k+1 largest router logits apart
 (``tests/test_torch_moe.py``'s margin), or the test errs.  Logits and every cache leaf
 agree within 5e-5 relative, the hybrid model's loss too, and its parameter
@@ -24,7 +27,7 @@ prefill-against-decode checks (``tests/test_models.py``) run on the port
 at their 2e-4 gate.  In bf16 compute, the logits of a prefill and 9 decode
 steps lie as far from the float32 model's as the JAX package's bf16 logits
 lie from its own float32 ones, within a factor of 1.5 either way (dense,
-hybrid, MoE, SSM and encoder-decoder).  For MoE the prompt is one on which every block chooses
+hybrid, MoE, SSM, encoder-decoder and vlm).  For MoE the prompt is one on which every block chooses
 the same experts in bf16 as in float32, which the test checks: bf16's
 rounding of the hidden states exceeds the gaps between router logits often
 enough that about half of random prompts at this size flip a choice, and a
@@ -257,7 +260,12 @@ MODELS = {
     "mamba2_stacked": lambda get: get("mamba2-780m").reduced().replace(scan_layers=True),
     "whisper_layers": lambda get: get("whisper-large-v3").reduced(),
     "whisper_stacked": lambda get: get("whisper-large-v3").reduced().replace(scan_layers=True),
+    "internvl_layers": lambda get: get("internvl2-76b").reduced(),
+    "internvl_stacked": lambda get: get("internvl2-76b").reduced().replace(scan_layers=True),
 }
+
+#: patches a vlm prompt starts with (every prompt here has at least 6 tokens)
+N_PATCHES = 4
 
 
 @pytest.fixture(autouse=True)
@@ -289,16 +297,21 @@ def tokens(cfg, B, S, seed=0):
 
 def frames(cfg, B, seed=0):
     """An encdec config's stubbed audio frames, {"frames": 0.1·N(0, 1) of
-    (B, n_audio_frames, d_model)}, as numpy; {} for the other families."""
-    if cfg.family != "encdec":
-        return {}
-    fr = 0.1 * np.random.default_rng(seed).normal(size=(B, cfg.n_audio_frames, cfg.d_model))
-    return {"frames": fr.astype(np.float32)}
+    (B, n_audio_frames, d_model)}, or a vlm config's patch embeddings,
+    {"patches": 0.1·N(0, 1) of (B, N_PATCHES, 1024)}, as numpy; {} for the
+    other families."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "encdec":
+        return {"frames": (0.1 * rng.normal(size=(B, cfg.n_audio_frames, cfg.d_model))
+                           ).astype(np.float32)}
+    if cfg.family == "vlm":
+        return {"patches": (0.1 * rng.normal(size=(B, N_PATCHES, 1024))).astype(np.float32)}
+    return {}
 
 
 def jax_batch(cfg, toks, **kw):
     """A prefill batch for the JAX model: the tokens, an encdec config's
-    frames, and ``kw`` (``max_len``) as they are."""
+    frames or a vlm config's patches, and ``kw`` (``max_len``) as they are."""
     return {"tokens": jnp.asarray(toks), **{k: jnp.asarray(v) for k, v in
                                             frames(cfg, toks.shape[0]).items()}, **kw}
 
@@ -330,6 +343,8 @@ def test_layouts_carry_the_jax_names(pair):
         stack = "stacked" if cfg.scan_layers else "layer_1"
         assert f"enc.{stack}.attn.wq" in want and f"dec.{stack}.cross.wk" in want
         assert "ln_enc.scale" in want and "lm_head.table" not in want
+    if cfg.family == "vlm":
+        assert want["patch_proj"] == (1024, cfg.d_model) and "lm_head.table" in want
 
 
 def test_params_from_jax_refuses_the_other_hybrid_layout():
@@ -423,7 +438,7 @@ def serve_steps(prefill, decode, toks):
 
 @pytest.mark.parametrize("which", ["deepseek_layers", "hybrid_grouped", "qwen2_moe_stacked",
                                    "dbrx_layers", "mamba2_layers", "mamba2_stacked",
-                                   "whisper_layers"])
+                                   "whisper_layers", "internvl_stacked"])
 def test_bf16_serving_tracks_the_jax_packages_own_distance(which):
     jm, jp, tm = model_pair(which)
     cfg, V = tm.cfg, tm.cfg.vocab
@@ -492,7 +507,7 @@ def test_long_recurrent_decode(which):
 
 @pytest.mark.parametrize("which", ["deepseek_stacked", "hybrid_grouped", "qwen2_moe_stacked",
                                    "dbrx_layers", "mamba2_layers", "mamba2_stacked",
-                                   "whisper_stacked"])
+                                   "whisper_stacked", "internvl_layers"])
 def test_greedy_decode_step_tokens_equal_jax(which):
     jm, jp, tm = model_pair(which)
     prompt = tokens(tm.cfg, 3, 6, seed=7)
@@ -586,7 +601,7 @@ def run_example(*args):
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "deepseek-7b", "mamba2-780m",
-                                  "whisper-large-v3"])
+                                  "whisper-large-v3", "internvl2-76b"])
 def test_serve_lm_example_runs_on_the_cpu(arch):
     done = run_example("--arch", arch, "--tokens", "8")
     assert done.returncode == 0, done.stdout + done.stderr
@@ -595,9 +610,3 @@ def test_serve_lm_example_runs_on_the_cpu(arch):
     assert lines[1].startswith("sample: [")
     sample = eval(lines[1][len("sample: "):])
     assert len(sample) == 8 and all(0 <= s < 256 for s in sample)
-
-
-def test_serve_lm_example_refuses_an_unported_family():
-    done = run_example("--arch", "internvl2-76b", "--tokens", "2")
-    assert done.returncode != 0
-    assert "NotImplementedError" in done.stderr and "item A4" in done.stderr

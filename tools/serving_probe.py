@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Run chip_smoke.py's phases 15 (LM serving at full size) and 16 (the
-``_torch`` examples), or phase 17 (the MoE family), 18 (the SSM family) or
-19 (the encoder-decoder family), alone on one CUDA card, with their shape
-checks: both kernel libraries are built first, as the smoke builds them,
-and every line the phases print is the smoke's own.  A quicker way than
-the whole smoke to measure the serving path again.
+``_torch`` examples), or phase 17 (the MoE family), 18 (the SSM family), 19
+(the encoder-decoder family) or 20 (the vlm family), alone on one CUDA
+card, with their shape checks: both kernel libraries are built first, as
+the smoke builds them, and every line the phases print is the smoke's own.
+A quicker way than the whole smoke to measure the serving path again.
 
     python3 tools/serving_probe.py              # phases 15 and 16
     python3 tools/serving_probe.py --phase 17   # phase 17 alone
     python3 tools/serving_probe.py --phase 18   # phase 18 alone
     python3 tools/serving_probe.py --phase 19   # phase 19 alone
+    python3 tools/serving_probe.py --phase 20   # phase 20 alone
 """
 
 import argparse
@@ -28,7 +29,7 @@ import chip_smoke as cs  # noqa: E402
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", type=int, action="append", choices=(15, 16, 17, 18, 19),
+    ap.add_argument("--phase", type=int, action="append", choices=(15, 16, 17, 18, 19, 20),
                     help="the phases to run (repeatable; default 15 and 16)")
     phases = ap.parse_args(argv).phase or [15, 16]
     if not torch.cuda.is_available():
@@ -69,6 +70,9 @@ def main(argv=None) -> int:
         encdec_shapes = cs.encdec_phase(dev, reset_all, kernel, sig_kernel, name, power)
         cs.trainer_shape_checks("encdec", encdec_shapes, checked, kernel, dev, rng, name,
                                 power)
+    if 20 in phases:
+        vlm_shapes = cs.vlm_phase(dev, reset_all, kernel, sig_kernel, name, power)
+        cs.trainer_shape_checks("vlm", vlm_shapes, checked, kernel, dev, rng, name, power)
     print(card)
     return 0
 
