@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's signature and signature-kernel paths, forward and
-gradient, its LM serving path, its example scripts and the MoE, SSM,
-encoder-decoder and vlm families, on one CUDA card.
+gradient, its LM serving path, its example scripts, the MoE, SSM,
+encoder-decoder and vlm families and the training driver, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -266,11 +266,35 @@ Phases (any failure exits non-zero; nothing runs without CUDA):
    the loss and every parameter gradient, card against CPU within 1e-4.
    Serving must launch no kernel.
 
-Phases 8-20 run after phase 7's timing and before the ``kernels`` line;
+21. ``driver_path``: the training driver, ``python -m
+   repro_torch.launch.train``, at mamba2-780m's full size on phase 18 (d)'s
+   cell (``--arch mamba2-780m --sig-loss --batch 4 --seq 512
+   --microbatches 2 --steps 3 --ckpt-every 2``), its checkpoints under a
+   temporary directory (the free space checked first).  (a) In-process
+   (``train(argv)``): each step's ms, split by whether a checkpoint write
+   was in flight when it began, the snapshots' ms, the writes' seconds,
+   the checkpoint's bytes, the peak memory and each step's loss; B1-cps,
+   B2 and a fused kernel must launch (counted by shape).  (b) The step-3
+   checkpoint loaded into a fresh model and ``AdamW`` on the card and on
+   the CPU: every leaf, ``count`` included, bit for bit the live state;
+   this runs while (c)'s first subprocess trains beside it on the card.
+   (c) The same command as a subprocess with ``--heartbeat``, SIGTERM once
+   the heartbeat reports step >= 1: exit 0, the preemption line, the
+   checkpoint at the step reached; the watchdog's ``scan`` reads the
+   heartbeat and its ``main`` (timeout 1 s) reports HANG and exits 1; a
+   second subprocess resumes to step 3, whose checkpoint, loaded into a
+   fresh model on the card, must equal (a)'s live state (and so (a)'s
+   checkpoint) bit for bit (the largest relative difference printed).  (d)
+   ``quantize_int8`` / ``dequantize`` of the model's largest leaf on the
+   card bit for bit the CPU's; ``psum_compressed_tree`` on NCCL groups of 1
+   rank (2 and 4 where the cards exist) bit for bit the same arithmetic
+   done locally.  Prints the peak bytes on disk.
+
+Phases 8-21 run after phase 7's timing and before the ``kernels`` line;
 each sets the launch counts to 0 just before it and reads them just after
 (phase 11 and 16's distributed example in each rank).  ``python3
-tools/serving_probe.py --phase 17`` (or 18, 19, 20) runs that phase alone
-with its shape checks.  Phase 4 also times the host build of the
+tools/serving_probe.py --phase 17`` (or 18, 19, 20, 21) runs that phase
+alone with its shape checks.  Phase 4 also times the host build of the
 ``"brackets"`` basis change at d = 16, N = 4.  Every phase reads, and
 phases 13 and 14 write, an autotune cache under a temporary directory the
 script makes and removes (``REPRO_AUTOTUNE_CACHE``; phase 14 a fresh file),
@@ -482,6 +506,18 @@ ENCDEC_TRAIN = {**LM, "arch": "whisper-large-v3", "layers": 32, "seq": 448, "fra
 #: table (17 GB) fit 2.97 G parameters beside what earlier phases hold (~8
 #: GB) and the allocator's fragments, not 2 layers' 3.82 G
 VLM_TRAIN = {**LM, "arch": "internvl2-76b", "layers": 1, "microbatches": 1, "patches": 256}
+#: phase 21: the training driver (python -m repro_torch.launch.train) on
+#: phase 18 (d)'s cell, mamba2-780m at full size; a checkpoint every 2 steps.
+#: 3 steps, not 4: each 10.3 GB checkpoint takes ~5 s to copy to the host and
+#: ~18 s to write, and the whole smoke must end inside its time limit
+DRIVER_ARGV = ("--arch", "mamba2-780m", "--sig-loss", "--batch", "4", "--seq", "512",
+               "--microbatches", "2", "--steps", "3", "--ckpt-every", "2", "--log-every", "1")
+DRIVER_STEPS = 3
+#: the most checkpoints on disk at once: (a)'s two beside the preempted run's
+#: first, while (b) restores from (a)'s
+DRIVER_DISK_CHECKPOINTS = 3
+DRIVER_TIMEOUT = 600             # seconds a driver subprocess may take
+DRIVER_COMPRESSION_WORLDS = (1, 2, 4)
 GAN_SMALL = (8, 32, 8)
 TRAIN_CARD_CPU_REL = 1e-4
 TRAIN_PATH = ("fwd_cps", "bwd")     # and at least one of fwd_fused, gram_fused
@@ -1184,6 +1220,8 @@ def main() -> int:
     trainer_shape_checks("encdec", encdec_shapes, checked, kernel, dev, rng, name, power)
     vlm_shapes = vlm_phase(dev, reset_all, kernel, sig_kernel, name, power)
     trainer_shape_checks("vlm", vlm_shapes, checked, kernel, dev, rng, name, power)
+    driver_shapes = driver_phase(dev, reset_all, kernel, sig_kernel, name, power)
+    trainer_shape_checks("driver", driver_shapes, checked, kernel, dev, rng, name, power)
 
     emit({"kernels": rows})
     return finish(card)
@@ -3322,6 +3360,400 @@ def vlm_phase(dev, reset_all, kernel, sig_kernel, name, power) -> list:
         check(counts[kname] > 0, f"vlm path never launched {kname}")
     check(counts["fwd_fused"] + counts["gram_fused"] > 0, "vlm path launched neither fused kernel")
     return [(k, {"vlm_train": n}, ran_at[k]) for k, n in sorted(shapes.items(), key=str)]
+
+
+def same_bits(a, b) -> bool:
+    """Equal dtype, shape and bits (floats compared as integers)."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.view(ints), b.view(ints)
+    return torch.equal(a, b)
+
+
+class DiskPeak:
+    """The most bytes of files under ``root`` at once, sampled on a thread
+    every ``interval`` seconds while the context is open."""
+
+    def __init__(self, root: str, interval: float = 0.2):
+        self.root, self.interval, self.peak = root, interval, 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def sample(self) -> int:
+        total = 0
+        for top, _, files in os.walk(self.root):
+            for f in files:
+                try:
+                    total += os.path.getsize(os.path.join(top, f))
+                except FileNotFoundError:     # removed by the keep-last-k collection
+                    pass
+        self.peak = max(self.peak, total)
+        return total
+
+    def _run(self):
+        while not self._stop.wait(self.interval):
+            self.sample()
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.sample()
+
+
+def driver_in_process(argv):
+    """Phase 21 (a): ``repro_torch.launch.train.train(argv)`` in this
+    process, each step timed between CUDA synchronisations with whether a
+    checkpoint write was in flight when it began.  Returns (model,
+    optimizer, the steps' rows, the checkpoint manager's timings)."""
+    import torch
+    from repro_torch.launch import train as drv
+    rows, managers = [], []
+    make, manager = drv.make_train_step, drv.CheckpointManager
+
+    def timed_make(model, opt, **kw):
+        step_fn = make(model, opt, **kw)
+
+        def step(batch):
+            writing = any(t.name.startswith("checkpoint-writer") and t.is_alive()
+                          for t in threading.enumerate())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            met = step_fn(batch)
+            torch.cuda.synchronize()
+            rows.append({"ms": (time.perf_counter() - t0) * 1e3, "write_in_flight": writing,
+                         **{k: float(v) for k, v in met.items()}})
+            return met
+        return step
+
+    class Recorded(manager):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            managers.append(self)
+
+    drv.make_train_step, drv.CheckpointManager = timed_make, Recorded
+    try:
+        model, opt = drv.train(list(argv))
+    finally:
+        drv.make_train_step, drv.CheckpointManager = make, manager
+    return model, opt, rows, managers[0].timings
+
+
+def zeros_model(cfg, device):
+    """A fresh model of ``cfg`` on ``device`` with every parameter zero:
+    the parameter tree's shapes come from the initialiser under
+    ``FakeTensorMode`` (no draws)."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.models.api import EncDecModel, Model, init_params
+    from repro_torch.models.params import tree_map
+    with FakeTensorMode():
+        fake = init_params(torch.Generator().manual_seed(0), cfg)
+    tree = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype, device=device), fake)
+    return (EncDecModel if cfg.family == "encdec" else Model)(cfg, tree)
+
+
+def restore_into_fresh(cfg, ckpt_dir: str, step: int, live: dict, device) -> dict:
+    """Phase 21 (b) and (c): the checkpoint of ``step`` loaded into a fresh
+    (zero) model and ``AdamW`` on ``device``; every leaf against ``live``
+    ({name: tensor} of a live state), bit for bit, with the largest
+    relative difference (of the live leaf's largest magnitude) where a leaf
+    differs."""
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models.params import tree_items
+    from repro_torch.optim import AdamW
+    t0 = time.time()
+    fresh = zeros_model(cfg, device)
+    opt = AdamW(fresh.parameters(), lr=lambda step: 0.0, moment_dtype=cfg.moment_dtype)
+    (params, state), got_step = CheckpointManager(ckpt_dir).restore(
+        step, (fresh.tree(), opt.state_tree(fresh.tree())), device=device)
+    with torch.no_grad():
+        for (_, p), (_, v) in zip(tree_items(fresh.tree()), tree_items(params)):
+            p.copy_(v)
+    opt.load_state_tree(fresh.tree(), state)
+    del params, state
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.time() - t0
+    st = opt.state_tree(fresh.tree())
+    loaded = {**{f"0/{k}": v for k, v in tree_items(fresh.tree())},
+              **{f"1/{k}": v for k, v in tree_items(st)}}
+    differ, worst = [], 0.0
+    for k, v in live.items():
+        got, want = loaded[k].detach(), v.detach().to(loaded[k].device)
+        if not same_bits(got, want):
+            differ.append(k)
+            worst = max(worst, rel_err(got.double(), want.double()))
+    out = {"device": str(device), "step": got_step, "seconds": seconds, "leaves": len(loaded),
+           "count": int(st["count"]), "differing_leaves": len(differ),
+           "first_differing": differ[:5], "max_rel_diff": worst}
+    del fresh, opt, st, loaded
+    return out
+
+
+def compression_rank(rank, world, seed, shape) -> dict:
+    """Phase 21 (d) on one NCCL rank (``cuda:rank``): ``psum_compressed_tree``
+    of this rank's gradient and error-feedback trees (the largest leaf of
+    ``shape``, a vector and a scalar, drawn on the card from (seed, rank))
+    against the same arithmetic done locally over every rank's inputs:
+    each rank's dequantised int8, summed in rank order, over n."""
+    import torch
+    from repro_torch.optim import dequantize, psum_compressed_tree, quantize_int8
+    dev = torch.device("cuda", rank)
+
+    def inputs(r):
+        g = torch.Generator(device=dev).manual_seed(seed * 1000 + r)
+        shapes = {"largest": tuple(shape), "vector": (shape[-1],), "scalar": ()}
+        grads = {k: torch.randn(s, generator=g, device=dev) for k, s in shapes.items()}
+        ef = {k: 1e-3 * torch.randn(s, generator=g, device=dev) for k, s in shapes.items()}
+        return grads, ef
+
+    grads, ef = inputs(rank)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mean, ef_new = psum_compressed_tree(grads, ef)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    out = {"ms": ms, "equal": {}}
+    for k in grads:
+        deq, mine = [], None
+        for r in range(world):
+            g_r, e_r = (grads, ef) if r == rank else inputs(r)
+            x = g_r[k] + e_r[k]
+            d = dequantize(*quantize_int8(x))
+            deq.append(d)
+            if r == rank:
+                mine = x - d
+            del g_r, e_r, x
+        want = torch.stack(deq).sum(dim=0) / world
+        out["equal"][k] = same_bits(mean[k], want) and same_bits(ef_new[k], mine)
+        del deq, want, mine
+    return out
+
+
+def preempted_run(cmd, env, hb: str) -> dict:
+    """Phase 21 (c)'s first subprocess: ``cmd`` started, sent SIGTERM once
+    its heartbeat ``hb`` reports step >= 1, and waited for.  Returns its
+    output, exit code, and the seconds to the signal and to its end."""
+    import signal
+    from repro_torch.launch import watchdog
+    t0 = time.time()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=ROOT, env=env)
+    try:
+        deadline = time.monotonic() + DRIVER_TIMEOUT
+        while not any(b["step"] >= 1 for b in watchdog.scan(hb)):
+            if proc.poll() is not None:
+                raise SmokeFailure("driver: the run ended before step 1: "
+                                   + "".join(proc.communicate()))
+            check(time.monotonic() < deadline, "driver: no heartbeat at step >= 1")
+            time.sleep(0.05)
+        t_signal = time.time() - t0
+        proc.send_signal(signal.SIGTERM)
+        stdout, stderr = proc.communicate(timeout=DRIVER_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    return {"stdout": stdout, "stderr": stderr, "returncode": proc.returncode,
+            "signal_after_s": t_signal, "seconds": time.time() - t0}
+
+
+def driver_phase(dev, reset_all, kernel, sig_kernel, name, power) -> list:
+    """Phase 21: the training driver at mamba2-780m's full size on phase 18
+    (d)'s cell (:data:`DRIVER_ARGV`).  (a) In-process, the launch counts set
+    to 0 just before and read just after, a checkpoint every 2 steps into a
+    temporary directory; (b) the last checkpoint restored into a fresh
+    model and AdamW on the card and on the CPU, bit for bit; (c) the same
+    command as a subprocess with a heartbeat, SIGTERM once it reports step
+    >= 1, the watchdog on its heartbeat, then a resume to the last step in a second
+    subprocess, its checkpoint against (a)'s; (d) int8 compression on the
+    card against the CPU, and ``psum_compressed_tree`` on NCCL groups.
+    Returns [(Goursat launch key, {run: launches}, the (λ1, λ2, scheme,
+    interior dtype) it ran at)]."""
+    import contextlib
+    import io
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    from repro_torch.launch import spawn_ranks, watchdog
+    from repro_torch.launch.train import parser
+    from repro_torch.models import get_config
+    from repro_torch.models.params import tree_items
+    from repro_torch.optim import dequantize, quantize_int8
+    torch.cuda.empty_cache()
+    t_phase = time.time()
+    args = parser().parse_args(list(DRIVER_ARGV))
+    cfg = get_config(args.arch)
+    cfg = (cfg.reduced() if args.reduced else cfg).replace(sig_loss=args.sig_loss)
+    n_params = lm_param_count(cfg) + cfg.d_model * cfg.sig_loss_dim
+    ckpt_bytes = 3 * 4 * n_params + 4
+    root = tempfile.mkdtemp(prefix="chip_smoke_driver_")
+    out = {"config": cfg.name, "params": n_params, "argv": list(DRIVER_ARGV)}
+    try:
+        free = shutil.disk_usage(root).free
+        need = DRIVER_DISK_CHECKPOINTS * ckpt_bytes
+        print(f"driver: {free / 1e9:.2f} GB free under {root}, {need / 1e9:.2f} GB needed "
+              f"({DRIVER_DISK_CHECKPOINTS} checkpoints of {ckpt_bytes / 1e9:.3f} GB)", flush=True)
+        check(free >= need, f"driver: {free} bytes free under {root}, {need} needed "
+              f"({DRIVER_DISK_CHECKPOINTS} checkpoints of {ckpt_bytes} bytes)")
+        dir_a, dir_c = os.path.join(root, "a"), os.path.join(root, "c")
+        with DiskPeak(root) as disk:
+            # (a) the driver in this process
+            t0 = time.time()
+            torch.cuda.reset_peak_memory_stats()
+            reset_all()
+            model, opt, steps, timings = driver_in_process(
+                list(DRIVER_ARGV) + ["--ckpt-dir", dir_a])
+            counts = {**kernel.launch_counts(), **sig_kernel.launch_counts()}
+            shapes, ran_at = kernel.launch_shapes(), kernel.launch_variants()
+            peak = torch.cuda.max_memory_allocated()
+            last = os.path.join(dir_a, f"step_{DRIVER_STEPS}")
+            on_disk = sum(os.path.getsize(os.path.join(last, f)) for f in os.listdir(last))
+            largest = tuple(max(model.parameters(), key=lambda p: p.numel()).shape)
+            out["train"] = {
+                "seconds": time.time() - t0, "steps": steps,
+                "ms_with_write_in_flight": [r["ms"] for r in steps if r["write_in_flight"]],
+                "ms_without_write": [r["ms"] for r in steps if not r["write_in_flight"]],
+                "saves": timings, "checkpoint_bytes_on_disk": on_disk,
+                "checkpoint_bytes_predicted": ckpt_bytes, "peak_memory_bytes": peak,
+                "largest_leaf": list(largest), "steps_on_disk": sorted(os.listdir(dir_a))}
+            check(sum(p.numel() for p in model.parameters()) == n_params,
+                  f"driver: {sum(p.numel() for p in model.parameters())} parameters, "
+                  f"{n_params} from the shapes")
+            check(opt.state["count"] == DRIVER_STEPS, f"driver: count {opt.state['count']}")
+            check(all(r["write_s"] is not None for r in timings), f"driver: saves {timings}")
+
+            # (b) restore on the card and on the CPU, bit for bit, while (c)'s
+            # first subprocess trains to its preemption beside it on the card
+            torch.cuda.empty_cache()
+            live = {**{f"0/{k}": v for k, v in tree_items(model.tree())},
+                    **{f"1/{k}": v for k, v in tree_items(opt.state_tree(model.tree()))}}
+            env = {**os.environ, "PYTHONPATH": SRC}
+            hb = os.path.join(root, "heartbeat.json")
+            cmd = [sys.executable, "-m", "repro_torch.launch.train", *DRIVER_ARGV,
+                   "--ckpt-dir", dir_c, "--heartbeat", hb]
+            with ThreadPoolExecutor(max_workers=1) as pool:
+                first = pool.submit(preempted_run, cmd, env, hb)
+                out["restore"] = [restore_into_fresh(cfg, dir_a, DRIVER_STEPS, live, d)
+                                  for d in (dev, "cpu")]
+                run = first.result()
+            shutil.rmtree(dir_a)
+            torch.cuda.empty_cache()
+
+            # (c) the preempted run, the watchdog, the resumed run
+            print(run["stdout"], end="", flush=True)
+            check(run["returncode"] == 0, f"driver: the preempted run exited "
+                  f"{run['returncode']}:\n" + run["stderr"][-4000:])
+            check("signal 15: writing preemption checkpoint" in run["stdout"]
+                  and "done" not in run["stdout"], "driver: no preemption line")
+            beats = watchdog.scan(hb)
+            check(len(beats) == 1 and beats[0]["process"] == 0, f"driver: heartbeats {beats}")
+            reached = beats[0]["step"] + 1
+            from repro_torch.checkpoint import CheckpointManager
+            latest = CheckpointManager(dir_c).latest_step()
+            check(latest == reached and 2 <= reached < DRIVER_STEPS,
+                  f"driver: preempted at step {reached}, latest checkpoint {latest}")
+            while time.time() - beats[0]["time"] <= 1.5:
+                time.sleep(0.1)
+            log = io.StringIO()
+            code = None
+            with contextlib.redirect_stdout(log):
+                try:
+                    watchdog.main(["--pattern", hb, "--timeout", "1", "--interval", "0.1"])
+                except SystemExit as e:
+                    code = e.code
+            check(code == 1 and "HANG detected (1 stale heartbeats)" in log.getvalue(),
+                  f"driver: watchdog exited {code}: {log.getvalue()}")
+            t0 = time.time()
+            resumed = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT, env=env,
+                                     timeout=DRIVER_TIMEOUT)
+            resume_s = time.time() - t0
+            print(resumed.stdout, end="", flush=True)
+            check(resumed.returncode == 0, f"driver: the resumed run exited "
+                  f"{resumed.returncode}:\n" + resumed.stderr[-4000:])
+            check(resumed.stdout.startswith(f"resumed from step {reached}\n")
+                  and resumed.stdout.rstrip().endswith("done"),
+                  f"driver: the resumed run printed {resumed.stdout!r}")
+            # the resumed run's checkpoint against (a)'s live state, which (b)
+            # showed equal to (a)'s checkpoint
+            cmp = restore_into_fresh(cfg, dir_c, DRIVER_STEPS, live, dev)
+            out["preemption"] = {
+                "signal_after_s": run["signal_after_s"], "preempted_run_s": run["seconds"],
+                "reached": reached,
+                "heartbeat": beats[0], "watchdog": log.getvalue().strip(),
+                "resumed_run_s": resume_s, "compare": cmp}
+            del live, model, opt
+            shutil.rmtree(dir_c)
+            torch.cuda.empty_cache()
+        out["peak_disk_bytes"] = disk.peak
+
+        # (d) compression on the card
+        t0 = time.time()
+        xc = torch.randn(largest, generator=torch.Generator(device=dev).manual_seed(21),
+                         device=dev)
+        x = xc.cpu()
+        q, s = quantize_int8(x)
+        qc, sc = quantize_int8(xc)
+        comp = {"shape": list(largest),
+                "quantize_equal": same_bits(q, qc.cpu()) and same_bits(s, sc.cpu()),
+                "dequantize_equal": same_bits(dequantize(q, s), dequantize(qc, sc).cpu()),
+                "quantize_ms": time_ms(lambda: quantize_int8(xc), 3)}
+        del x, xc, q, s, qc, sc
+        torch.cuda.empty_cache()
+        comp["groups"] = {}
+        for world in (w for w in DRIVER_COMPRESSION_WORLDS if w <= torch.cuda.device_count()):
+            ranks = spawn_ranks(compression_rank, world, (21, largest),
+                                backend="nccl", timeout=600)
+            comp["groups"][world] = ranks
+        comp["seconds"] = time.time() - t0
+        out["compression"] = comp
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"driver_path": out, "launches": counts, "launches_by_shape": shape_rows(shapes),
+          "seconds": round(time.time() - t_phase, 3), "card": name, "power_limit": power})
+    tr = out["train"]
+    print(f"driver: {tr['seconds']:.1f} s for {DRIVER_STEPS} steps, "
+          f"ms a step {[round(r['ms'], 1) for r in tr['steps']]} (write in flight "
+          f"{[r['write_in_flight'] for r in tr['steps']]}), snapshots "
+          f"{[round(r['snapshot_s'] * 1e3, 1) for r in tr['saves']]} ms, writes "
+          f"{[round(r['write_s'], 2) for r in tr['saves']]} s, "
+          f"{tr['checkpoint_bytes_on_disk']} bytes a checkpoint, peak memory "
+          f"{tr['peak_memory_bytes'] / 1e9:.2f} GB, peak disk {out['peak_disk_bytes'] / 1e9:.2f} "
+          f"GB; resume max rel diff {out['preemption']['compare']['max_rel_diff']:.3g} "
+          f"[{name}, {power}]", flush=True)
+    losses = [r["loss"] for r in tr["steps"]]
+    sigs = [r["sig"] for r in tr["steps"]]
+    check(len(losses) == DRIVER_STEPS and all(np.isfinite(losses + sigs)),
+          f"driver: losses {tr['steps']}")
+    for kname in TRAIN_PATH:
+        check(counts[kname] > 0, f"driver path never launched {kname}")
+    check(counts["fwd_fused"] + counts["gram_fused"] > 0,
+          "driver path launched neither fused kernel")
+    for r in out["restore"]:
+        check(r["step"] == r["count"] == DRIVER_STEPS and r["differing_leaves"] == 0,
+              f"driver: restore on {r['device']}: {r}")
+    pre = out["preemption"]["compare"]
+    check(pre["step"] == pre["count"] == DRIVER_STEPS and pre["differing_leaves"] == 0,
+          f"driver: the resumed step-{DRIVER_STEPS} checkpoint differs from the uninterrupted "
+          f"run's state in {pre['differing_leaves']} leaves {pre['first_differing']}, max rel "
+          f"{pre['max_rel_diff']:.3g}")
+    comp = out["compression"]
+    check(comp["quantize_equal"] and comp["dequantize_equal"],
+          f"driver: int8 compression on the card differs from the CPU's {comp}")
+    check(1 in comp["groups"], "driver: no 1-rank NCCL group ran")
+    for world, ranks in comp["groups"].items():
+        for r, o in enumerate(ranks):
+            check(all(o["equal"].values()), f"driver: psum_compressed_tree, {world} ranks, "
+                  f"rank {r}: {o['equal']}")
+    return [(k, {"driver": n}, ran_at[k]) for k, n in sorted(shapes.items(), key=str)]
 
 
 if __name__ == "__main__":

@@ -20,6 +20,8 @@ from typing import Callable, Dict
 
 import torch
 
+from ..models.params import tree_items, tree_map
+
 
 class AdamW(torch.optim.Optimizer):
     """``lr``: a schedule, step count (from 1) -> learning rate."""
@@ -69,6 +71,39 @@ class AdamW(torch.optim.Optimizer):
                 state["m"].copy_(m_new)
                 state["v"].copy_(v_new)
         return {"grad_norm": gnorm}
+
+    def state_tree(self, params: Dict) -> Dict:
+        """The optimizer state as the JAX ``AdamWState``'s tree, over
+        ``params`` (a nested dict of this optimizer's parameters, e.g.
+        ``model.tree()``): ``{"count": int32 scalar, "m": tree, "v": tree}``.
+        The moments are the live tensors; a parameter not stepped yet gets
+        zeros in ``moment_dtype``, as ``AdamW.init`` gives."""
+        def moment(key):
+            def one(p):
+                state = self.state[p]
+                return state[key] if state else torch.zeros(
+                    p.shape, dtype=self.moment_dtype, device=p.device)
+            return tree_map(one, params)
+        return {"count": torch.tensor(self.state["count"], dtype=torch.int32),
+                "m": moment("m"), "v": moment("v")}
+
+    @torch.no_grad()
+    def load_state_tree(self, params: Dict, state: Dict) -> None:
+        """Set the state from a tree as :meth:`state_tree` gives (a JAX
+        ``AdamWState`` carried across as one): the step count, on which the
+        schedule depends, and each parameter's moments, copied to its
+        device in ``moment_dtype``."""
+        ms, vs = dict(tree_items(state["m"])), dict(tree_items(state["v"]))
+        if set(ms) != set(vs) or set(ms) != {name for name, _ in tree_items(params)}:
+            raise ValueError("the moment trees do not name the parameters")
+        for name, p in tree_items(params):
+            m, v = ms[name], vs[name]
+            if m.shape != p.shape or v.shape != p.shape:
+                raise ValueError(f"moments of {name}: {tuple(m.shape)} and "
+                                 f"{tuple(v.shape)} for a parameter of {tuple(p.shape)}")
+            self.state[p] = {k: t.to(p.device, self.moment_dtype, copy=True)
+                             for k, t in (("m", m), ("v", v))}
+        self.state["count"] = int(state["count"])
 
 
 def cosine_schedule(peak: float, warmup: int, total: int,

@@ -16,6 +16,7 @@ SURFACE_FILE = os.path.join(os.path.dirname(__file__), "api_surface_torch.txt")
 PACKAGES = ("repro_torch", "repro_torch.core", "repro_torch.stream", "repro_torch.serve",
             "repro_torch.parallel", "repro_torch.launch", "repro_torch.data",
             "repro_torch.models", "repro_torch.configs", "repro_torch.optim",
+            "repro_torch.checkpoint",
             "repro_torch.train", "repro_torch.bench",
             "repro_torch.kernels", "repro_torch.kernels.sigkernel_pde",
             "repro_torch.kernels.signature")

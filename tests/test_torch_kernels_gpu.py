@@ -672,3 +672,22 @@ def test_token_stream_on_the_card(cuda):
     assert a["tokens"].is_cuda and a["sig_target"].is_cuda
     assert torch.equal(a["tokens"], b["tokens"]) and torch.equal(a["labels"], b["labels"])
     assert 0 <= int(a["tokens"].min()) and int(a["tokens"].max()) < 102400
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("largest", [1.3728498, 3.846831, 1.0])
+def test_int8_quantisation_on_the_card_equals_the_cpu(cuda, largest):
+    """quantize_int8 / dequantize bit for bit across devices.  The first two
+    largest magnitudes are ones whose scale differs in its last bit where
+    max|x| / 127 is taken as a product with the reciprocal of 127, which a
+    Python-number divisor becomes on the card."""
+    from repro_torch.optim import dequantize, quantize_int8
+    x = torch.from_numpy(np.random.default_rng(3).uniform(-1, 1, size=(513, 7))
+                         .astype(np.float32))
+    x[0, 0] = largest
+    q, s = quantize_int8(x)
+    qc, sc = quantize_int8(x.to(cuda))
+    assert torch.equal(qc.cpu(), q)
+    assert sc.cpu().view(torch.int32).item() == s.view(torch.int32).item()
+    assert torch.equal(dequantize(qc, sc).cpu().view(torch.int32),
+                       dequantize(q, s).view(torch.int32))

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Run chip_smoke.py's phases 15 (LM serving at full size) and 16 (the
 ``_torch`` examples), or phase 17 (the MoE family), 18 (the SSM family), 19
-(the encoder-decoder family) or 20 (the vlm family), alone on one CUDA
-card, with their shape checks: both kernel libraries are built first, as
-the smoke builds them, and every line the phases print is the smoke's own.
+(the encoder-decoder family), 20 (the vlm family) or 21 (the training
+driver), alone on one CUDA card, with their shape checks: both kernel
+libraries are built first, as the smoke builds them, and every line the
+phases print is the smoke's own.
 A quicker way than the whole smoke to measure the serving path again.
 
     python3 tools/serving_probe.py              # phases 15 and 16
@@ -11,6 +12,7 @@ A quicker way than the whole smoke to measure the serving path again.
     python3 tools/serving_probe.py --phase 18   # phase 18 alone
     python3 tools/serving_probe.py --phase 19   # phase 19 alone
     python3 tools/serving_probe.py --phase 20   # phase 20 alone
+    python3 tools/serving_probe.py --phase 21   # phase 21 alone
 """
 
 import argparse
@@ -29,7 +31,7 @@ import chip_smoke as cs  # noqa: E402
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", type=int, action="append", choices=(15, 16, 17, 18, 19, 20),
+    ap.add_argument("--phase", type=int, action="append", choices=(15, 16, 17, 18, 19, 20, 21),
                     help="the phases to run (repeatable; default 15 and 16)")
     phases = ap.parse_args(argv).phase or [15, 16]
     if not torch.cuda.is_available():
@@ -73,6 +75,10 @@ def main(argv=None) -> int:
     if 20 in phases:
         vlm_shapes = cs.vlm_phase(dev, reset_all, kernel, sig_kernel, name, power)
         cs.trainer_shape_checks("vlm", vlm_shapes, checked, kernel, dev, rng, name, power)
+    if 21 in phases:
+        driver_shapes = cs.driver_phase(dev, reset_all, kernel, sig_kernel, name, power)
+        cs.trainer_shape_checks("driver", driver_shapes, checked, kernel, dev, rng, name,
+                                power)
     print(card)
     return 0
 
