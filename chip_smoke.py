@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's signature and signature-kernel paths, forward and
 gradient, its LM serving path, its example scripts, the MoE, SSM,
-encoder-decoder and vlm families and the training driver, on one CUDA card.
+encoder-decoder and vlm families, the training driver and a device's share
+of the multi-pod dry run, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -290,10 +291,35 @@ Phases (any failure exits non-zero; nothing runs without CUDA):
    rank (2 and 4 where the cards exist) bit for bit the same arithmetic
    done locally.  Prints the peak bytes on disk.
 
-Phases 8-21 run after phase 7's timing and before the ``kernels`` line;
+22. ``dryrun_path``: the multi-pod dry run (``python -m
+   repro_torch.launch.dryrun``).  (a) Three CPU subprocesses (started after
+   phase 7's timing, niced, one thread each, ``CUDA_VISIBLE_DEVICES`` empty,
+   waited for here within :data:`DRYRUN_TIMEOUT`) record mamba2-780m x
+   decode_32k at 2x16x16 and 16x16 and sigkernel-workload x sig_gram at
+   16x16 on fake devices; each record prints on a line of its own and must
+   carry no error, positive flops and bytes, ``null`` in the XLA-only
+   fields, collectives for mamba2 (its fsdp gathers) and none for the Gram,
+   whose flops must be one device's pairwise products exactly.  (b) Rank
+   0's share of mamba2-780m x decode_32k x 16x16 for real on the card, at
+   full width (8 sequences: 128 do not split over 256 devices, so the SSM
+   rules put the batch on ``data``): its shards zeros on the card, its
+   collectives a fake group's (they move nothing); its cache bytes on the
+   card and the decode step's flops (``FlopCounterMode``'s formulas, a
+   device's share) must equal (a)'s record, and the step's ms (CUDA events,
+   median) prints beside its byte bound with the card's name and power
+   limit.  Then the same model with random weights (seed 0) at the 1 x 1
+   mesh of a real one-rank NCCL group: its parameters, tokens and caches
+   DTensors laid out by the sharding rules, a prefill of
+   :data:`DRYRUN_PROMPT` tokens for the 8 sequences and one decode step
+   run under the rules (the mesh path), held against the plain path on the
+   same weights and tokens: the logits of both steps and every cache leaf
+   within :data:`DRYRUN_RTOL` of the largest value (bf16 compute).  Serving
+   launches no kernel.
+
+Phases 8-22 run after phase 7's timing and before the ``kernels`` line;
 each sets the launch counts to 0 just before it and reads them just after
 (phase 11 and 16's distributed example in each rank).  ``python3
-tools/serving_probe.py --phase 17`` (or 18, 19, 20, 21) runs that phase
+tools/serving_probe.py --phase 17`` (or 18, 19, 20, 21, 22) runs that phase
 alone with its shape checks.  Phase 4 also times the host build of the
 ``"brackets"`` basis change at d = 16, N = 4.  Every phase reads, and
 phases 13 and 14 write, an autotune cache under a temporary directory the
@@ -518,6 +544,14 @@ DRIVER_STEPS = 3
 DRIVER_DISK_CHECKPOINTS = 3
 DRIVER_TIMEOUT = 600             # seconds a driver subprocess may take
 DRIVER_COMPRESSION_WORLDS = (1, 2, 4)
+#: (a)'s cells: (arch, shape, multi-pod)
+DRYRUN_CELLS = (("mamba2-780m", "decode_32k", True), ("mamba2-780m", "decode_32k", False),
+                ("sigkernel-workload", "sig_gram", False))
+DRYRUN_SHARE = ("mamba2-780m", "decode_32k")   # (b): rank 0's share of its 16x16 record
+DRYRUN_TIMEOUT = 600             # seconds from their start the CPU subprocesses may take
+DRYRUN_REPS = 2                  # timed decode steps of (b)
+DRYRUN_PROMPT = 256              # (b)'s value check: tokens prefilled before its decode step
+DRYRUN_RTOL = 1e-2               # ... its logits' and caches' largest difference over the largest value
 GAN_SMALL = (8, 32, 8)
 TRAIN_CARD_CPU_REL = 1e-4
 TRAIN_PATH = ("fwd_cps", "bwd")     # and at least one of fwd_fused, gram_fused
@@ -1161,6 +1195,9 @@ def main() -> int:
               "launches_at_this_shape": by_shape.get(f"d={d_}, N={N_}", 0), **row,
               "card": name, "power_limit": power})
 
+    # phase 22 (a) runs on the CPU beside the card's phases, after the timed
+    # kernel phases 2-7
+    dryrun_procs = dryrun_start()
     stream_phase(rt, dev, rng, reset_all, sig_kernel, name, power)
     shapes_feat = features_phase(rt, dev, rng, reset_all, kernel, name, power)
     # the features path's own shapes (its many-problem strips among them),
@@ -1222,6 +1259,7 @@ def main() -> int:
     trainer_shape_checks("vlm", vlm_shapes, checked, kernel, dev, rng, name, power)
     driver_shapes = driver_phase(dev, reset_all, kernel, sig_kernel, name, power)
     trainer_shape_checks("driver", driver_shapes, checked, kernel, dev, rng, name, power)
+    dryrun_phase(dryrun_procs, reset_all, kernel, sig_kernel, name, power)
 
     emit({"kernels": rows})
     return finish(card)
@@ -3754,6 +3792,193 @@ def driver_phase(dev, reset_all, kernel, sig_kernel, name, power) -> list:
             check(all(o["equal"].values()), f"driver: psum_compressed_tree, {world} ranks, "
                   f"rank {r}: {o['equal']}")
     return [(k, {"driver": n}, ran_at[k]) for k, n in sorted(shapes.items(), key=str)]
+
+
+def dryrun_start() -> list:
+    """Phase 22 (a)'s dry-run subprocesses, one a cell of :data:`DRYRUN_CELLS`,
+    each writing its record under :data:`CACHE_DIR`: [(cell, Popen, out path,
+    start time)].  Stopped at exit if still running."""
+    import atexit
+    env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    procs = []
+    for arch, shape, mp in DRYRUN_CELLS:
+        out = os.path.join(CACHE_DIR, f"dryrun_{arch}_{shape}_{int(mp)}.json")
+        argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                "--shape", shape, "--out", out] + (["--multipod"] if mp else [])
+        p = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True,
+                             preexec_fn=lambda: os.nice(10))
+        procs.append(((arch, shape, mp), p, out, time.time()))
+
+    def stop():
+        for _, p, _, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    atexit.register(stop)
+    return procs
+
+
+def dryrun_phase(procs, reset_all, kernel, sig_kernel, name, power) -> None:
+    """Phase 22: (a) the dry-run records of :func:`dryrun_start`'s
+    subprocesses, printed and checked; (b) rank 0's share of
+    :data:`DRYRUN_SHARE` at 16x16 run on the card, its cache bytes and
+    flops held to (a)'s record, its decode step timed against its byte
+    bound."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import SHAPES
+    from repro_torch.launch.shapes import SIG_SHAPES as GRAM_CELLS
+    from repro_torch.models import get_config
+    t_phase = time.time()
+    records = {}
+    for (arch, shape, mp), p, out, t0 in procs:
+        try:
+            log, _ = p.communicate(timeout=max(1.0, DRYRUN_TIMEOUT - (time.time() - t0)))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            log, _ = p.communicate()
+            raise SmokeFailure(f"dryrun: {arch} x {shape} took more than {DRYRUN_TIMEOUT} s")
+        check(p.returncode == 0, f"dryrun: {arch} x {shape} exited {p.returncode}: "
+              f"{log[-2000:]}")
+        with open(out) as f:
+            rec, = json.load(f)
+        emit({"dryrun_record": rec, "cpu_seconds_since_start": round(time.time() - t0, 1)})
+        mesh = "2x16x16" if mp else "16x16"
+        check("error" not in rec and "skipped" not in rec, f"dryrun: {arch} x {shape} x "
+              f"{mesh}: {rec.get('error') or rec.get('skipped')}")
+        check(rec["mesh"] == mesh and rec["n_chips"] == (512 if mp else 256),
+              f"dryrun: {rec['mesh']} / {rec['n_chips']} chips for {mesh}")
+        check(rec["flops"] > 0 and rec["hlo_dot_flops"] > 0 and rec["argument_bytes"] > 0
+              and rec["output_bytes"] > 0, f"dryrun: {arch} x {shape} x {mesh}: {rec}")
+        check(all(rec[k] is None for k in dryrun.NULL_FIELDS),
+              f"dryrun: an XLA-only field is not null: {rec}")
+        n_coll = sum(c["count"] for c in rec["collectives"].values())
+        if arch == "sigkernel-workload":
+            # a device's (B/16) x (B/16) tile of pairs, Δ 2·(L-1)²·d flops a pair
+            cell = GRAM_CELLS[shape]
+            b = cell.batch // 16
+            check(n_coll == 0, f"dryrun: the Gram's local tiles issued {n_coll} collectives")
+            pairs_flops = 2 * b * b * (cell.seq - 1) ** 2 * 8
+            check(rec["hlo_dot_flops"] == pairs_flops, f"dryrun: sig_gram flops "
+                  f"{rec['hlo_dot_flops']} != {pairs_flops}")
+        else:
+            check(n_coll > 0, f"dryrun: {arch} x {mesh} issued no collective")
+        records[(arch, shape, mesh)] = rec
+
+    # (b) rank 0's share on the card
+    arch, shape = DRYRUN_SHARE
+    want = records[(arch, shape, "16x16")]
+    torch.cuda.empty_cache()
+    reset_all()
+    real = dryrun.run_cell(get_config(arch), SHAPES[shape], (16, 16), ("data", "model"),
+                           arch=arch, mesh_name="16x16", device="cuda", repeats=DRYRUN_REPS)
+    counts = {**kernel.launch_counts(), **sig_kernel.launch_counts()}
+    ms = float(np.median(real["ms"]))
+    gathered = real["collectives"]["all-gather"]["out_bytes"]
+    moved = real["argument_bytes"] + real["output_bytes"] - real["alias_bytes"] + gathered
+    bound = moved / HBM_BYTES_PER_S * 1e3
+    emit({"dryrun_share": {"cell": f"{arch} x {shape} x 16x16", "rank": 0,
+                           "sequences": SHAPES[shape].batch // 16, "ms": real["ms"],
+                           "ms_median": ms, "bound_ms": bound, "bytes": moved,
+                           "gathered_bytes": gathered, "cache_bytes": real["cache_bytes"],
+                           "flops": real["flops"], "record_flops": want["flops"],
+                           "record_cache_bytes": want["alias_bytes"],
+                           "trace_s": real["compile_s"], "launches": counts},
+          "card": name, "power_limit": power})
+    print(f"dryrun: {arch} x {shape}, rank 0 of 16x16 on the card: {ms:.1f} ms a decode "
+          f"step (median of {DRYRUN_REPS}) against a {bound:.3f} ms byte bound "
+          f"({moved / 1e9:.3f} GB: its shards, outputs and gathered weights); "
+          f"{real['flops']:.6g} flops, {real['cache_bytes']} cache bytes; phase "
+          f"{time.time() - t_phase:.1f} s [{name}, {power}]", flush=True)
+    check(real["cache_bytes"] == want["alias_bytes"],
+          f"dryrun: the card's cache bytes {real['cache_bytes']} != the record's "
+          f"{want['alias_bytes']}")
+    check(real["flops"] == want["flops"] and real["hlo_dot_flops"] == want["hlo_dot_flops"],
+          f"dryrun: the card's decode step counts {real['flops']} flops, the record "
+          f"{want['flops']}")
+    check(real["argument_bytes"] == want["argument_bytes"],
+          f"dryrun: argument bytes {real['argument_bytes']} != {want['argument_bytes']}")
+    check(all(np.isfinite(real["ms"])) and ms > 0, f"dryrun: step times {real['ms']}")
+    reset_all()
+    errs = mesh_against_plain(get_config(arch), SHAPES[shape].batch // 16)
+    counts = {k: counts.get(k, 0) + n for k, n in {**kernel.launch_counts(),
+                                                   **sig_kernel.launch_counts()}.items()}
+    emit({"dryrun_mesh_values": {"cell": f"{arch}, 1 x 1 mesh, real NCCL group of 1",
+                                 "sequences": SHAPES[shape].batch // 16,
+                                 "prompt": DRYRUN_PROMPT, "rel_err": errs, "rtol": DRYRUN_RTOL},
+          "card": name, "power_limit": power})
+    print(f"dryrun: {arch} mesh path against the plain path on the card: largest relative "
+          f"difference {max(errs.values()):.3g} ({max(errs, key=errs.get)}); phase "
+          f"{time.time() - t_phase:.1f} s [{name}, {power}]", flush=True)
+    for what, err in errs.items():
+        check(err <= DRYRUN_RTOL, f"dryrun: the mesh path's {what} differs from the plain "
+              f"path's by {err:.3g} > {DRYRUN_RTOL}")
+    check(sum(counts.values()) == 0, f"dryrun: serving launched kernels {counts}")
+
+
+def mesh_against_plain(cfg, B: int) -> dict:
+    """Phase 22 (b)'s value check: ``cfg``'s model (random weights, seed 0)
+    prefills :data:`DRYRUN_PROMPT` tokens of ``B`` sequences and decodes
+    one, on the plain path and on the mesh path (rank 0 of a real one-rank
+    NCCL group at the 1 x 1 mesh, every parameter, token and cache a
+    DTensor laid out by the sharding rules).  {output: largest difference
+    over the largest value}, for both steps' logits and every cache leaf."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.launch.shapes import ShapePreset, cache_shape_for
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_items
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.parallel.api import logical_rules
+    from repro_torch.serve.step import compute_params
+    dev = torch.device("cuda", 0)
+    P = DRYRUN_PROMPT
+    model = build_model(cfg, seed=0, device=dev)
+    compute = compute_params(model)
+    g = torch.Generator(device=dev).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab, (B, P + 1), generator=g, device=dev)
+    plain = {}
+    logits, caches = model.prefill({"tokens": toks[:, :P], "max_len": P + 1}, params=compute)
+    plain["prefill logits"] = logits
+    logits, caches = model.decode(caches, toks[:, P:], P, params=compute)
+    plain["decode logits"] = logits
+    plain.update((f"cache {k}", v) for k, v in tree_items(caches))
+    del caches
+
+    def whole(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    mesh_out = {}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1, device_id=dev)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        dparams = SH.distribute(compute, SH.param_shardings(compute, cfg, mesh, False), mesh)
+        meta = cache_shape_for(cfg, ShapePreset("share", "decode", P + 1, B))
+        caches = SH.distribute(model.cache_init(B, P + 1),
+                               SH.cache_shardings(meta, cfg, mesh, False), mesh)
+
+        def tokens(t):
+            return SH.distribute({"tokens": t}, SH.batch_shardings({"tokens": t}, cfg, mesh,
+                                                                   False), mesh)["tokens"]
+
+        with logical_rules(SH.rules_for(cfg, False)), implicit_replication():
+            logits, caches = model.prefill({"tokens": tokens(toks[:, :P]), "max_len": P + 1},
+                                           params=dparams, caches=caches)
+            check(isinstance(logits, DTensor), "dryrun: the mesh path's prefill gave no DTensor")
+            mesh_out["prefill logits"] = whole(logits)
+            logits, caches = model.decode(caches, tokens(toks[:, P:]), P, params=dparams)
+            mesh_out["decode logits"] = whole(logits)
+            mesh_out.update((f"cache {k}", whole(v)) for k, v in tree_items(caches))
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    check(set(mesh_out) == set(plain), f"dryrun: mesh outputs {sorted(mesh_out)}")
+    return {k: float((mesh_out[k].float() - v.float()).abs().max()
+                     / v.float().abs().max().clamp_min(1e-30)) for k, v in plain.items()}
 
 
 if __name__ == "__main__":

@@ -51,6 +51,7 @@ from .config import (_maybe_scale, delta_from_gram, resolve_kernel_configs,
 from .sigkernel import _sigkernel_from_delta
 from repro_torch.kernels.sigkernel_pde import ops as pde_ops
 from repro_torch.parallel import collectives as coll
+from repro_torch.parallel.api import shard
 from repro_torch.parallel.sharding import block_cyclic_perm
 
 
@@ -349,15 +350,16 @@ def sigkernel_gram(X: torch.Tensor, Y: Optional[torch.Tensor] = None, *,
     if feats is not None:
         phiX, phiY = _feature_maps(X, Y, feats, cfg, g, kernel, lengths, lengths_y,
                                    launch)
-        return phiX @ (phiX if phiY is None else phiY).T
+        return shard(phiX @ (phiX if phiY is None else phiY).T, "batch", "model")
     if row_block is None:
         row_block = launch.gram_row_block
-    sX = _prepare(X, cfg, kernel, lengths)
+    sX = shard(_prepare(X, cfg, kernel, lengths), "batch", None, None)
     if symmetric:
-        return _symmetric_gram(sX, kernel, backend, row_block, g, launch)
-    sY = _prepare(Y, cfg, kernel, lengths_y)
+        return shard(_symmetric_gram(sX, kernel, backend, row_block, g, launch),
+                     "batch", "model")
+    sY = shard(_prepare(Y, cfg, kernel, lengths_y), "model", None, None)
     dispatch.record_pair_solves(sX.shape[0] * sY.shape[0])
-    return _gram_rows(sX, sY, kernel, backend, g, row_block, launch)
+    return shard(_gram_rows(sX, sY, kernel, backend, g, row_block, launch), "batch", "model")
 
 
 # ---------------------------------------------------------------------------
@@ -480,7 +482,9 @@ def sigkernel_gram_sharded(X: torch.Tensor, Y: Optional[torch.Tensor] = None, *,
                                       error_budget)
     if feats is not None:
         phiX, phiY = _feature_maps(X, Y, feats, cfg, g, kernel, lengths, lengths_y, launch)
-        return phiX @ (phiX if phiY is None else phiY).T
+        phiX = shard(phiX, "batch", None)
+        K = phiX @ (phiX if phiY is None else shard(phiY, "model", None)).T
+        return shard(K, "batch", "model")
     if mesh is None:
         from repro_torch.launch import make_gram_mesh
         mesh = make_gram_mesh()
@@ -509,7 +513,7 @@ def sigkernel_gram_sharded(X: torch.Tensor, Y: Optional[torch.Tensor] = None, *,
         # undo the deal: global pair t·D + r sits at rank r, slot t
         k = coll.gather(coll.gather(k_loc, cols), rows)
         k = k.reshape(D, n_loc).T.reshape(-1)[:n_pairs]
-        return _mirror(k, a_np, b_np, Bx)
+        return shard(_mirror(k, a_np, b_np, Bx), "batch", "model")
 
     sY = coll.sum_grads(_prepare(Y, cfg, kernel, lengths_y), groups)
     By = sY.shape[0]
@@ -518,7 +522,7 @@ def sigkernel_gram_sharded(X: torch.Tensor, Y: Optional[torch.Tensor] = None, *,
     dispatch.record_pair_solves(px * py)
     Kt = _gram_rows(sx, sy, kernel, backend, g, row_block, launch)
     Kp = coll.gather(coll.gather(Kt, cols, dim=1), rows)
-    return Kp[inv_r][:, inv_c][:Bx, :By]
+    return shard(Kp[inv_r][:, inv_c][:Bx, :By], "batch", "model")
 
 
 # ---------------------------------------------------------------------------

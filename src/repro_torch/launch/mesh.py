@@ -1,7 +1,9 @@
-"""The (data, model) DeviceMesh of the sharded Gram."""
+"""DeviceMeshes: the (data, model) mesh of the sharded Gram, the production
+pods and the host mesh of the dry run, and the fake group it runs on."""
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Tuple
 
@@ -57,3 +59,35 @@ def make_gram_mesh(n: Optional[int] = None, *, device_type: Optional[str] = None
                          f"{dist.get_backend()!r}: gloo moves card tensors through the host")
     return init_device_mesh(device_type, gram_mesh_shape(n),
                             mesh_dim_names=tuple(axis_names))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cpu"):
+    """A pod of 256 devices, (16, 16) over ``("data", "model")``, or two
+    pods, (2, 16, 16) over ``("pod", "data", "model")``, on the default
+    process group, which must hold that many ranks (the dry run's
+    :func:`fake_group`)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+def make_host_mesh(device_type: str = "cpu"):
+    """Degenerate 1 x 1 ``("data", "model")`` mesh over a group of one rank."""
+    return init_device_mesh(device_type, (1, 1), mesh_dim_names=("data", "model"))
+
+
+@contextlib.contextmanager
+def fake_group(n: int):
+    """A default process group of ``n`` ranks held by this one process as
+    rank 0, whose collectives move nothing (torch's ``"fake"`` backend).
+    It lets a CPU process lay DTensors out over a 256- or 512-device mesh
+    and count the collectives a step would issue; it is destroyed on exit,
+    also when the body raises."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("fake_group needs a process without a default group")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()

@@ -17,9 +17,10 @@ lines and semantics:
 
 The one flag the JAX driver lacks is ``--device``: the card by default
 (raising where CUDA is not available), ``--device cpu`` on request.
-``--mesh host`` is the one device; the JAX package's ``pod`` and
-``multipod`` meshes (256 and 512 chips under XLA) have no counterpart in
-the port yet and are refused.
+``--mesh host`` is the one device.  The ``pod`` and ``multipod`` meshes
+(256 and 512 devices) are refused: one process cannot train on 256 cards.
+The port lays its steps out over them in the dry run,
+``python -m repro_torch.launch.dryrun``, on fake devices.
 
 The port updates the parameters and the AdamW state in place, so a signal
 handler that saved them could land in the middle of ``AdamW.step()`` and
@@ -94,8 +95,11 @@ def train(argv=None):
     args = parser().parse_args(argv)
     if args.mesh != "host":
         raise NotImplementedError(
-            f"--mesh {args.mesh}: the JAX package's {args.mesh} mesh is an XLA device mesh "
-            "of 256 or 512 chips, which has no counterpart in the port yet; use --mesh host")
+            f"--mesh {args.mesh}: training over a mesh of 256 or 512 devices has no "
+            "counterpart in one process; its layout, per-device bytes, flops and collectives "
+            f"come from the dry run: python -m repro_torch.launch.dryrun --arch {args.arch} "
+            f"--shape train_4k{' --multipod' if args.mesh == 'multipod' else ''}; train "
+            "with --mesh host")
     dev = card_device(args.device, "repro_torch.launch.train")
 
     signals = []

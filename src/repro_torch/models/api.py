@@ -21,6 +21,7 @@ import torch
 from ..api import card_device
 from ..core.config import GridConfig
 from ..core.losses import sig_aux_loss
+from ..parallel.api import current_rules, gather_fsdp, shard
 from . import layers as L
 from . import transformer as T
 from . import whisper as W
@@ -31,6 +32,15 @@ VOCAB_ALIGN = 256
 
 def padded_vocab(cfg) -> int:
     return -(-cfg.vocab // VOCAB_ALIGN) * VOCAB_ALIGN
+
+
+def _at_use(params: Dict) -> Dict:
+    """The tree with the leaves outside the layer stacks gathered over their
+    fsdp axes (:func:`repro_torch.parallel.api.gather_fsdp`; the stacks
+    gather a layer at a time).  The tree itself outside a mesh."""
+    if current_rules() is None:
+        return params
+    return {k: v if k in ("layers", "enc", "dec") else gather_fsdp(v) for k, v in params.items()}
 
 
 def _logits(params, x, cfg):
@@ -94,12 +104,12 @@ class Model(ParamTree):
         if self.cfg.family == "vlm" and "patches" in batch:
             pe = batch["patches"].to(cdt) @ p["patch_proj"].to(cdt)
             x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
-        return x
+        return shard(x, "batch", "seq", None)
 
     def loss(self, batch: Dict, params: Optional[Dict] = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         cfg = self.cfg
-        p = self.tree() if params is None else params
+        p = _at_use(self.tree() if params is None else params)
         if cfg.family == "vlm" and "patches" in batch:
             P, S = batch["patches"].shape[1], batch["tokens"].shape[1]
             if P > S:
@@ -119,17 +129,21 @@ class Model(ParamTree):
         return total, metrics
 
     @torch.no_grad()
-    def prefill(self, batch: Dict, params: Optional[Dict] = None):
+    def prefill(self, batch: Dict, params: Optional[Dict] = None,
+                caches: Optional[Dict] = None):
         """The prompt ``batch["tokens"]`` (B, S) (with a vlm config's
         ``batch["patches"]``) through the model, building the decode caches,
-        of ``batch.get("max_len", S)`` positions.
-        Returns (the last position's logits (B, 1, padded vocab), caches)."""
+        of ``batch.get("max_len", S)`` positions, or filling ``caches``
+        (as :meth:`cache_init` makes them; on a mesh, laid out by the
+        caller).  Returns (the last position's logits (B, 1, padded vocab),
+        caches)."""
         cfg = self.cfg
-        p = self.tree() if params is None else params
+        p = _at_use(self.tree() if params is None else params)
         x = self.embed_inputs(batch, p)
         positions = torch.arange(x.shape[1], device=x.device)
         max_len = int(batch.get("max_len", x.shape[1]))
-        x, caches = T.stack_prefill(p["layers"], x, positions, cfg, max_len, self.compute_dtype)
+        x, caches = T.stack_prefill(p["layers"], x, positions, cfg, max_len, self.compute_dtype,
+                                    caches)
         x = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
         return _logits(p, x[:, -1:], cfg), caches
 
@@ -145,8 +159,8 @@ class Model(ParamTree):
         (a Python int, or a 0-d tensor, read once).  Updates ``caches`` in
         place and returns (logits (B, 1, padded vocab), caches)."""
         cfg = self.cfg
-        p = self.tree() if params is None else params
-        x = L.embed(p["embed"], tokens, self.compute_dtype)
+        p = _at_use(self.tree() if params is None else params)
+        x = shard(L.embed(p["embed"], tokens, self.compute_dtype), "batch", None, None)
         x, caches = T.stack_decode(p["layers"], x, caches, int(cur_len), cfg)
         x = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
         return _logits(p, x, cfg), caches
@@ -164,14 +178,14 @@ class EncDecModel(Model):
 
     def encode(self, batch: Dict, params: Optional[Dict] = None) -> torch.Tensor:
         """The encoder states of ``batch["frames"]``, after ``ln_enc``."""
-        p = self.tree() if params is None else params
+        p = _at_use(self.tree() if params is None else params)
         enc = W.encoder_apply(p["enc"], batch["frames"].to(self.compute_dtype), self.cfg)
         return L.layernorm(p["ln_enc"], enc, self.cfg.norm_eps)
 
     def loss(self, batch: Dict, params: Optional[Dict] = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         cfg = self.cfg
-        p = self.tree() if params is None else params
+        p = _at_use(self.tree() if params is None else params)
         enc = self.encode(batch, p)
         temb = L.embed(p["embed"], batch["tokens"], self.compute_dtype)
         x = W.decoder_apply(p["dec"], temb, enc, cfg)
@@ -186,17 +200,19 @@ class EncDecModel(Model):
         return total, metrics
 
     @torch.no_grad()
-    def prefill(self, batch: Dict, params: Optional[Dict] = None):
+    def prefill(self, batch: Dict, params: Optional[Dict] = None,
+                caches: Optional[Dict] = None):
         """The frames through the encoder and the prompt ``batch["tokens"]``
         (B, S) through the decoder, building the decode caches of
-        ``batch.get("max_len", S)`` positions.  Returns (the last
+        ``batch.get("max_len", S)`` positions, or filling ``caches`` as
+        :meth:`Model.prefill` does.  Returns (the last
         position's logits (B, 1, padded vocab), caches)."""
         cfg = self.cfg
-        p = self.tree() if params is None else params
+        p = _at_use(self.tree() if params is None else params)
         enc = self.encode(batch, p)
         max_len = int(batch.get("max_len", batch["tokens"].shape[1]))
         temb = L.embed(p["embed"], batch["tokens"], self.compute_dtype)
-        x, caches = W.decoder_prefill(p, temb, enc, cfg, max_len, self.compute_dtype)
+        x, caches = W.decoder_prefill(p, temb, enc, cfg, max_len, self.compute_dtype, caches)
         x = L.layernorm(p["ln_out"], x, cfg.norm_eps)
         return _logits(p, x[:, -1:], cfg), caches
 
@@ -214,7 +230,7 @@ class EncDecModel(Model):
         """One token a sequence, ``tokens`` (B, 1), at position ``cur_len``;
         updates ``caches`` in place and returns (logits, caches)."""
         cfg = self.cfg
-        p = self.tree() if params is None else params
+        p = _at_use(self.tree() if params is None else params)
         x = L.embed(p["embed"], tokens, self.compute_dtype)
         x, caches = W.decoder_decode(p, x, caches, int(cur_len), cfg)
         x = L.layernorm(p["ln_out"], x, cfg.norm_eps)

@@ -12,11 +12,13 @@ package's is plain XLA (no Pallas kernel); no library attention is called.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional
 
 import torch
 
+from ..parallel.api import layout, local_call, on_mesh, psum, shard, shard_index
 from .layers import apply_rope, dense_init
 
 NEG_INF = -1e30
@@ -70,7 +72,24 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``preferred_element_type`` asks in the JAX function), and P is cast to
     V's dtype first.  Padded keys carry position -1e9 and masked scores
     -1e30.
+
+    On a mesh (DTensors under sharding rules) it runs on each device's
+    batch and head shards (:func:`_local_heads`).
     """
+    if on_mesh(q):
+        # the KV sequence stays whole: a device slices its chunks locally
+        k = shard(k, "batch", None, "model", None)
+        v = shard(v, "batch", None, "model", None)
+        names = ("batch", "seq", "model", None)
+        axes = tuple(i for i, p in enumerate(layout(names, q.shape, q.device_mesh))
+                     if p.is_shard(2))
+        fn = functools.partial(_local_heads, blocked_attention, q.device_mesh,
+                               (q.shape[2], k.shape[2], axes),
+                               causal=causal, window=window, chunk=chunk)
+        return local_call(fn, (q, k, v, q_pos, kv_pos),
+                          (("batch", "seq", "model", None), ("batch", None, "model", None),
+                           ("batch", None, "model", None), None, None),
+                          (("batch", "seq", "model", None),), (q.shape,))
     B, S, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -107,6 +126,21 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, S, H, D).to(q.dtype)
 
 
+def _local_heads(core, mesh, heads, q, k, v, *args, **kwargs):
+    """``core`` on one device's shards.  ``heads``: (H, KV, the mesh axes
+    the query heads are split over).  Where the KV heads could not be split
+    as the query heads are (fewer KV heads than devices on those axes),
+    each device keeps the KV heads its query heads read."""
+    H, KV, axes = heads
+    Hl, KVl = q.shape[-2], k.shape[-2]
+    if Hl < H and KVl == KV and KV > 1:
+        G = H // KV
+        lo = shard_index(mesh, axes) * Hl
+        first, last = lo // G, (lo + Hl - 1) // G
+        k, v = k[..., first:last + 1, :], v[..., first:last + 1, :]
+    return core(q, k, v, *args, **kwargs)
+
+
 def attention(p, x, positions, *, rope_theta, causal=True, window=0,
               kv_x: Optional[torch.Tensor] = None, kv_positions=None,
               chunk: int = 1024):
@@ -121,9 +155,12 @@ def attention(p, x, positions, *, rope_theta, causal=True, window=0,
         v = torch.einsum("bsd,dhk->bshk", kv_x, p["wv"].to(dt))
         kv_pos = kv_positions
         causal = False
+    q = shard(q, "batch", "seq", "model", None)
+    k = shard(k, "batch", "seq", "model", None)
     out = blocked_attention(q, k, v, positions, kv_pos,
                             causal=causal, window=window, chunk=chunk)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
+    out = shard(out, "batch", "seq", "model", None)
+    return shard(torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt)), "batch", "seq", None)
 
 
 # ---------------------------------------------------------------------------
@@ -163,18 +200,27 @@ def decode_attention(p, x, cache: Dict, cur_len: int, *, rope_theta, window: int
     """
     dt = x.dtype
     q, k, v = qkv(p, x, torch.full((1,), cur_len, device=x.device), rope_theta)
+    if on_mesh(q):
+        out = _decode_on_mesh(q, k, v, cache, cur_len, window)
+    else:
+        out = _decode_core(q, k, v, cache["k"], cache["v"], cache.get("pos"), cur_len, window)
+    return shard(torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt)), "batch", "seq", None), cache
+
+
+def _decode_core(q, k, v, ck, cv, pos, cur_len: int, window: int):
+    """The cache write and the attention of :func:`decode_attention`:
+    (out (B, 1, H, D) in q's dtype)."""
+    dt = q.dtype
     if window:
         slot = cur_len % window
-        cache["k"][:, slot] = k[:, 0]
-        cache["v"][:, slot] = v[:, 0]
-        cache["pos"][slot] = cur_len
-        kv_pos = cache["pos"]
-        valid = (kv_pos >= 0) & (kv_pos <= cur_len) & (kv_pos > cur_len - window)
-        ck, cv = cache["k"], cache["v"]
+        ck[:, slot] = k[:, 0]
+        cv[:, slot] = v[:, 0]
+        pos[slot] = cur_len
+        valid = (pos >= 0) & (pos <= cur_len) & (pos > cur_len - window)
     else:
-        cache["k"][:, cur_len] = k[:, 0]
-        cache["v"][:, cur_len] = v[:, 0]
-        ck, cv = cache["k"][:, :cur_len + 1], cache["v"][:, :cur_len + 1]
+        ck[:, cur_len] = k[:, 0]
+        cv[:, cur_len] = v[:, 0]
+        ck, cv = ck[:, :cur_len + 1], cv[:, :cur_len + 1]
         valid = None
 
     B, _, H, D = q.shape
@@ -186,5 +232,58 @@ def decode_attention(p, x, cache: Dict, cur_len: int, *, rope_theta, window: int
         s = torch.where(valid, s, NEG_INF)
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgc,bckd->bkgd", w.to(cv.dtype).float(), cv.float())
-    out = out.reshape(B, 1, H, D).to(dt)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt)), cache
+    return out.reshape(B, 1, H, D).to(dt)
+
+
+def _decode_on_mesh(q, k, v, cache: Dict, cur_len: int, window: int):
+    """:func:`_decode_core` on each device's batch and head shards, its
+    cache shards written in place; where the cache is sharded along its
+    sequence instead (KV heads that do not divide the model axis),
+    :func:`_decode_seq_shards`."""
+    mesh = q.device_mesh
+    seq_axes = [i for i, p in enumerate(cache["k"].placements) if p.is_shard(1)]
+    pos = cache.get("pos")
+    if seq_axes:
+        rows = ("batch", None, None, None)
+        fn = functools.partial(_decode_seq_shards, mesh=mesh, axes=tuple(seq_axes),
+                               cur_len=cur_len, window=window)
+        args = (q, k, v, cache["k"], cache["v"]) + ((pos,) if pos is not None else ())
+        return local_call(fn, args, (rows, rows, rows) + (...,) * (len(args) - 3),
+                          (rows,), (q.shape,))
+    heads = ("batch", "seq", "model", None)
+
+    def core(q, k, v, ck, cv, *pos_):
+        return _decode_core(q, k, v, ck, cv, pos_[0] if pos_ else None, cur_len, window)
+
+    args = (q, k, v, cache["k"], cache["v"]) + ((pos,) if pos is not None else ())
+    return local_call(core, args, (heads, heads, heads) + (...,) * (len(args) - 3),
+                      (heads,), (q.shape,))
+
+
+def _decode_seq_shards(q, k, v, ck, cv, *pos, mesh, axes, cur_len: int, window: int):
+    """One device's decode attention over its slice of the cache's
+    positions (flash-decoding): it writes the new token's K and V where its
+    slot falls in the slice, scores its slots, and the softmax's maximum
+    and the weighted sums are reduced over the devices that share the
+    sequence.  q, k, v: this device's batch rows, every head."""
+    S_l = ck.shape[1]
+    lo = shard_index(mesh, axes) * S_l
+    slot = cur_len % window if window else cur_len
+    if lo <= slot < lo + S_l:
+        ck[:, slot - lo] = k[:, 0]
+        cv[:, slot - lo] = v[:, 0]
+    if window:
+        pos[0][slot] = cur_len
+        kv_pos = pos[0][lo:lo + S_l]
+    else:
+        kv_pos = torch.arange(lo, lo + S_l, device=ck.device)
+    valid = (kv_pos >= 0) & (kv_pos <= cur_len) & (kv_pos > cur_len - window if window else True)
+    B, _, H, D = q.shape
+    KV = ck.shape[2]
+    qf = (q / math.sqrt(D)).to(ck.dtype).reshape(B, KV, H // KV, D).float()
+    s = torch.where(valid, torch.einsum("bkgd,bckd->bkgc", qf, ck.float()), NEG_INF)
+    m = psum(s.amax(dim=-1), mesh, axes, "max")
+    w = torch.exp(s - m[..., None])
+    lsum = psum(w.sum(dim=-1), mesh, axes)
+    acc = psum(torch.einsum("bkgc,bckd->bkgd", w.to(cv.dtype).float(), cv.float()), mesh, axes)
+    return (acc / lsum[..., None]).reshape(B, 1, H, D).to(q.dtype)

@@ -4,8 +4,9 @@ Counterpart of ``repro/models/layers.py``.  Parameters are nested dicts of
 tensors (a :class:`repro_torch.models.params.ParamTree` hands its
 parameters out as one); every constructor is ``*_init(generator, ...)``,
 drawing on the generator's device, and every application a function of the
-dict and its inputs.  The JAX package's ``shard`` annotations are the
-identity outside a sharding-rules context, and the port has none.
+dict and its inputs.  Activations carry the JAX package's ``shard``
+annotations by logical axis names (:mod:`repro_torch.parallel.api`), the
+identity outside a sharding-rules context.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.api import layout, local_call, on_mesh, psum, shard, shard_index
 
 
 def dense_init(generator: torch.Generator, d_in: int, d_out: int,
@@ -83,7 +86,8 @@ def mlp_init(generator: torch.Generator, d_model: int, d_ff: int, act: str):
 
 def mlp(p, x, act: str):
     """The weights are cast to the activations' dtype; gelu is the tanh
-    approximation (``jax.nn.gelu``'s default)."""
+    approximation (``jax.nn.gelu``'s default).  On a mesh the output is
+    reduced over the tensor-parallel shards (as every block's output is)."""
     dt = x.dtype
     if act == "relu2":
         h = torch.square(F.relu(x @ p["w_in"].to(dt)))
@@ -92,7 +96,8 @@ def mlp(p, x, act: str):
         u = x @ p["w_up"].to(dt)
         g = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
         h = g * u
-    return h @ p["w_out"].to(dt)
+    h = shard(h, "batch", "seq", "model")
+    return shard(h @ p["w_out"].to(dt), "batch", "seq", None)   # whole on a mesh's model axis
 
 
 # ---------------------------------------------------------------------------
@@ -105,20 +110,70 @@ def embed_init(generator: torch.Generator, vocab: int, d_model: int):
 
 
 def embed(p, tokens, dtype):
+    if on_mesh(p["table"]):
+        return _vocab_parallel_embed(p["table"], tokens, dtype)
     return p["table"].to(dtype)[tokens]
 
 
+def _vocab_parallel_embed(table, tokens, dtype):
+    """The rows of ``tokens`` from a vocab-sharded table, each device over
+    its batch rows and its vocab shard: the rows it holds, zeros for the
+    others, summed over the devices that split the vocab."""
+    mesh = table.device_mesh
+    vax = tuple(i for i, p in enumerate(table.placements) if p.is_shard(0))
+
+    def core(tab, tok):
+        V = tab.shape[0]
+        lo = shard_index(mesh, vax) * V
+        mine = (tok >= lo) & (tok < lo + V)
+        rows = tab.to(dtype)[torch.clamp(tok - lo, 0, V - 1)]
+        return psum(torch.where(mine[..., None], rows, torch.zeros((), dtype=dtype,
+                                                                    device=rows.device)),
+                    mesh, vax)
+
+    names = ("batch", "seq")[:tokens.ndim]
+    return local_call(core, (table, tokens), (..., names), (names + (None,),),
+                      (tuple(tokens.shape) + (table.shape[1],),))
+
+
 def unembed(p, x):
-    return x @ p["table"].to(x.dtype).T
+    return shard(x @ p["table"].to(x.dtype).T, "batch", "seq", "model")
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   z_loss: float = 1e-4) -> torch.Tensor:
     """Mean token cross-entropy with the optional z-loss, in float32."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
+    if on_mesh(logits):
+        lse, ll = _vocab_parallel_lse(logits, labels)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
     loss = lse - ll
     if z_loss:
         loss = loss + z_loss * torch.square(lse)
     return loss.mean()
+
+
+def _vocab_parallel_lse(logits, labels):
+    """The log-normaliser and the label's logit of vocab-sharded logits
+    (B, S, V), each device over its vocab shard: the maximum, the sum of
+    exponentials and the label's logit reduced over the devices that split
+    the vocab.  Both (B, S), laid out by batch."""
+    mesh = logits.device_mesh
+    names = ("batch", "seq", "model")
+    vax = tuple(i for i, p in enumerate(layout(names, logits.shape, mesh)) if p.is_shard(2))
+
+    def core(lg, lab):
+        V = lg.shape[-1]
+        lo = shard_index(mesh, vax) * V
+        m = psum(lg.detach().amax(dim=-1), mesh, vax, "max")
+        lse = m + torch.log(psum(torch.exp(lg - m[..., None]).sum(dim=-1), mesh, vax))
+        mine = (lab >= lo) & (lab < lo + V)
+        idx = torch.clamp(lab.long() - lo, 0, V - 1)[..., None]
+        ll = psum(torch.where(mine, torch.take_along_dim(lg, idx, dim=-1)[..., 0], 0.0),
+                  mesh, vax)
+        return lse, ll
+
+    return local_call(core, (logits, labels), (names, names[:2]), (names[:2], names[:2]),
+                      (labels.shape, labels.shape))

@@ -34,11 +34,12 @@ inputs keep the k-th and (k+1)-th router logits apart.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..parallel.api import local_call, on_mesh, shard
 from .layers import dense_init, mlp, mlp_init
 
 CAPACITY_FACTOR = 1.25
@@ -119,39 +120,110 @@ def route(p, xg: torch.Tensor, cfg) -> Routing:
 
 
 def moe_apply(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (y in x's dtype, aux float32 scalar)."""
+    """x: (B, S, D) -> (y in x's dtype, aux float32 scalar).  On a mesh the
+    routed experts run on each device's groups and expert shards
+    (:func:`_moe_on_mesh`)."""
     dt = x.dtype
     B, S, D = x.shape
-    E, k = cfg.n_experts, cfg.n_experts_per_tok
+    E = cfg.n_experts
     g = group_size(B * S)
     ng = B * S // g
-    xg = x.reshape(ng, g, D)
-    r = route(p, xg, cfg)
-    cap = r.cap
-
-    # a slot one-hot by comparison: -1 and slots at or past cap give a zero row
-    slots = torch.arange(cap, device=x.device, dtype=torch.float32)
-    disp_flat = (r.keep[..., None] * (r.slot[..., None] == slots)).reshape(ng, k, g, E, cap)
-    disp = disp_flat.sum(1)                                       # (ng, g, E, cap)
-    comb = (disp_flat * r.gate_w.transpose(1, 2)[..., None, None]).sum(1)
-
-    x_e = torch.einsum("ngd,ngec->necd", xg, disp.to(dt))         # (ng, E, cap, D)
-    gate = torch.einsum("necd,edf->necf", x_e, p["w_gate"].to(dt))
-    up = torch.einsum("necd,edf->necf", x_e, p["w_up"].to(dt))
-    act = F.silu(gate) if cfg.act == "silu" else F.gelu(gate, approximate="tanh")
-    y_e = torch.einsum("necf,efd->necd", act * up, p["w_out"].to(dt))
-    y = torch.einsum("necd,ngec->ngd", y_e, comb.to(dt)).reshape(B, S, D)
+    if on_mesh(x):
+        y, me, ce, zl = _moe_on_mesh(p, x, cfg, ng, g)
+    else:
+        y, me, ce, zl = _routed_experts(p, x.reshape(ng, g, D), cfg)
+        y = y.reshape(B, S, D)
 
     if cfg.n_shared_experts:
         sg = torch.sigmoid(x @ p["shared_gate"].to(dt))
         y = y + sg * mlp(p["shared"], x, cfg.act)
 
     # load-balance auxiliary loss (Switch) + router z-loss
+    aux = E * torch.sum(me * ce) + 1e-3 * zl
+    return shard(y, "batch", "seq", None), aux
+
+
+def _routed_experts(p, xg: torch.Tensor, cfg, experts: Optional[slice] = None):
+    """Route, dispatch, run the experts and combine, over groups ``xg``
+    (ng, g, D).  Returns (y (ng, g, D), the mean router probability an
+    expert (E,), the fraction routed to each (E,), the mean squared router
+    log-normaliser), the last three over ``xg``'s tokens.  ``experts``: the
+    slice of the experts whose weights ``p`` holds (a device's expert
+    shard); its y is that slice's share of the sum over experts."""
+    dt = xg.dtype
+    ng, g, D = xg.shape
+    k = cfg.n_experts_per_tok
+    r = route(p, xg, cfg)
+    cap = r.cap
+
+    # a slot one-hot by comparison: -1 and slots at or past cap give a zero row
+    slots = torch.arange(cap, device=xg.device, dtype=torch.float32)
+    disp_flat = (r.keep[..., None] * (r.slot[..., None] == slots)).reshape(ng, k, g, -1, cap)
+    disp = disp_flat.sum(1)                                       # (ng, g, E, cap)
+    comb = (disp_flat * r.gate_w.transpose(1, 2)[..., None, None]).sum(1)
+    if experts is not None:
+        disp, comb = disp[:, :, experts], comb[:, :, experts]
+
+    x_e = torch.einsum("ngd,ngec->necd", xg, disp.to(dt))         # (ng, E, cap, D)
+    gate = torch.einsum("necd,edf->necf", x_e, p["w_gate"].to(dt))
+    up = torch.einsum("necd,edf->necf", x_e, p["w_up"].to(dt))
+    act = F.silu(gate) if cfg.act == "silu" else F.gelu(gate, approximate="tanh")
+    y_e = torch.einsum("necf,efd->necd", act * up, p["w_out"].to(dt))
+    y = torch.einsum("necd,ngec->ngd", y_e, comb.to(dt))
     me = r.probs.mean(dim=(0, 1))                                 # mean prob / expert
     ce = r.onehot.sum(2).mean(dim=(0, 1))                         # fraction routed
-    aux = E * torch.sum(me * ce) + 1e-3 * torch.mean(
-        torch.square(torch.logsumexp(r.logits, dim=-1)))
-    return y, aux
+    zl = torch.mean(torch.square(torch.logsumexp(r.logits, dim=-1)))
+    return y, me, ce, zl
+
+
+def _moe_on_mesh(p, x, cfg, ng: int, g: int):
+    """:func:`_routed_experts` as each device's program: its groups (those
+    of its batch shard, or every group where they do not split over the
+    batch axes, as JAX's ``shard(xg, "batch", None, None)`` demotes them)
+    against its experts, or against every expert's shard of the hidden dim
+    where the experts do not divide the model axis (the F dim's fallback
+    in the MoE rules).  The routed output is a partial sum over the model
+    axis.  The load statistics are each device's share (its groups' means
+    over the number of devices that split the work), summed: every device
+    of the model axis routes its groups alike, so the router's gradient
+    sums each one's share of them once."""
+    from torch.distributed.tensor import Partial, Replicate
+    from ..parallel.api import layout
+    B, S, D = x.shape
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    group_pl = layout(("batch", None, None), (ng, g, D), mesh)
+    rows = ("batch", None, None) if all(
+        not pl.is_shard() or B % mesh.size(i) == 0 for i, pl in enumerate(group_pl)) \
+        and any(pl.is_shard() for pl in group_pl) else (None, None, None)
+    x_pl = layout(rows, x.shape, mesh)
+    w = p["w_gate"]
+    e_split = [i for i, pl in enumerate(w.placements) if pl.is_shard(0)]
+    tp = [i for i, pl in enumerate(w.placements) if pl.is_shard()]
+    experts = None
+    if e_split:
+        n = cfg.n_experts // math.prod(mesh.size(i) for i in e_split)
+        c = mesh.get_coordinate()
+        lo = sum(c[i] for i in e_split) * n   # one expert axis in every rule
+        experts = slice(lo, lo + n)
+
+    split = [i for i, pl in enumerate(x_pl) if pl.is_shard() or i in tp]
+    share = math.prod(mesh.size(i) for i in split)
+
+    def core(xl, router, wg, wu, wo):
+        y, me, ce, zl = _routed_experts(
+            {"router": router, "w_gate": wg, "w_up": wu, "w_out": wo},
+            xl.reshape(-1, g, D), cfg, experts)
+        return y.reshape(xl.shape), me / share, ce / share, zl / share
+
+    def out(base):
+        return [Partial() if i in tp else pl for i, pl in enumerate(base)]
+
+    stat = [Partial() if i in split else Replicate() for i in range(mesh.ndim)]
+    return local_call(core, (x, p["router"], w, p["w_up"], p["w_out"]),
+                      (rows, ..., ..., ..., ...),
+                      (out(x_pl), stat, stat, stat), (x.shape, (cfg.n_experts,),
+                                                      (cfg.n_experts,), ()))
 
 
 def router_margin(logits: torch.Tensor, k: int) -> float:

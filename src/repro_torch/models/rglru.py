@@ -10,11 +10,13 @@ length.  Plain PyTorch, as the JAX package's is plain XLA.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..parallel.api import layout, local_call, on_mesh, shard
 from .layers import dense_init
 
 _C = 8.0
@@ -56,10 +58,40 @@ def _gates(p, x):
 
 
 def _conv(x, w, b):
-    """Causal depthwise convolution over time, width ``w.shape[0]``."""
+    """Causal depthwise convolution over time, width ``w.shape[0]``.  On a
+    mesh, on each device's batch rows and channel shard."""
+    if on_mesh(x):
+        rows = ("batch", None, "model")
+        # the channels split as x's are (the batch may take the model axis first)
+        ch = "model" if any(p.is_shard(2) for p in layout(rows, x.shape, x.device_mesh)) \
+            else None
+        return local_call(_conv, (x, w, b), (rows, (None, ch), (ch,)), (rows,), (x.shape,))
     K = w.shape[0]
     xp = F.pad(x, (0, 0, K - 1, 0))
     return sum(xp[:, i:i + x.shape[1], :] * w[i] for i in range(K)) + b
+
+
+def _scan(log_a, gated, chunk: int):
+    """The chunked scan of :func:`rglru_apply`: (the states (B, L, W) and
+    the last one (B, W), float32)."""
+    B, L, W = gated.shape
+    Q = min(chunk, L)
+    pad = (-L) % Q
+    if pad:
+        log_a = F.pad(log_a, (0, 0, 0, pad))
+        gated = F.pad(gated, (0, 0, 0, pad))
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=gated.device))
+    hc = torch.zeros((B, W), dtype=torch.float32, device=gated.device)
+    hs = []
+    for j in range(0, L + pad, Q):
+        cum = torch.cumsum(log_a[:, j:j + Q], dim=1)              # (B, Q, W), <= 0
+        diff = cum[:, :, None, :] - cum[:, None, :, :]           # (B, Q, Q, W)
+        diff = torch.where(causal[None, :, :, None], diff, -1e30)
+        h = torch.einsum("btjw,bjw->btw", torch.exp(diff), gated[:, j:j + Q])
+        h = h + torch.exp(cum) * hc[:, None, :]
+        hc = h[:, -1, :]
+        hs.append(h)
+    return torch.cat(hs, dim=1)[:, :L], hc
 
 
 def rglru_apply(p, u: torch.Tensor, cfg, return_cache: bool = False, chunk: int = 64):
@@ -84,24 +116,14 @@ def rglru_apply(p, u: torch.Tensor, cfg, return_cache: bool = False, chunk: int 
     log_a = torch.log(torch.clamp_min(a, 1e-37))
 
     B, L, W = gated.shape
-    Q = min(chunk, L)
-    pad = (-L) % Q
-    if pad:
-        log_a = F.pad(log_a, (0, 0, 0, pad))
-        gated = F.pad(gated, (0, 0, 0, pad))
-    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=u.device))
-    hc = torch.zeros((B, W), dtype=torch.float32, device=u.device)
-    hs = []
-    for j in range(0, L + pad, Q):
-        cum = torch.cumsum(log_a[:, j:j + Q], dim=1)              # (B, Q, W), <= 0
-        diff = cum[:, :, None, :] - cum[:, None, :, :]           # (B, Q, Q, W)
-        diff = torch.where(causal[None, :, :, None], diff, -1e30)
-        h = torch.einsum("btjw,bjw->btw", torch.exp(diff), gated[:, j:j + Q])
-        h = h + torch.exp(cum) * hc[:, None, :]
-        hc = h[:, -1, :]
-        hs.append(h)
-    h = torch.cat(hs, dim=1)[:, :L].to(dt)
-    out = (h * y) @ p["w_out"].to(dt)
+    if on_mesh(gated):   # each device scans its batch and width shard
+        chan = ("batch", None, "model")
+        h, hc = local_call(functools.partial(_scan, chunk=chunk), (log_a, gated),
+                           (chan, chan), (chan, ("batch", "model")), ((B, L, W), (B, W)))
+    else:
+        h, hc = _scan(log_a, gated, chunk)
+    h = shard(h.to(dt), "batch", "seq", "model")
+    out = shard((h * y) @ p["w_out"].to(dt), "batch", "seq", None)
     if return_cache:
         tail = x_raw[:, max(0, L - 3):, :].float()
         if tail.shape[1] < 3:
@@ -126,7 +148,7 @@ def rglru_decode(p, u: torch.Tensor, cache: Dict, cfg) -> Tuple[torch.Tensor, Di
     y = F.gelu(u[:, 0] @ p["w_y"].to(dt), approximate="tanh")
     a, gated = _gates(p, x)
     h = a * cache["h"] + gated
-    out = ((h.to(dt) * y) @ p["w_out"].to(dt))[:, None]
+    out = shard(((h.to(dt) * y) @ p["w_out"].to(dt))[:, None], "batch", "seq", None)
     cache["h"].copy_(h)
     cache["conv"].copy_(buf[:, 1:])
     return out, cache

@@ -11,6 +11,7 @@ XLA.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
@@ -18,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.api import layout, local_call, on_mesh, shard
 from .layers import dense_init, rmsnorm, rmsnorm_init
 
 
@@ -60,7 +62,14 @@ def _split_proj(zxbcdt, d_inner: int, N: int, H: int):
 
 def _causal_conv(x, w, b):
     """Depthwise causal convolution over time, width K, then SiLU.
-    x: (B, L, C), w: (K, C)."""
+    x: (B, L, C), w: (K, C).  On a mesh, on each device's batch rows and
+    channel shard."""
+    if on_mesh(x):
+        rows = ("batch", None, "model")
+        # the channels split as x's are (the batch may take the model axis first)
+        ch = "model" if any(p.is_shard(2) for p in layout(rows, x.shape, x.device_mesh)) \
+            else None
+        return local_call(_causal_conv, (x, w, b), (rows, (None, ch), (ch,)), (rows,), (x.shape,))
     K = w.shape[0]
     xp = F.pad(x, (0, 0, K - 1, 0))
     out = sum(xp[:, i:i + x.shape[1], :] * w[i] for i in range(K))
@@ -89,6 +98,23 @@ def _chunk_step(S_prev, xj, Bj, Cj, dtj, dAj, causal):
     return S_new, y_intra + y_inter
 
 
+def _ssd_scan(xh, Bm, Cm, dt, dA, Q: int):
+    """The chunk loop of :func:`ssm_apply`: (the outputs (B, L, H, P)
+    float32, the last state (B, H, N, P))."""
+    B_, L, H, P = xh.shape
+    remat = torch.is_grad_enabled()
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xh.device))
+    S = torch.zeros((B_, H, Bm.shape[-1], P), dtype=torch.float32, device=xh.device)
+    ys = []
+    for j in range(0, L, Q):
+        args = (S, xh[:, j:j + Q], Bm[:, j:j + Q], Cm[:, j:j + Q], dt[:, j:j + Q],
+                dA[:, j:j + Q], causal)
+        S, y = checkpoint(_chunk_step, *args, use_reentrant=False) if remat \
+            else _chunk_step(*args)
+        ys.append(y)
+    return torch.cat(ys, dim=1), S
+
+
 def ssm_apply(p, u: torch.Tensor, cfg, return_cache: bool = False):
     """Full-sequence SSD.  u: (B, L, d_model) -> (B, L, d_model).
 
@@ -112,7 +138,9 @@ def ssm_apply(p, u: torch.Tensor, cfg, return_cache: bool = False):
         u = F.pad(u, (0, 0, 0, pad))
     L = L_real + pad
 
-    zxbcdt = u @ p["in_proj"].to(dt_)
+    # on a mesh the packed projection (and its gradient) stays whole along
+    # its channels: the five parts it splits into are laid out apart
+    zxbcdt = shard(u @ p["in_proj"].to(dt_), "batch", "seq", None)
     z, x, Bm, Cm, dt = _split_proj(zxbcdt, d_inner, N, H)
     if pad:
         live = (torch.arange(L, device=u.device) < L_real)[None, :, None]
@@ -125,22 +153,20 @@ def ssm_apply(p, u: torch.Tensor, cfg, return_cache: bool = False):
     dA = dt * -torch.exp(p["A_log"])
     xh = x.reshape(B_, L, H, P)
 
-    remat = torch.is_grad_enabled()
-    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=u.device))
-    S = torch.zeros((B_, H, N, P), dtype=torch.float32, device=u.device)
-    ys = []
-    for j in range(0, L, Q):
-        args = (S, xh[:, j:j + Q], Bm[:, j:j + Q], Cm[:, j:j + Q], dt[:, j:j + Q],
-                dA[:, j:j + Q], causal)
-        S, y = checkpoint(_chunk_step, *args, use_reentrant=False) if remat \
-            else _chunk_step(*args)
-        ys.append(y)
-    y = torch.cat(ys, dim=1)                                          # (B, L, H, P) f32
+    if on_mesh(xh):   # each device scans its batch (and head) shard
+        heads, rows = ("batch", None, "model", None), ("batch", None, None)
+        y, S = local_call(functools.partial(_ssd_scan, Q=Q), (xh, Bm, Cm, dt, dA),
+                          (heads, rows, rows, heads[:3], heads[:3]),
+                          (heads, ("batch", "model", None, None)),
+                          ((B_, L, H, P), (B_, H, N, P)))
+    else:
+        y, S = _ssd_scan(xh, Bm, Cm, dt, dA, Q)                        # (B, L, H, P) f32
     y = y + p["D"][None, None, :, None] * xh.float()
     y = y.reshape(B_, L, d_inner).to(dt_)
 
     y = rmsnorm(p["norm"], y * F.silu(z), cfg.norm_eps)
-    out = (y @ p["out_proj"].to(dt_))[:, :L_real]
+    y = shard(y, "batch", "seq", "model")
+    out = shard((y @ p["out_proj"].to(dt_))[:, :L_real], "batch", "seq", None)
     if return_cache:
         K = cfg.ssm_conv
         tail = xbc_raw[:, max(L_real - (K - 1), 0):L_real, :].float()
@@ -186,7 +212,7 @@ def ssm_decode(p, u: torch.Tensor, cache: Dict, cfg) -> Tuple[torch.Tensor, Dict
     y = y + p["D"][None, :, None] * xh
     y = y.reshape(-1, d_inner).to(dt_)
     y = rmsnorm(p["norm"], y * F.silu(z), cfg.norm_eps)
-    out = (y @ p["out_proj"].to(dt_))[:, None, :]
+    out = shard((y @ p["out_proj"].to(dt_))[:, None, :], "batch", "seq", None)
     cache["state"].copy_(state)
     cache["conv"].copy_(conv_buf[:, 1:])
     return out, cache

@@ -32,11 +32,13 @@ draw).
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, List, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.api import gather_fsdp, local_call, on_mesh, shard, shard_index, write_local
 from . import attention as A
 from . import layers as L
 from . import moe as MOE
@@ -84,7 +86,9 @@ def _ffn(p, h, cfg, kind: str):
 
 def layer_apply(p, x, positions, cfg, kind: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence layer.  Returns (x, aux_loss); aux is the MoE block's,
-    0 for the other kinds."""
+    0 for the other kinds.  On a mesh the sequence-parallel residual is
+    gathered at the layer's entry."""
+    x = shard(x, "batch", "seq", None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "ssm":
         return x + SSM.ssm_apply(p["mixer"], L.rmsnorm(p["ln"], x, cfg.norm_eps), cfg), aux
@@ -139,21 +143,30 @@ def _layer_prefill(p, h, cache, positions, cfg, kind: str):
         y, sc = SSM.ssm_apply(p["mixer"], L.rmsnorm(p["ln"], h, cfg.norm_eps), cfg,
                               return_cache=True)
         for k, v in sc.items():
-            cache[k].copy_(v)
+            if on_mesh(v):
+                write_local(cache[k], v)
+            else:
+                cache[k].copy_(v)
         return h + y
     hn = L.rmsnorm(p["ln1"], h, cfg.norm_eps)
     if kind == "rec":
         y, rc = RG.rglru_apply(p["rec"], hn, cfg, return_cache=True)
         h = h + y
         for k, v in rc.items():
-            cache[k].copy_(v)
+            if on_mesh(v):
+                write_local(cache[k], v)
+            else:
+                cache[k].copy_(v)
     else:
         window = _window(cfg, kind)
         q, k, v = A.qkv(p["attn"], hn, positions, cfg.rope_theta)
         out = A.blocked_attention(q, k, v, positions, positions, causal=True, window=window)
-        h = h + torch.einsum("bshk,hkd->bsd", out, p["attn"]["wo"].to(h.dtype))
+        h = h + shard(torch.einsum("bshk,hkd->bsd", out, p["attn"]["wo"].to(h.dtype)),
+                      "batch", "seq", None)
         S, slots = hn.shape[1], cache["k"].shape[1]
-        if window:   # ring convention: position p lives at slot p % slots
+        if window and on_mesh(k):
+            _ring_write_on_mesh(cache, k, v, S)
+        elif window:   # ring convention: position p lives at slot p % slots
             take = min(slots, S)
             pos = torch.arange(S - take, S, device=h.device)
             cache["k"][:, pos % slots] = k[:, S - take:].to(cache["k"].dtype)
@@ -163,10 +176,47 @@ def _layer_prefill(p, h, cache, positions, cfg, kind: str):
             if S > slots:
                 raise ValueError(f"a prompt of {S} tokens does not fit a KV cache of "
                                  f"{slots} slots (max_len)")
-            cache["k"][:, :S] = k
-            cache["v"][:, :S] = v
+            if on_mesh(k):
+                write_local(cache["k"], k, 1)
+                write_local(cache["v"], v, 1)
+            else:
+                cache["k"][:, :S] = k
+                cache["v"][:, :S] = v
     y, _ = _ffn(p, L.rmsnorm(p["ln2"], h, cfg.norm_eps), cfg, kind)
     return h + y
+
+
+def _ring_write_on_mesh(cache, k, v, S: int) -> None:
+    """The ring-cache write of :func:`_layer_prefill` on a mesh: each
+    device writes the slots of its cache shard (a slice of the slots where
+    the KV heads do not divide the model axis), every device the whole
+    ``pos`` ring."""
+    from torch.distributed.tensor import Replicate
+    ck = cache["k"]
+    mesh, slots = ck.device_mesh, ck.shape[1]
+    axes = [i for i, p in enumerate(ck.placements) if p.is_shard(1)]
+    full = tuple(Replicate() if p.is_shard(1) else p for p in ck.placements)
+    k = k.to(ck.dtype).redistribute(mesh, full)
+    v = v.to(ck.dtype).redistribute(mesh, full)
+    n = slots // math.prod(mesh.size(a) for a in axes)
+    lo = shard_index(mesh, axes) * n
+    take = min(slots, S)
+    # the position each local slot holds: the last of the prompt's final
+    # ``take`` positions congruent to it
+    pairs = [(s - lo, p) for s in range(lo, lo + n)
+             for p in [S - 1 - ((S - 1 - s) % slots)] if p >= S - take]
+
+    def write(ckl, cvl, posl, kl, vl):
+        dst = torch.tensor([d for d, _ in pairs], device=kl.device)
+        src = torch.tensor([p for _, p in pairs], device=kl.device)
+        ckl[:, dst] = kl[:, src]
+        cvl[:, dst] = vl[:, src]
+        pos = torch.arange(S - take, S, device=kl.device)
+        posl[pos % slots] = pos.to(torch.int32)
+        return posl
+
+    local_call(write, (ck, cache["v"], cache["pos"], k, v), (...,) * 5,
+               ([*cache["pos"].placements],), (cache["pos"].shape,))
 
 
 # ---------------------------------------------------------------------------
@@ -252,6 +302,8 @@ def stack_apply(params, x, positions, cfg):
     """Run all layers over a full sequence.  Returns (x, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp, kind in zip(_layers(params, cfg), _kinds(cfg)):
+        lp = gather_fsdp(lp)
+        x = shard(x, "batch", "residual", None)   # SP residual boundary
         fn = functools.partial(layer_apply, positions=positions, cfg=cfg, kind=kind)
         if cfg.remat:
             x, a = checkpoint(fn, lp, x, use_reentrant=False)
@@ -272,14 +324,28 @@ def stack_decode(params, x, caches, cur_len: int, cfg):
     ``cur_len``; writes each layer's slot of ``caches`` in place (in the
     stored dtypes) and returns (x, caches)."""
     for lp, cache, kind in zip(_layers(params, cfg), _layers(caches, cfg), _kinds(cfg)):
-        x, _ = layer_decode(lp, x, cache, cur_len, cfg, kind)
+        x, _ = layer_decode(gather_fsdp(lp), x, cache, cur_len, cfg, kind)
     return x, caches
 
 
-def stack_prefill(params, x, positions, cfg, max_len: int, dtype=torch.bfloat16):
+def _caches_on_mesh(x) -> None:
+    """Refuse to make the caches of a prefill on a mesh: their layout is the
+    caller's (:func:`repro_torch.parallel.sharding.cache_shardings`), as the
+    JAX step's ``out_shardings`` are."""
+    if on_mesh(x):
+        raise ValueError("a prefill on a mesh fills the caches its caller lays out: "
+                         "pass caches=")
+
+
+def stack_prefill(params, x, positions, cfg, max_len: int, dtype=torch.bfloat16,
+                  caches=None):
     """Full-sequence forward that also builds the decode caches (capacity
-    ``max_len``; KV caches in ``dtype``).  Returns (x, caches)."""
-    caches = stack_cache_init(cfg, x.shape[0], max_len, dtype, x.device)
+    ``max_len``; KV caches in ``dtype``), or fills ``caches`` (as
+    :func:`stack_cache_init` makes them).  On a mesh the caller lays the
+    caches out and passes them.  Returns (x, caches)."""
+    if caches is None:
+        _caches_on_mesh(x)
+        caches = stack_cache_init(cfg, x.shape[0], max_len, dtype, x.device)
     for lp, cache, kind in zip(_layers(params, cfg), _layers(caches, cfg), _kinds(cfg)):
-        x = _layer_prefill(lp, x, cache, positions, cfg, kind)
+        x = _layer_prefill(gather_fsdp(lp), x, cache, positions, cfg, kind)
     return x, caches

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.api import gather_fsdp, local_call, on_mesh, psum, shard, write_local
 from . import attention as A
 from . import layers as L
 from . import transformer as T
@@ -62,12 +63,26 @@ def _exp_f32(x: np.ndarray) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _freqs(d: int, device: torch.device) -> torch.Tensor:
-    """The (d // 2,) float32 frequencies exp(-ln(1e4)·i / max(d/2 - 1, 1)),
-    made on the host once a device."""
+def _host_freqs(d: int) -> np.ndarray:
     half = d // 2
     arg = _F32(-math.log(10000.0)) * np.arange(half, dtype=_F32) / _F32(max(half - 1, 1))
-    return torch.from_numpy(_exp_f32(arg)).to(device)
+    return _exp_f32(arg)
+
+
+def _freqs(d: int, device: torch.device) -> torch.Tensor:
+    """The (d // 2,) float32 frequencies exp(-ln(1e4)·i / max(d/2 - 1, 1)),
+    made on the host once and moved to a device once; under a
+    ``FakeTensorMode`` (the dry run) made anew, as a fake tensor belongs to
+    the mode that made it and a real one is refused there."""
+    if torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None:
+        return torch.from_numpy(_host_freqs(d)).to(device)
+    return _device_freqs(d, device)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_freqs(d: int, device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):   # a tensor autograd may meet later
+        return torch.from_numpy(_host_freqs(d)).to(device)
 
 
 def sinusoid(positions: torch.Tensor, d: int, dtype) -> torch.Tensor:
@@ -105,11 +120,14 @@ def _run(body, layers, x, cfg):
     """``x = body(lp, x)`` over the layers' trees, each under
     ``checkpoint`` when ``cfg.remat``."""
     for lp in layers:
+        lp = gather_fsdp(lp)
+        x = shard(x, "batch", "residual", None)
         x = checkpoint(body, lp, x, use_reentrant=False) if cfg.remat else body(lp, x)
     return x
 
 
 def _enc_layer_apply(lp, h, pos, cfg):
+    h = shard(h, "batch", "seq", None)   # the sequence-parallel residual, gathered
     h = h + A.attention(lp["attn"], L.layernorm(lp["ln1"], h, cfg.norm_eps), pos,
                         rope_theta=None, causal=False)
     return h + L.mlp(lp["mlp"], L.layernorm(lp["ln2"], h, cfg.norm_eps), cfg.act)
@@ -124,6 +142,7 @@ def encoder_apply(params, frames: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def dec_layer_apply(lp, h, enc, pos, enc_pos, cfg):
+    h = shard(h, "batch", "seq", None)   # the sequence-parallel residual, gathered
     h = h + A.attention(lp["attn"], L.layernorm(lp["ln1"], h, cfg.norm_eps), pos,
                         rope_theta=None, causal=True)
     h = h + A.attention(lp["cross"], L.layernorm(lp["ln2"], h, cfg.norm_eps), pos,
@@ -165,10 +184,11 @@ def _dec_cache(cfg, batch: int, max_len: int, frames: int, dtype, device):
 
 
 def decoder_prefill(params, tokens_emb: torch.Tensor, enc: torch.Tensor, cfg, max_len: int,
-                    dtype=torch.bfloat16):
+                    dtype=torch.bfloat16, caches=None):
     """Decoder forward over the prompt that also fills each layer's
     self-attention cache (capacity ``max_len``) and cross K/V, in
-    ``dtype``.  ``params`` is the whole tree.  The cross-attention runs on
+    ``dtype``, made here or given as ``caches`` (as made here; on a mesh
+    the caller lays them out and passes them).  ``params`` is the whole tree.  The cross-attention runs on
     the K/V the cache stores before their cast (the JAX function computes
     them twice, in the same dtype).  Returns (x, caches)."""
     B, S = tokens_emb.shape[:2]
@@ -179,21 +199,30 @@ def decoder_prefill(params, tokens_emb: torch.Tensor, enc: torch.Tensor, cfg, ma
     pos = torch.arange(S, device=dev)
     enc_pos = torch.arange(enc.shape[1], device=dev)
     x = tokens_emb + sinusoid(pos, cfg.d_model, tokens_emb.dtype)
-    caches = T._build(lambda i: _dec_cache(cfg, B, max_len, enc.shape[1], dtype, dev), cfg)
+    if caches is None:
+        T._caches_on_mesh(x)
+        caches = T._build(lambda i: _dec_cache(cfg, B, max_len, enc.shape[1], dtype, dev), cfg)
     for lp, cache in zip(T._layers(params["dec"], cfg), T._layers(caches, cfg)):
+        lp = gather_fsdp(lp)
         dt = x.dtype
         q, k, v = A.qkv(lp["attn"], L.layernorm(lp["ln1"], x, cfg.norm_eps), pos, None)
         out = A.blocked_attention(q, k, v, pos, pos, causal=True)
-        x = x + torch.einsum("bshk,hkd->bsd", out, lp["attn"]["wo"].to(dt))
-        cache["k"][:, :S] = k
-        cache["v"][:, :S] = v
+        x = x + shard(torch.einsum("bshk,hkd->bsd", out, lp["attn"]["wo"].to(dt)),
+                      "batch", "seq", None)
         ck, cv = _cross_kv(lp, enc)
-        cache["ck"].copy_(ck)
-        cache["cv"].copy_(cv)
+        if on_mesh(k):
+            for name, t in (("k", k), ("v", v), ("ck", ck), ("cv", cv)):
+                write_local(cache[name], t, 1)
+        else:
+            cache["k"][:, :S] = k
+            cache["v"][:, :S] = v
+            cache["ck"].copy_(ck)
+            cache["cv"].copy_(cv)
         q = torch.einsum("bsd,dhk->bshk", L.layernorm(lp["ln2"], x, cfg.norm_eps),
                          lp["cross"]["wq"].to(dt))
         out = A.blocked_attention(q, ck, cv, pos, enc_pos, causal=False)
-        x = x + torch.einsum("bshk,hkd->bsd", out, lp["cross"]["wo"].to(dt))
+        x = x + shard(torch.einsum("bshk,hkd->bsd", out, lp["cross"]["wo"].to(dt)),
+                      "batch", "seq", None)
         x = x + L.mlp(lp["mlp"], L.layernorm(lp["ln3"], x, cfg.norm_eps), cfg.act)
     return x, caches
 
@@ -229,16 +258,44 @@ def dec_layer_decode(lp, h, cache, cur_len: int, cfg):
     dt = h.dtype
     q = torch.einsum("bsd,dhk->bshk", L.layernorm(lp["ln2"], h, cfg.norm_eps),
                      lp["cross"]["wq"].to(dt))
-    B, _, H, D = q.shape
-    ck, cv = cache["ck"], cache["cv"]
-    KV = ck.shape[2]
-    qf = (q / math.sqrt(D)).to(ck.dtype).reshape(B, KV, H // KV, D).float()
-    w = torch.softmax(torch.einsum("bkgd,bckd->bkgc", qf, ck.float()), dim=-1)
-    o = torch.einsum("bkgc,bckd->bkgd", w.to(cv.dtype).float(), cv.float())
-    o = o.reshape(B, 1, H, D).to(dt)
-    h = h + torch.einsum("bshk,hkd->bsd", o, lp["cross"]["wo"].to(dt))
+    if on_mesh(q):
+        o = _cross_on_mesh(q, cache["ck"], cache["cv"])
+    else:
+        o = _cross_core(q, cache["ck"], cache["cv"], q.shape[-1])
+    h = h + shard(torch.einsum("bshk,hkd->bsd", o, lp["cross"]["wo"].to(dt)),
+                  "batch", "seq", None)
     h = h + L.mlp(lp["mlp"], L.layernorm(lp["ln3"], h, cfg.norm_eps), cfg.act)
     return h, cache
+
+
+def _cross_core(q, ck, cv, D: int, reduce=None):
+    """The decode step's cross-attention of q (B, 1, H, D') over the cached
+    ``ck``, ``cv``: (B, 1, H, D') in q's dtype.  ``D``: the head dim the
+    scores are scaled by; ``reduce``: the sum of the scores over the
+    devices that split the head dim (D' = D without one)."""
+    B, _, H, Dl = q.shape
+    KV = ck.shape[2]
+    qf = (q / math.sqrt(D)).to(ck.dtype).reshape(B, KV, H // KV, Dl).float()
+    s = torch.einsum("bkgd,bckd->bkgc", qf, ck.float())
+    w = torch.softmax(s if reduce is None else reduce(s), dim=-1)
+    o = torch.einsum("bkgc,bckd->bkgd", w.to(cv.dtype).float(), cv.float())
+    return o.reshape(B, 1, H, Dl).to(q.dtype)
+
+
+def _cross_on_mesh(q, ck, cv):
+    """:func:`_cross_core` on each device's shards of the cross K/V: by
+    head, or by head dim, the scores then summed over the devices that
+    split it."""
+    mesh = q.device_mesh
+    if any(p.is_shard(1) for p in ck.placements):
+        raise NotImplementedError("cross-attention decode over cross K/V sharded along "
+                                  "the frames")
+    hd_axes = tuple(i for i, p in enumerate(ck.placements) if p.is_shard(3))
+    names = ("batch", None, None, "model") if hd_axes else ("batch", None, "model", None)
+    reduce = functools.partial(psum, mesh=mesh, axes=hd_axes) if hd_axes else None
+    o = local_call(functools.partial(_cross_core, D=q.shape[-1], reduce=reduce),
+                   (q, ck, cv), (names, ..., ...), (names,), (q.shape,))
+    return shard(o, "batch", "seq", None, None)   # whole heads for the output projection
 
 
 def decoder_decode(params, x, caches, cur_len: int, cfg):
@@ -247,5 +304,5 @@ def decoder_decode(params, x, caches, cur_len: int, cfg):
     returns (x, caches).  ``params`` is the whole tree."""
     x = x + sinusoid(torch.full((1,), cur_len, device=x.device), cfg.d_model, x.dtype)
     for lp, cache in zip(T._layers(params["dec"], cfg), T._layers(caches, cfg)):
-        x, _ = dec_layer_decode(lp, x, cache, cur_len, cfg)
+        x, _ = dec_layer_decode(gather_fsdp(lp), x, cache, cur_len, cfg)
     return x, caches

@@ -52,9 +52,9 @@ class AdamW(torch.optim.Optimizer):
             b1c, b2c = 1.0 - b1 ** count, 1.0 - b2 ** count
             for p in group["params"]:
                 state = self.state[p]
-                if not state:
-                    state["m"] = torch.zeros(p.shape, dtype=self.moment_dtype, device=p.device)
-                    state["v"] = torch.zeros(p.shape, dtype=self.moment_dtype, device=p.device)
+                if not state:   # laid out as the parameter (a DTensor's shards)
+                    state["m"] = torch.zeros_like(p, dtype=self.moment_dtype)
+                    state["v"] = torch.zeros_like(p, dtype=self.moment_dtype)
                 # the float32 update's operations in the order of
                 # b1·m + (1 - b1)·g, b2·v + (1 - b2)·g·g,
                 # (m / b1c) / (sqrt(v / b2c) + eps) + wd·p and p - lr·upd,

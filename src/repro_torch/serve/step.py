@@ -17,6 +17,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ..parallel.api import shard
 from ..train.step import cast_compute
 
 
@@ -29,14 +30,17 @@ def compute_params(model) -> Dict:
 
 
 def make_prefill_step(model, max_len: Optional[int] = None, *, params: Optional[Dict] = None):
-    """``prefill_step(batch) -> (logits, caches)``.  max_len: the decode
-    caches' capacity (defaults to the prompt length)."""
+    """``prefill_step(batch, caches=None) -> (logits, caches)``.  max_len:
+    the decode caches' capacity (defaults to the prompt length).  The step
+    makes the caches, or fills ``caches`` (as ``model.cache_init`` makes
+    them; on a mesh the caller lays them out,
+    :func:`repro_torch.parallel.sharding.cache_shardings`)."""
     p = compute_params(model) if params is None else params
 
-    def prefill_step(batch):
+    def prefill_step(batch, caches=None):
         if max_len is not None:
             batch = dict(batch, max_len=max_len)
-        return model.prefill(batch, params=p)
+        return model.prefill(batch, params=p, caches=caches)
 
     return prefill_step
 
@@ -63,7 +67,9 @@ def make_decode_step(model, *, greedy: bool = True, temperature: float = 1.0,
         def decode_step(caches, tokens, cur_len):
             """tokens: (B, 1) current tokens; returns (next_tokens, logits, caches)."""
             logits, caches = model.decode(caches, tokens, cur_len, params=p)
-            nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+            # on a mesh the vocab shards are gathered for the argmax
+            last = shard(logits[:, -1, :], "batch", None)
+            nxt = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
             return nxt, logits, caches
 
         return decode_step

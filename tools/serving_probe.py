@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Run chip_smoke.py's phases 15 (LM serving at full size) and 16 (the
 ``_torch`` examples), or phase 17 (the MoE family), 18 (the SSM family), 19
-(the encoder-decoder family), 20 (the vlm family) or 21 (the training
-driver), alone on one CUDA card, with their shape checks: both kernel
+(the encoder-decoder family), 20 (the vlm family), 21 (the training
+driver) or 22 (the dry run: its CPU records and a device's share on the
+card), alone on one CUDA card, with their shape checks: both kernel
 libraries are built first, as the smoke builds them, and every line the
 phases print is the smoke's own.
 A quicker way than the whole smoke to measure the serving path again.
@@ -13,6 +14,7 @@ A quicker way than the whole smoke to measure the serving path again.
     python3 tools/serving_probe.py --phase 19   # phase 19 alone
     python3 tools/serving_probe.py --phase 20   # phase 20 alone
     python3 tools/serving_probe.py --phase 21   # phase 21 alone
+    python3 tools/serving_probe.py --phase 22   # phase 22 alone
 """
 
 import argparse
@@ -31,12 +33,14 @@ import chip_smoke as cs  # noqa: E402
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", type=int, action="append", choices=(15, 16, 17, 18, 19, 20, 21),
+    ap.add_argument("--phase", type=int, action="append",
+                    choices=(15, 16, 17, 18, 19, 20, 21, 22),
                     help="the phases to run (repeatable; default 15 and 16)")
     phases = ap.parse_args(argv).phase or [15, 16]
     if not torch.cuda.is_available():
         print("serving_probe: CUDA is not available", file=sys.stderr)
         return 1
+    dryrun_procs = cs.dryrun_start() if 22 in phases else None
     torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch.kernels.sigkernel_pde import kernel
     from repro_torch.kernels.signature import kernel as sig_kernel
@@ -79,6 +83,8 @@ def main(argv=None) -> int:
         driver_shapes = cs.driver_phase(dev, reset_all, kernel, sig_kernel, name, power)
         cs.trainer_shape_checks("driver", driver_shapes, checked, kernel, dev, rng, name,
                                 power)
+    if 22 in phases:
+        cs.dryrun_phase(dryrun_procs, reset_all, kernel, sig_kernel, name, power)
     print(card)
     return 0
 
