@@ -316,10 +316,27 @@ Phases (any failure exits non-zero; nothing runs without CUDA):
    within :data:`DRYRUN_RTOL` of the largest value (bf16 compute).  Serving
    launches no kernel.
 
-Phases 8-22 run after phase 7's timing and before the ``kernels`` line;
+23. ``streaming_guard_path``: the streaming-reduction guard
+   (``repro_torch.core.gram``) on Table 2 "full" data, X (128, 256, 8) and
+   Y (96, 256, 8).  (a) ``mmd2(X, Y, row_block=16)``, value and gradient,
+   through ``gpu`` with the linear and the RBF lift and through
+   ``gpu_fused`` with the linear lift (the fused kernels take no other):
+   the guard passes; its trace seconds on the first call (keys not cached)
+   and the host seconds of a second call (keys cached) print; value and
+   gradient bit for bit the call without the guard, the Goursat launches by
+   shape equal to its.  (b) ``assert_streaming_reduction(..., grad=True)``
+   on ``SigKernel(backend="gpu_fused").gram(X, Y).sum()`` raises
+   ``StreamingViolation`` naming (128, 96), the card's peak memory rising
+   by less than 64 MB (the dense Δ stack it finds would take 6.39 GB in
+   float64) and no kernel launching.  (c) ``torch.library.opcheck``
+   (schema, fake implementation) of each Goursat op's CUDA implementation
+   at one small shape.  Phase 3's streaming ``mmd2`` runs the guard too: it
+   is timed, on a line of its own, before the phase's timed path.
+
+Phases 8-23 run after phase 7's timing and before the ``kernels`` line;
 each sets the launch counts to 0 just before it and reads them just after
 (phase 11 and 16's distributed example in each rank).  ``python3
-tools/serving_probe.py --phase 17`` (or 18, 19, 20, 21, 22) runs that phase
+tools/serving_probe.py --phase 17`` (or 18, 19, 20, 21, 22, 23) runs that phase
 alone with its shape checks.  Phase 4 also times the host build of the
 ``"brackets"`` basis change at d = 16, N = 4.  Every phase reads, and
 phases 13 and 14 write, an autotune cache under a temporary directory the
@@ -552,6 +569,15 @@ DRYRUN_TIMEOUT = 600             # seconds from their start the CPU subprocesses
 DRYRUN_REPS = 2                  # timed decode steps of (b)
 DRYRUN_PROMPT = 256              # (b)'s value check: tokens prefilled before its decode step
 DRYRUN_RTOL = 1e-2               # ... its logits' and caches' largest difference over the largest value
+# phase 23: the streaming guard on Table 2 "full" data, mmd2's row block, the
+# (backend, lift) runs, the peak-memory rise allowed while the guard traces
+# a dense Gram, and the phase's budget in seconds
+GUARD_X = (128, 256, 8)
+GUARD_Y = (96, 256, 8)
+GUARD_ROW_BLOCK = 16
+GUARD_RUNS = (("gpu", "linear"), ("gpu", "rbf"), ("gpu_fused", "linear"))
+GUARD_PEAK_BYTES = 64 << 20
+GUARD_BUDGET_S = 20.0
 GAN_SMALL = (8, 32, 8)
 TRAIN_CARD_CPU_REL = 1e-4
 TRAIN_PATH = ("fwd_cps", "bwd")     # and at least one of fwd_fused, gram_fused
@@ -639,6 +665,29 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def guard_timer():
+    """``{"seconds", "traces"}`` the streaming guard spends tracing within
+    (``gram._dense_intermediates`` timed)."""
+    from repro_torch.core import gram
+    spent = {"seconds": 0.0, "traces": 0}
+    real = gram._dense_intermediates
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(*args, **kw)
+        finally:
+            spent["seconds"] += time.perf_counter() - t0
+            spent["traces"] += 1
+
+    gram._dense_intermediates = timed
+    try:
+        yield spent
+    finally:
+        gram._dense_intermediates = real
 
 
 def fwd_cps(delta, T, lam1=0, lam2=0, scheme="order1", idt="float32"):
@@ -762,6 +811,17 @@ def main() -> int:
           "card": name, "power_limit": power})
 
     # ---- 3. the gradient path at full width, and a trainer -------------------
+    # the streaming mmd2's guard, timed on its own: its keys are then cached
+    # for the timed path
+    with guard_timer() as spent, torch.no_grad():
+        t0 = time.time()
+        rt.mmd2(X, Y, row_block=16)
+        torch.cuda.synchronize()
+    # Kxx and Kyy, of one shape, share a key
+    check(spent["traces"] >= 2, f"guard: {spent['traces']} traces for mmd2's terms")
+    emit({"streaming_guard": "mmd2(X, Y, row_block=16) on (128, 256, 8) x (128, 256, 8)",
+          "guard_seconds": spent["seconds"], "traces": spent["traces"],
+          "call_seconds": time.time() - t0, "card": name, "power_limit": power})
     reset_all()
     t_path = time.time()
     gsteps = []
@@ -1260,6 +1320,7 @@ def main() -> int:
     driver_shapes = driver_phase(dev, reset_all, kernel, sig_kernel, name, power)
     trainer_shape_checks("driver", driver_shapes, checked, kernel, dev, rng, name, power)
     dryrun_phase(dryrun_procs, reset_all, kernel, sig_kernel, name, power)
+    guard_phase(rt, dev, rng, reset_all, kernel, name, power)
 
     emit({"kernels": rows})
     return finish(card)
@@ -3979,6 +4040,116 @@ def mesh_against_plain(cfg, B: int) -> dict:
     check(set(mesh_out) == set(plain), f"dryrun: mesh outputs {sorted(mesh_out)}")
     return {k: float((mesh_out[k].float() - v.float()).abs().max()
                      / v.float().abs().max().clamp_min(1e-30)) for k, v in plain.items()}
+
+
+def guard_phase(rt, dev, rng, reset_all, kernel, name, power) -> None:
+    """Phase 23: the streaming guard on the card, (a)-(c) of the module
+    docstring."""
+    import torch
+    from repro_torch.core import gram
+    from repro_torch.kernels.sigkernel_pde import ops
+    t_phase = time.time()
+    X = torch.from_numpy(random_paths(rng, *GUARD_X)).to(dev)
+    Y = torch.from_numpy(random_paths(rng, *GUARD_Y)).to(dev)
+    bx, by = GUARD_X[0], GUARD_Y[0]
+
+    def run(backend, static, guarded):
+        """mmd2 and its gradient, the launch counts set to 0 just before and
+        read just after; ``guarded=False`` takes the guard out."""
+        real = gram._guard_reduce
+        if not guarded:
+            gram._guard_reduce = lambda *args, **kw: None
+        try:
+            reset_all()
+            t0 = time.time()
+            a, b = X.clone().requires_grad_(), Y.clone().requires_grad_()
+            v = rt.mmd2(a, b, row_block=GUARD_ROW_BLOCK, backend=backend,
+                        static_kernel=static)
+            ga, gb = torch.autograd.grad(v, (a, b))
+            torch.cuda.synchronize()
+            secs = time.time() - t0
+        finally:
+            gram._guard_reduce = real
+        return (v, ga, gb), kernel.launch_counts(), kernel.launch_shapes(), secs
+
+    runs = []
+    for backend, lift in GUARD_RUNS:
+        static = rt.RBF(1.0) if lift == "rbf" else None
+        gram._stream_checked.clear()
+        with guard_timer() as first:
+            out, counts, shapes, first_s = run(backend, static, True)
+        with guard_timer() as second:
+            again, _, shapes_again, cached_s = run(backend, static, True)
+        plain, counts_plain, shapes_plain, plain_s = run(backend, static, False)
+        tag = f"guard {backend}/{lift}"
+        check(first["traces"] >= 3 and second["traces"] == 0,
+              f"{tag}: traces {first['traces']} first, {second['traces']} cached")
+        check(all(torch.equal(p, q) and torch.equal(p, r)
+                  for p, q, r in zip(out, again, plain)),
+              f"{tag}: value or gradient differs from the unguarded call")
+        check(shapes == shapes_again == shapes_plain and counts == counts_plain,
+              f"{tag}: launches by shape differ from the unguarded call")
+        need = ("fwd_cps", "bwd") + (("fwd_fused", "gram_fused") if backend == "gpu_fused"
+                                     else ())
+        check(all(counts[k] > 0 for k in need), f"{tag}: launched {counts}")
+        runs.append({"backend": backend, "lift": lift, "mmd2": float(out[0].detach()),
+                     "guard_seconds": first["seconds"], "first_call_seconds": first_s,
+                     "cached_call_seconds": cached_s, "unguarded_call_seconds": plain_s,
+                     "launches": counts, "launches_by_shape": shape_rows(shapes)})
+
+    # (b) the dense Gram, traced on fake tensors: nothing allocated, no launch
+    sk = rt.SigKernel(backend="gpu_fused")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_all()
+    t0 = time.time()
+    message = None
+    try:
+        gram.assert_streaming_reduction(lambda a, b: sk.gram(a, b).sum(), X, Y,
+                                        gram_shape=(bx, by), grad=True)
+    except gram.StreamingViolation as e:
+        message = str(e)
+    dense_s = time.time() - t0
+    rise = torch.cuda.max_memory_allocated() - base
+    check(message is not None and f"({bx}, {by})" in message,
+          f"guard: the dense Gram passed ({message})")
+    check(rise < GUARD_PEAK_BYTES, f"guard: peak memory rose by {rise} bytes")
+    check(not any(kernel.launch_counts().values()), "guard: the fake trace launched")
+    stack_bytes = bx * by * (GUARD_X[1] - 1) * (GUARD_Y[1] - 1) * 8
+
+    # (c) each Goursat op's CUDA implementation: schema and fake implementation
+    g = torch.Generator().manual_seed(5)
+
+    def r(*shape, scale=0.1):
+        return (torch.randn(*shape, generator=g) * scale).to(dev)
+
+    delta, lam, T = r(3, 20, 17), (1, 0), 8
+    geo = tuple(ops.geometry(20, 17, *lam, scheme="order2", T=T))
+    _, cps = ops.goursat_fwd_cps(delta, T, *geo, *lam, "order2", "float32")
+    dx, dy = r(3, 20, 4, scale=0.3), r(3, 17, 4, scale=0.3)
+    cases = {
+        "goursat_fwd": (delta, *ops.geometry(20, 17, *lam, scheme="order2"), *lam, "order2",
+                        "float32"),
+        "goursat_fwd_cps": (delta, T, *geo, *lam, "order2", "float32"),
+        "goursat_bwd": (delta, cps, r(3, scale=1.0), T, *lam, "order2", "float32"),
+        "goursat_fwd_fused": (dx, dy, ops.choose_T(20, 17, 0, 0, 3, d=4), 0, 0, "order1",
+                              "bfloat16"),
+        "goursat_gram_fused": (dx, dy[:2], ops.choose_T(20, 17, 0, 0, 6, d=4), 0, 0,
+                               "order1", "float32"),
+    }
+    opcheck = {}
+    for op_name, args in cases.items():
+        res = torch.library.opcheck(getattr(ops, op_name), args,
+                                    test_utils=("test_schema", "test_faketensor"))
+        opcheck[op_name] = res
+        check(set(res.values()) == {"SUCCESS"}, f"guard: opcheck {op_name}: {res}")
+    secs = time.time() - t_phase
+    emit({"streaming_guard_path": runs, "dense_gram": {
+        "raised": message[:240], "seconds": dense_s, "peak_rise_bytes": rise,
+        "dense_delta_stack_bytes_f64": stack_bytes}, "opcheck": opcheck,
+        "seconds": round(secs, 3), "within_budget": secs <= GUARD_BUDGET_S,
+        "card": name, "power_limit": power})
 
 
 if __name__ == "__main__":

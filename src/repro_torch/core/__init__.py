@@ -6,7 +6,8 @@ from .config import (GridConfig, LaunchConfig, Linear, RBF, StaticKernel,
                      TransformPipeline, configs_from_reference, delta_from_gram)
 from .dispatch import count_combines, count_pair_solves, count_scan_steps
 from .features import FeatureConfig
-from .gram import sigkernel_gram, sigkernel_gram_reduce, sigkernel_gram_sharded
+from .gram import (StreamingViolation, assert_streaming_reduction, sigkernel_gram,
+                   sigkernel_gram_reduce, sigkernel_gram_sharded)
 from .logsignature import logsignature, logsignature_combine, logsignature_dim
 from .losses import mmd2, scoring_rule, sig_aux_loss
 from .sigkernel import (delta_matrix, sigkernel, solve_goursat,
@@ -18,7 +19,7 @@ from .transforms import (basepoint, bucket_length, lead_lag, pad_ragged, time_au
 
 __all__ = [
     "FeatureConfig", "GridConfig", "LaunchConfig", "Linear", "RBF", "StaticKernel",
-    "TransformPipeline", "basepoint", "bucket_length", "configs_from_reference",
+    "StreamingViolation", "TransformPipeline", "assert_streaming_reduction", "basepoint", "bucket_length", "configs_from_reference",
     "count_combines", "count_pair_solves", "count_scan_steps", "delta_from_gram",
     "delta_matrix", "lead_lag", "logsignature", "logsignature_combine", "logsignature_dim",
     "mmd2", "pad_ragged", "path_increments", "scoring_rule", "sig_aux_loss", "sigkernel",

@@ -48,6 +48,7 @@ so a repeated call counts again (the JAX package's count at trace time).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 from typing import Dict, FrozenSet, Optional, Tuple
@@ -333,6 +334,22 @@ class count_combines(_op_counter):
     """Counts Chen combines issued by the streaming ``Path``."""
 
     _slot = "combine"
+
+
+@contextlib.contextmanager
+def paused_counters():
+    """No op counter of this thread records within: a trace that runs
+    nothing (the streaming guard of ``core/gram.py``) leaves them as they
+    were."""
+    slots = ("pair", "scan", "combine")
+    saved = [getattr(_count_state, s, None) for s in slots]
+    for s in slots:
+        setattr(_count_state, s, None)
+    try:
+        yield
+    finally:
+        for s, v in zip(slots, saved):
+            setattr(_count_state, s, v)
 
 
 def record_pair_solves(n: int) -> None:

@@ -35,9 +35,11 @@ import math
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from . import transforms as tf
 from .config import RBF, Linear
+from repro_torch.kernels._ops import define
 
 #: methods a FeatureConfig may name (also the dispatch backend names)
 METHODS = ("rff", "nystroem")
@@ -168,7 +170,18 @@ def _sig_projection_scan(inc: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
     contracted with ``u_1 ⊗ … ⊗ u_n``.  Each step folds a whole segment in:
     ``new_P[k] = Σ_{j≤k} P[j]·⟨u_{j+1}, dz⟩ ⋯ ⟨u_k, dz⟩ / (k−j)!``.
     Trailing zero increments (ragged padding) are exact no-ops.
+
+    One ``repro_torch::rff_scan`` op (:class:`_ProjectionScan` carries its
+    gradient), so a trace on fake tensors sees one op, not the L steps;
+    projections that require grad take the steps under autograd.
     """
+    if torch.is_grad_enabled() and proj.requires_grad:
+        return _projection_scan(inc, proj)
+    return _ProjectionScan.apply(inc, proj)
+
+
+def _projection_scan(inc: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
+    """The steps of :func:`_sig_projection_scan`."""
     B = inc.shape[0]
     rank, depth, _ = proj.shape
     s = torch.einsum("blm,rkm->lbrk", inc, proj)       # ⟨proj[r, k], dz_l⟩
@@ -186,6 +199,34 @@ def _sig_projection_scan(inc: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
             new.append(acc)
         p = torch.stack(new, dim=-1)
     return p[..., 1:]
+
+
+rff_scan = define(
+    "rff_scan", "(Tensor inc, Tensor proj) -> Tensor",
+    lambda inc, proj: inc.new_empty(inc.shape[0], proj.shape[0], proj.shape[1]),
+    CompositeExplicitAutograd=lambda inc, proj: _projection_scan(inc, proj).contiguous())
+
+
+class _ProjectionScan(torch.autograd.Function):
+    """:data:`rff_scan` with its gradient in the increments.  The backward
+    runs the same steps again under autograd from the saved increments, so
+    the gradient is autograd's through the steps bit for bit; on a fake
+    tensor (a trace) it gives the gradient's shape alone."""
+
+    @staticmethod
+    def forward(ctx, inc, proj):
+        ctx.save_for_backward(inc, proj)
+        return rff_scan(inc, proj)
+
+    @staticmethod
+    def backward(ctx, g):
+        inc, proj = ctx.saved_tensors
+        if is_fake(g):
+            return torch.empty_like(inc), None
+        with torch.enable_grad():
+            leaf = inc.detach().requires_grad_()
+            d, = torch.autograd.grad(_projection_scan(leaf, proj), leaf, g)
+        return d, None
 
 
 def rff_features(paths: torch.Tensor, feats: FeatureConfig, pipeline, kernel,

@@ -13,6 +13,9 @@ Counterpart of the single-device engine in ``repro/core/gram.py``:
 
 :func:`sigkernel_gram_reduce` is the streaming layer: ``Σ K`` without the
 Gram, at most one block of solves alive in the forward and the backward.
+Its guard (``check_streaming=True``, on in ``mmd2`` / ``scoring_rule``
+whenever they stream; :func:`assert_streaming_reduction`) proves that on
+fake tensors, once per shape and config, before the reduction runs.
 Every variant is differentiable with the exact one-pass backward.
 
 ``features=`` (a :class:`repro_torch.core.features.FeatureConfig`)
@@ -529,13 +532,177 @@ def sigkernel_gram_sharded(X: torch.Tensor, Y: Optional[torch.Tensor] = None, *,
 # streaming reductions — ΣK without materialising K (mmd2 / scoring_rule)
 # ---------------------------------------------------------------------------
 
+class StreamingViolation(RuntimeError):
+    """A reduction that was asked to stream materialises the full Gram (or
+    the full pairwise Δ stack) as an intermediate."""
+
+
+def assert_streaming_reduction(fn, *args, gram_shape, what: str = "reduction",
+                               grad: bool = False) -> None:
+    """Trace ``fn(*args)`` on fake tensors and raise
+    :class:`StreamingViolation` if any intermediate has leading dims
+    ``gram_shape = (Bx, By)``.
+
+    ``args`` may be tensors (their shape, dtype and device are taken, not
+    their values), ``(shape, dtype)`` or ``(shape, dtype, device)`` specs,
+    or anything else, passed as it is.  The trace runs under a fresh
+    ``FakeTensorMode``: nothing is allocated on the card, no kernel
+    launches, and every op's outputs are shape-checked, each Goursat solve
+    as one op.  ``grad=True`` also traces ``torch.autograd.grad`` of the
+    output with respect to the floating-point arguments (the JAX package's
+    ``jax.value_and_grad(fn)``): the backward's ops and the recomputation
+    inside ``torch.utils.checkpoint``.  The op counters of
+    :mod:`repro_torch.core.dispatch` record nothing in it.
+
+    The full Gram is ``(Bx, By)`` and the dense pairwise Δ stack
+    ``(Bx, By, Lx, Ly)``: one prefix test catches both.  Pick ``Bx != By``
+    and batch sizes distinct from L and d to avoid shape coincidences (the
+    guard behind ``mmd2``'s streaming re-traces with bumped batch sizes to
+    clear them).
+    """
+    offending = _dense_intermediates(fn, *args, gram_shape=gram_shape, grad=grad)
+    if offending:
+        bx, by = gram_shape
+        raise StreamingViolation(
+            f"streaming {what} materialises dense ({bx}, {by}) "
+            f"intermediates: {sorted(set(offending))} — the full Gram "
+            "(or pairwise Δ stack) must never exist; lower row_block or "
+            "report a bug in repro_torch.core.gram")
+
+
+def _dense_intermediates(fn, *args, gram_shape, grad: bool = False) -> list:
+    """Shapes of every intermediate of the fake trace of ``fn(*args)``
+    whose leading dims equal ``gram_shape``."""
+    bx, by = gram_shape
+    return [s for s in _traced_shapes(fn, args, grad)
+            if len(s) >= 2 and s[0] == bx and s[1] == by]
+
+
+def _traced_shapes(fn, args, grad: bool) -> list:
+    """The output shapes of every op ``fn(*args)`` (and, with ``grad``,
+    its backward) dispatches, traced on fake tensors."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    class Shapes(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.shapes = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            self.shapes += [tuple(t.shape) for t in tree_flatten(out)[0]
+                            if isinstance(t, torch.Tensor)]
+            return out
+
+    device = next((a.device for a in args if isinstance(a, torch.Tensor)),
+                  torch.device("cpu"))
+
+    def fake(a):
+        if isinstance(a, torch.Tensor):
+            a = (a.shape, a.dtype, a.device)
+        elif not (isinstance(a, tuple) and len(a) in (2, 3)
+                  and isinstance(a[1], torch.dtype)):
+            return a
+        t = torch.empty(tuple(a[0]), dtype=a[1], device=a[2] if len(a) == 3 else device)
+        return t.requires_grad_() if grad and t.is_floating_point() else t
+
+    rec = Shapes()
+    with dispatch.paused_counters(), tf.lengths_validated(), \
+            torch.inference_mode(False), torch.enable_grad(), \
+            FakeTensorMode(allow_non_fake_inputs=True):
+        fargs = [fake(a) for a in args]
+        with rec:
+            out = fn(*fargs)
+            leaves = [a for a in fargs if isinstance(a, torch.Tensor) and a.requires_grad]
+            if grad and leaves and out.requires_grad:
+                torch.autograd.grad(out, leaves, torch.ones_like(out), allow_unused=True)
+    return rec.shapes
+
+
+#: keys (shapes, dtypes, device, configs) whose streaming reduction passed
+#: the guard
+_stream_checked: set = set()
+
+
+def _reduce_guard_key(X, Y, lens, names, kw) -> tuple:
+    """A reduction's key: the shapes, dtypes and device of its arguments,
+    and its configs by ``repr`` (a learnable ``RBF.sigma`` by its value)."""
+    return (tuple(X.shape), str(X.dtype), str(X.device),
+            None if Y is None else (tuple(Y.shape), str(Y.dtype)),
+            tuple((tuple(a.shape), str(a.dtype)) for a in lens), tuple(names),
+            tuple(sorted((k, repr(v)) for k, v in kw.items())))
+
+
+def _guard_reduce(guard_args, **kw) -> None:
+    """Run the streaming guard (value and gradient) once per key.
+
+    A trace at the real batch sizes first and, only if it finds a
+    ``(Bx, By)``-shaped intermediate, traces with the batch dims AND
+    ``row_block`` bumped by one and by two.  A dense Gram or Δ stack tracks
+    the batch dims and does not depend on ``row_block``, so it survives
+    every bump.  A shape coincidence involves a size that does not track
+    both bumped batch dims: a static size (a ragged pad width equal to
+    ``Bx``, a PDE grid dim equal to ``By``) cannot match the batch at two
+    bumps, and a block-derived size (the symmetric pair chunk
+    ``row_block · Bx``, a block's row count) is pushed off the batch by the
+    ``row_block`` bump, so both are cleared.  The Nyström candidate pool is
+    held at the real call's size in the bumped traces: where it takes the
+    whole batch (``FeatureConfig.pool_size``), its landmark Gram, of the
+    pool's size by the method's design, is such a static size.  (The JAX
+    guard lets the pool follow the batch and raises there.)
+    """
+    X, Y, lengths, lengths_y = guard_args
+    if kw["symmetric"]:
+        Y = None   # Y=X with symmetric=True: one batch
+    named = [(n, torch.as_tensor(a)) for n, a in (("lengths", lengths),
+                                                   ("lengths_y", lengths_y))
+             if a is not None]
+    names, lens = [n for n, _ in named], [a for _, a in named]
+    key = _reduce_guard_key(X, Y, lens, names, kw)
+    if key in _stream_checked:
+        return
+    n_arr = 1 if Y is None else 2
+
+    feats = kw.get("features")
+    pinned = {} if feats is None or feats.method != "nystroem" else dict(
+        features=dataclasses.replace(feats, pool=feats.pool_size(X.shape[0])))
+
+    def trace(bump):
+        kwb = dict(kw, row_block=kw["row_block"] + bump, **(pinned if bump else {}))
+
+        def red(*args):
+            arrs, ls = args[:n_arr], args[n_arr:]
+            return sigkernel_gram_reduce(*arrs, check_streaming=False,
+                                         **dict(zip(names, ls)), **kwb)
+
+        def spec(a):
+            return (a.shape[0] + bump,) + tuple(a.shape[1:]), a.dtype, X.device
+
+        args = [spec(X)] + ([] if Y is None else [spec(Y)]) + [spec(a) for a in lens]
+        bx = X.shape[0] + bump
+        by = bx if Y is None else Y.shape[0] + bump
+        return _dense_intermediates(red, *args, gram_shape=(bx, by), grad=True), (bx, by)
+
+    offending, (bx, by) = trace(0)
+    if offending and trace(1)[0] and trace(2)[0]:
+        raise StreamingViolation(
+            f"streaming Gram reduction materialises dense ({bx}, {by}) "
+            f"intermediates: {sorted(set(offending))} — the full Gram "
+            "(or pairwise Δ stack) must never exist; lower row_block "
+            "or report a bug in repro_torch.core.gram")
+    _stream_checked.add(key)
+
+
 def sigkernel_gram_reduce(X: torch.Tensor, Y: Optional[torch.Tensor] = None, *,
                           include_diag: bool = True, backend: str = "auto",
                           row_block: Optional[int] = None,
                           symmetric: Optional[bool] = None, lengths=None,
                           lengths_y=None, transforms=None, grid=None,
                           static_kernel=None, launch=None,
-                          features=None, error_budget=None) -> torch.Tensor:
+                          features=None, error_budget=None,
+                          check_streaming: bool = False) -> torch.Tensor:
     """Streaming ``Σ_{a,b} K[a, b]`` — the Gram-sum without the Gram.
 
     The workhorse of ``mmd2``/``scoring_rule`` with ``streaming=`` on: the
@@ -558,19 +725,35 @@ def sigkernel_gram_reduce(X: torch.Tensor, Y: Optional[torch.Tensor] = None, *,
         map active the reduction is feature algebra,
         ``⟨Σ_a phi(X)_a, Σ_b phi(Y)_b⟩`` (less ``Σ_a ‖phi_a‖²`` without the
         diagonal), and never forms a Gram.
+      check_streaming: run the streaming guard
+        (:func:`assert_streaming_reduction`, value and gradient, on fake
+        tensors) on this reduction once per shape and config key before it
+        runs, as ``mmd2`` / ``scoring_rule`` do whenever they stream.
+        Skipped when one block covers the batch (the reduction is dense by
+        construction), except on the feature path, which is checked
+        whenever asked.
 
     Returns a 0-d tensor, differentiable with the exact one-pass backward.
-    The JAX package's jaxpr shape guard is not ported; a ``gpu``-marked
-    test holds the peak memory instead.
+    The guard leaves values, gradients, kernel launch counts and the op
+    counters as they are without it.
     """
     if not include_diag and not (symmetric or (symmetric is None and Y is None)):
         raise ValueError("include_diag=False requires the symmetric "
                          "reduction (Y=None)")
+    # the guard replays the padding itself: it takes the arguments as given
+    guard_args = (X, Y, lengths, lengths_y)
     (X, Y, lengths, lengths_y, cfg, g, kernel, backend, symmetric,
      launch, feats) = _resolve_engine(X, Y, symmetric, lengths, lengths_y, transforms,
                                       grid, static_kernel, backend, launch, features,
                                       error_budget)
+    guard = dict(include_diag=include_diag, backend=backend, symmetric=symmetric,
+                 transforms=cfg, grid=g, static_kernel=kernel, launch=launch)
+    if row_block is None:
+        row_block = launch.gram_row_block
     if feats is not None:
+        if check_streaming:
+            _guard_reduce(guard_args, row_block=1 if row_block is None else row_block,
+                          features=feats, **guard)
         phiX, phiY = _feature_maps(X, None if symmetric else Y, feats, cfg, g, kernel,
                                    lengths, lengths_y, launch)
         if symmetric:
@@ -580,15 +763,19 @@ def sigkernel_gram_reduce(X: torch.Tensor, Y: Optional[torch.Tensor] = None, *,
                 total = total - (phiX * phiX).sum()
             return total
         return phiX.sum(dim=0) @ phiY.sum(dim=0)
-    if row_block is None:
-        row_block = launch.gram_row_block
     sX = _prepare(X, cfg, kernel, lengths)
     Bx, L, d = sX.shape
     if symmetric:
         rb = row_block if row_block is not None else _auto_row_block(Bx, L, d)
+        streams = max(1, int(rb)) * Bx < Bx * (Bx + 1) // 2
+    else:
+        rb = row_block if row_block is not None else _auto_row_block(Y.shape[0], L, d)
+        streams = max(1, int(rb)) < Bx
+    if check_streaming and streams:
+        _guard_reduce(guard_args, row_block=rb, **guard)
+    if symmetric:
         return _reduce_symmetric(sX, kernel, backend, rb, g, include_diag, launch)
     sY = _prepare(Y, cfg, kernel, lengths_y)
-    rb = row_block if row_block is not None else _auto_row_block(sY.shape[0], L, d)
     return _reduce_rows(sX, sY, kernel, backend, rb, g, launch)
 
 

@@ -7,7 +7,9 @@ Counterpart of ``repro/core/losses.py``.  Each Gram term goes through
 on (auto-enabled whenever ``row_block=`` is set) every term goes through
 :func:`repro_torch.core.gram.sigkernel_gram_reduce` instead, which sums per
 row block under ``torch.utils.checkpoint`` in the forward and the backward,
-so the (B, B) Grams never exist.  ``features=`` (a
+so the (B, B) Grams never exist; the streaming guard
+(``check_streaming=True``) proves it once per shape and config, on fake
+tensors, before a streaming term runs.  ``features=`` (a
 :class:`repro_torch.core.features.FeatureConfig`) reduces every term in
 feature space instead, O(B·rank), streaming by default; ``error_budget=``
 lets each term take a cheaper engine the autotune cache measured within the
@@ -62,12 +64,13 @@ def mmd2(X: torch.Tensor, Y: torch.Tensor, *, transforms=None, grid=None,
     kw = dict(transforms=cfg, grid=g, static_kernel=kernel, backend=backend,
               row_block=row_block, features=features, error_budget=error_budget)
     if _use_streaming(streaming, row_block, approx):
+        rkw = dict(kw, check_streaming=True)
         sxx_sum = sigkernel_gram_reduce(X, lengths=lengths, include_diag=not unbiased,
-                                        **kw)
+                                        **rkw)
         syy_sum = sigkernel_gram_reduce(Y, lengths=lengths_y,
-                                        include_diag=not unbiased, **kw)
+                                        include_diag=not unbiased, **rkw)
         sxy_sum = sigkernel_gram_reduce(X, Y, lengths=lengths, lengths_y=lengths_y,
-                                        **kw)
+                                        **rkw)
         if unbiased:
             sxx = sxx_sum / (bx * (bx - 1))
             syy = syy_sum / (by * (by - 1))
@@ -106,8 +109,9 @@ def scoring_rule(X: torch.Tensor, y: torch.Tensor, *, transforms=None, grid=None
               row_block=row_block, features=features, error_budget=error_budget)
     ly = None if length_y is None else torch.as_tensor(length_y).reshape(1)
     if _use_streaming(streaming, row_block, approx):
-        exx_sum = sigkernel_gram_reduce(X, lengths=lengths, include_diag=False, **kw)
-        exy_sum = sigkernel_gram_reduce(X, y[None], lengths=lengths, lengths_y=ly, **kw)
+        rkw = dict(kw, check_streaming=True)
+        exx_sum = sigkernel_gram_reduce(X, lengths=lengths, include_diag=False, **rkw)
+        exy_sum = sigkernel_gram_reduce(X, y[None], lengths=lengths, lengths_y=ly, **rkw)
         return 0.5 * exx_sum / (b * (b - 1)) - exy_sum / b
     Kxx = sigkernel_gram(X, lengths=lengths, **kw)
     exx = (Kxx.sum() - torch.trace(Kxx)) / (b * (b - 1))

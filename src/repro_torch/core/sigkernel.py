@@ -27,6 +27,12 @@ Every route is differentiable with the exact one-pass backward (Alg 4):
 of the forward kernel and the backward kernel (``ops.py``).
 :func:`solve_goursat_grad_pde_approx` is the O(h) continuous adjoint that
 §3.4 criticises, kept as the baseline of the gradient-accuracy benchmark.
+
+Every solve and backward is one ``torch.library`` op (``repro_torch::``
+``goursat_rows``, ``goursat_rows_grad``, ``goursat_antidiag``,
+``goursat_antidiag_grad`` here; the kernels' in ``ops.py``) with a fake
+implementation that gives its output's shape: a trace on fake tensors (the
+streaming guard, the dry run) sees one op a solve, not the cell loop.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from . import dispatch
 from . import transforms as tf
 from .config import (_maybe_scale, delta_from_gram, resolve_kernel_configs,
                      resolve_launch)
+from repro_torch.kernels._ops import define
 from repro_torch.kernels.sigkernel_pde import kernel as pde_kernel
 from repro_torch.kernels.sigkernel_pde import ops as pde_ops
 from repro_torch.kernels.sigkernel_pde import stencil
@@ -84,10 +91,20 @@ def solve_goursat(delta: torch.Tensor, lam1: int = 0, lam2: int = 0,
                   interior_dtype: str = "float32") -> torch.Tensor:
     """Batched Goursat solve by rows then columns, one cell at a time.
 
-    delta: (..., Lx, Ly) -> (...,), or the grid (..., nx+1, ny+1).
+    delta: (..., Lx, Ly) -> (...,), or the grid (..., nx+1, ny+1).  One
+    ``repro_torch::goursat_rows`` op; autograd records the scan cell by cell
+    where Δ requires grad.
     """
     stencil.check_scheme(scheme)
     stencil.check_interior_dtype(interior_dtype)
+    if pde_ops._needs_grad(delta):
+        return _solve_rows(delta, lam1, lam2, return_grid, scheme, interior_dtype)
+    return goursat_rows(delta, lam1, lam2, return_grid, scheme, interior_dtype)
+
+
+def _solve_rows(delta: torch.Tensor, lam1: int, lam2: int, return_grid: bool,
+                scheme: str, interior_dtype: str) -> torch.Tensor:
+    """The row scan of :func:`solve_goursat`."""
     batch_shape = delta.shape[:-2]
     Lx, Ly = delta.shape[-2:]
     flat = delta.reshape(-1, Lx, Ly)
@@ -192,10 +209,22 @@ def solve_goursat_antidiag(delta: torch.Tensor, lam1: int = 0, lam2: int = 0,
     """Batched vectorised wavefront solve: (..., Lx, Ly) -> (...,).
 
     ``band_chunk`` caps how many problems are swept together (bounding the
-    live skewed-Δ memory); results do not depend on it.
+    live skewed-Δ memory); results do not depend on it.  One
+    ``repro_torch::goursat_antidiag`` op; autograd records the wavefront
+    where Δ requires grad.
     """
     stencil.check_scheme(scheme)
     stencil.check_interior_dtype(interior_dtype)
+    if pde_ops._needs_grad(delta):
+        return _solve_antidiag(delta, lam1, lam2, band_chunk, scheme, interior_dtype)
+    return goursat_antidiag(delta, lam1, lam2, band_chunk, scheme, interior_dtype)
+
+
+def _solve_antidiag(delta: torch.Tensor, lam1: int, lam2: int,
+                    band_chunk: Optional[int], scheme: str,
+                    interior_dtype: str) -> torch.Tensor:
+    """The wavefront of :func:`solve_goursat_antidiag` (and the plain
+    version of the precomputed-Δ forward kernel)."""
     batch_shape = delta.shape[:-2]
     flat = delta.reshape((-1,) + tuple(delta.shape[-2:]))
     if flat.shape[0] == 0:
@@ -320,6 +349,14 @@ def solve_goursat_grad(delta: torch.Tensor, grid: torch.Tensor, gbar: torch.Tens
     ``grid`` the caller passes (the adjoint is straight-through)."""
     stencil.check_scheme(scheme)
     stencil.check_interior_dtype(interior_dtype)
+    if pde_ops._needs_grad(delta, grid, gbar):
+        return _solve_rows_grad(delta, grid, gbar, lam1, lam2, scheme)
+    return goursat_rows_grad(delta, grid, gbar, lam1, lam2, scheme, interior_dtype)
+
+
+def _solve_rows_grad(delta: torch.Tensor, grid: torch.Tensor, gbar: torch.Tensor,
+                     lam1: int, lam2: int, scheme: str) -> torch.Tensor:
+    """The row-scan adjoint of :func:`solve_goursat_grad`."""
     batch_shape = delta.shape[:-2]
     Lx, Ly = delta.shape[-2:]
     flat = delta.reshape(-1, Lx, Ly)
@@ -392,16 +429,64 @@ class _SolveDelta(torch.autograd.Function):
 
 
 def _antidiag_grad(delta: torch.Tensor, gbar: torch.Tensor, g) -> torch.Tensor:
-    """The ``antidiag`` backward: one strip over the whole grid (checkpoint
-    rows all ones), rebuilt and swept back by the vectorised wavefronts."""
+    """The ``antidiag`` backward: one ``repro_torch::goursat_antidiag_grad``
+    op (:func:`_antidiag_rebuilt_grad`)."""
+    return goursat_antidiag_grad(delta, gbar, g.lam1, g.lam2, g.scheme, g.interior_dtype)
+
+
+def _antidiag_rebuilt_grad(delta: torch.Tensor, gbar: torch.Tensor, lam1: int, lam2: int,
+                           scheme: str, interior_dtype: str) -> torch.Tensor:
+    """One strip over the whole grid (checkpoint rows all ones), rebuilt and
+    swept back by the vectorised wavefronts."""
     Lx, Ly = delta.shape[-2:]
     flat = delta.reshape(-1, Lx, Ly)
-    T = max(2, Lx << g.lam1)
-    rows = 2 if g.scheme == "order2" else 1
-    cps = flat.new_ones(flat.shape[0], rows, (Ly << g.lam2) + T + 1)
+    T = max(2, Lx << lam1)
+    rows = 2 if scheme == "order2" else 1
+    cps = flat.new_ones(flat.shape[0], rows, (Ly << lam2) + T + 1)
     dd = pde_kernel.solve_grad_plain(flat, cps, gbar.reshape(-1).to(flat.dtype), T,
-                                     g.lam1, g.lam2, g.scheme, g.interior_dtype)
+                                     lam1, lam2, scheme, interior_dtype)
     return dd.reshape(delta.shape)
+
+
+# ---------------------------------------------------------------------------
+# the plain solves as torch.library ops (kernels/_ops.py), on any device;
+# called without inputs that require grad
+# ---------------------------------------------------------------------------
+
+def _batch(delta: torch.Tensor) -> tuple:
+    return tuple(delta.shape[:-2])
+
+
+def _grid_shape(delta: torch.Tensor, lam1: int, lam2: int) -> tuple:
+    Lx, Ly = delta.shape[-2:]
+    return _batch(delta) + ((Lx << lam1) + 1, (Ly << lam2) + 1)
+
+
+goursat_rows = define(
+    "goursat_rows", "(Tensor delta, int lam1, int lam2, bool return_grid, str scheme, "
+    "str interior_dtype) -> Tensor",
+    lambda delta, lam1, lam2, return_grid, *_: delta.new_empty(
+        _grid_shape(delta, lam1, lam2) if return_grid else _batch(delta)),
+    CompositeExplicitAutograd=lambda *a: _solve_rows(*a).contiguous())
+
+goursat_antidiag = define(
+    "goursat_antidiag", "(Tensor delta, int lam1, int lam2, int? band_chunk, "
+    "str scheme, str interior_dtype) -> Tensor",
+    lambda delta, *_: delta.new_empty(_batch(delta)),
+    CompositeExplicitAutograd=_solve_antidiag)
+
+goursat_rows_grad = define(
+    "goursat_rows_grad", "(Tensor delta, Tensor grid, Tensor gbar, int lam1, int lam2, "
+    "str scheme, str interior_dtype) -> Tensor",
+    lambda delta, *_: delta.new_empty(delta.shape),
+    CompositeExplicitAutograd=lambda delta, grid, gbar, lam1, lam2, scheme, idt:
+        _solve_rows_grad(delta, grid, gbar, lam1, lam2, scheme))
+
+goursat_antidiag_grad = define(
+    "goursat_antidiag_grad", "(Tensor delta, Tensor gbar, int lam1, int lam2, str scheme, "
+    "str interior_dtype) -> Tensor",
+    lambda delta, *_: delta.new_empty(delta.shape),
+    CompositeExplicitAutograd=_antidiag_rebuilt_grad)
 
 
 def _sigkernel_from_delta(delta: torch.Tensor, g, backend: str,

@@ -23,6 +23,8 @@ the far-corner readout is then the true ``(len_x, len_y)`` corner.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import torch
@@ -39,6 +41,23 @@ _MIN_BUCKET = 8
 # ragged-batch plumbing
 # ---------------------------------------------------------------------------
 
+_validated = threading.local()
+
+
+@contextlib.contextmanager
+def lengths_validated():
+    """Within, ``lengths=`` values are taken as checked: a trace of fake
+    tensors (the streaming guard of ``core/gram.py``) has no values to read,
+    and its caller checked the real lengths.  Dtypes and shapes are still
+    checked."""
+    prev = getattr(_validated, "on", False)
+    _validated.on = True
+    try:
+        yield
+    finally:
+        _validated.on = prev
+
+
 def _check_lengths(lengths, batch_shape, L: int, device=None) -> torch.Tensor:
     """Validate per-path lengths against a (..., L, d) batch."""
     arr = torch.as_tensor(lengths, device=device)
@@ -51,7 +70,7 @@ def _check_lengths(lengths, batch_shape, L: int, device=None) -> torch.Tensor:
             f"lengths shape {tuple(arr.shape)} must equal the path batch shape "
             f"{tuple(batch_shape)} (one true length per path)")
     arr = arr.to(torch.int64)
-    if arr.numel():
+    if arr.numel() and not getattr(_validated, "on", False):
         lo, hi = int(arr.min()), int(arr.max())
         if lo < 2:
             raise ValueError(

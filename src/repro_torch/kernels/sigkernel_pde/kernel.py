@@ -484,9 +484,10 @@ reset_launch_counts()
 def solve_plain(delta: torch.Tensor, lam1: int, lam2: int, scheme: str,
                 interior_dtype: str) -> torch.Tensor:
     """Plain version of :func:`fwd`: the vectorised anti-diagonal wavefront."""
-    from repro_torch.core.sigkernel import solve_goursat_antidiag
-    return solve_goursat_antidiag(delta, lam1, lam2, scheme=scheme,
-                                  interior_dtype=interior_dtype)
+    from repro_torch.core.sigkernel import _solve_antidiag
+    stencil.check_scheme(scheme)
+    stencil.check_interior_dtype(interior_dtype)
+    return _solve_antidiag(delta, lam1, lam2, None, scheme, interior_dtype)
 
 
 def solve_fused_plain(dx: torch.Tensor, dy: torch.Tensor, lam1: int, lam2: int,
@@ -686,7 +687,7 @@ def solve_with_grid_plain(delta: torch.Tensor, T: int, lam1: int, lam2: int,
             brow2 = torch.cat([brow2[:, :1], rows[:, T - 2], brow2.new_zeros(B, 1),
                                brow2[:, ny + 2:]], dim=1)
         brow = torch.cat([brow[:, :1], rows[:, T - 1], brow[:, ny + 1:]], dim=1)
-    k = rows[:, nx - 1 - (S - 1) * T, ny - 1]
+    k = rows[:, nx - 1 - (S - 1) * T, ny - 1].contiguous()
     return k, torch.stack(cps, dim=1)
 
 

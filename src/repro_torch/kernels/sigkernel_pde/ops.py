@@ -11,7 +11,13 @@ Counterpart of ``repro/kernels/sigkernel_pde/ops.py``.  Responsibilities:
   backward reads (:func:`choose_T`);
 * device routing: a CUDA tensor launches the kernel (or raises), a CPU
   tensor takes the kernel's plain version.  There is no fallback between
-  the two;
+  the two.  Each leaf solve is one ``torch.library`` op (``repro_torch::``
+  ``goursat_fwd``, ``goursat_fwd_cps``, ``goursat_bwd``,
+  ``goursat_fwd_fused``, ``goursat_gram_fused``) whose CUDA implementation
+  is the kernel's launcher, whose CPU implementation is the plain version,
+  and whose fake implementation gives the output shapes alone: a trace
+  under ``FakeTensorMode`` (the streaming guard of ``core/gram.py``, the
+  dry run) sees one op a solve and launches nothing;
 * gradients: ``solve``, ``solve_fused`` and ``gram_fused`` are
   ``torch.autograd.Function`` classes whose backward is the JAX package's
   (``ops.py:165-241``): Δ is rebuilt where the forward never held it, the
@@ -33,6 +39,7 @@ from __future__ import annotations
 import torch
 
 from . import kernel, stencil
+from .._ops import define
 
 #: Strip caps from chip_smoke.py's strip sweep on an H100: a launch with
 #: few problems (one block per SM) is latency-bound, and tall strips cut its
@@ -163,6 +170,76 @@ def _flat(delta: torch.Tensor, device: str) -> torch.Tensor:
     return _working(delta.reshape((-1,) + tuple(delta.shape[-2:])), device)
 
 
+def _geometry(device: str, Lx: int, Ly: int, lam1: int, lam2: int, **kw) -> tuple:
+    """The precomputed-Δ forward's geometry (R, warps) for a launch on the
+    card; (0, 0) on the CPU, whose plain version has none."""
+    return tuple(geometry(Lx, Ly, lam1, lam2, **kw)) if device == "cuda" else (0, 0)
+
+
+# ---------------------------------------------------------------------------
+# the leaf solves as torch.library ops (kernels/_ops.py): the kernel on the
+# card, the plain version on the CPU, the output shapes alone under a fake
+# tensor; called without inputs that require grad (the autograd.Functions
+# below carry the gradients)
+# ---------------------------------------------------------------------------
+
+_SCALARS = "int lam1, int lam2, str scheme, str interior_dtype"
+
+
+def _cps_shape(B: int, Lx: int, Ly: int, T: int, lam1: int, lam2: int, scheme: str):
+    return (B, kernel.n_strips(Lx, T, lam1) * kernel.cps_rows(scheme), (Ly << lam2) + T + 1)
+
+
+#: B1: k̂[nx, ny] (B,) for Δ (B, Lx, Ly); (R, warps) is the card's geometry,
+#: (0, 0) on the CPU.
+goursat_fwd = define(
+    "goursat_fwd", f"(Tensor delta, int R, int warps, {_SCALARS}) -> Tensor",
+    lambda delta, *_: delta.new_empty(delta.shape[0]),
+    CPU=lambda delta, R, warps, lam1, lam2, scheme, idt:
+        kernel.solve_plain(delta, lam1, lam2, scheme, idt),
+    CUDA=lambda delta, R, warps, lam1, lam2, scheme, idt:
+        kernel.fwd(delta, kernel.FwdGeometry(R, warps), lam1, lam2, scheme, idt))
+
+#: B1-cps: ``(k, cps)`` for Δ (B, Lx, Ly): k̂[nx, ny] and the checkpoint rows at
+#: strip height T.
+goursat_fwd_cps = define(
+    "goursat_fwd_cps",
+    f"(Tensor delta, int T, int R, int warps, {_SCALARS}) -> (Tensor, Tensor)",
+    lambda delta, T, R, warps, lam1, lam2, scheme, idt: (
+        delta.new_empty(delta.shape[0]),
+        delta.new_empty(_cps_shape(*delta.shape, T, lam1, lam2, scheme))),
+    CPU=lambda delta, T, R, warps, lam1, lam2, scheme, idt:
+        kernel.solve_with_grid_plain(delta, T, lam1, lam2, scheme, idt),
+    CUDA=lambda delta, T, R, warps, lam1, lam2, scheme, idt:
+        kernel.fwd_cps(delta, T, lam1, lam2, scheme, idt, kernel.FwdGeometry(R, warps)))
+
+#: B2: ∂F/∂Δ (B, Lx, Ly) from Δ, the checkpoint rows at strip height T and
+#: ḡ (B,).
+goursat_bwd = define(
+    "goursat_bwd",
+    f"(Tensor delta, Tensor cps, Tensor gbar, int T, {_SCALARS}) -> Tensor",
+    lambda delta, *_: delta.new_empty(delta.shape),
+    CPU=kernel.solve_grad_plain, CUDA=kernel.bwd)
+
+#: B4: k̂[nx, ny] (B,) for matched pairs of increments; T is the card's strip
+#: height, 0 on the CPU.
+goursat_fwd_fused = define(
+    "goursat_fwd_fused", f"(Tensor dx, Tensor dy, int T, {_SCALARS}) -> Tensor",
+    lambda dx, dy, *_: dx.new_empty(dx.shape[0]),
+    CPU=lambda dx, dy, T, lam1, lam2, scheme, idt:
+        kernel.solve_fused_plain(dx, dy, lam1, lam2, scheme, idt),
+    CUDA=kernel.fwd_fused)
+
+#: B3: the Gram (Bx, By) from increments; T is the card's strip height, 0 on
+#: the CPU.
+goursat_gram_fused = define(
+    "goursat_gram_fused", f"(Tensor dX, Tensor dY, int T, {_SCALARS}) -> Tensor",
+    lambda dX, dY, *_: dX.new_empty(dX.shape[0], dY.shape[0]),
+    CPU=lambda dX, dY, T, lam1, lam2, scheme, idt:
+        kernel.gram_fused_plain(dX, dY, lam1, lam2, scheme, idt),
+    CUDA=kernel.gram_fused)
+
+
 def solve(delta: torch.Tensor, lam1: int = 0, lam2: int = 0, launch=None,
           scheme: str = "order1", interior_dtype: str = "float32") -> torch.Tensor:
     """Final kernel values for Δ (..., Lx, Ly) -> (...,), differentiable in
@@ -171,12 +248,9 @@ def solve(delta: torch.Tensor, lam1: int = 0, lam2: int = 0, launch=None,
     if _needs_grad(delta):
         return _Solve.apply(delta, lam1, lam2, launch, scheme, interior_dtype)
     flat = _flat(delta, device)
-    if device == "cpu":
-        k = kernel.solve_plain(flat, lam1, lam2, scheme, interior_dtype)
-    else:
-        _, Lx, Ly = flat.shape
-        geo = geometry(Lx, Ly, lam1, lam2, scheme=scheme, max_t=_max_t(launch))
-        k = kernel.fwd(flat, geo, lam1, lam2, scheme, interior_dtype)
+    _, Lx, Ly = flat.shape
+    geo = _geometry(device, Lx, Ly, lam1, lam2, scheme=scheme, max_t=_max_t(launch))
+    k = goursat_fwd(flat, *geo, lam1, lam2, scheme, interior_dtype)
     return k.reshape(delta.shape[:-2])
 
 
@@ -189,11 +263,8 @@ def solve_with_grid(delta: torch.Tensor, lam1: int = 0, lam2: int = 0, launch=No
     flat = _flat(delta, device)
     B, Lx, Ly = flat.shape
     T = choose_T(Lx, Ly, lam1, lam2, B, scheme=scheme, max_t=_max_t(launch))
-    if device == "cpu":
-        k, cps = kernel.solve_with_grid_plain(flat, T, lam1, lam2, scheme, interior_dtype)
-    else:
-        k, cps = kernel.fwd_cps(flat, T, lam1, lam2, scheme, interior_dtype,
-                                geometry(Lx, Ly, lam1, lam2, scheme=scheme, T=T))
+    geo = _geometry(device, Lx, Ly, lam1, lam2, scheme=scheme, T=T)
+    k, cps = goursat_fwd_cps(flat, T, *geo, lam1, lam2, scheme, interior_dtype)
     return k.reshape(delta.shape[:-2]), cps, T
 
 
@@ -208,10 +279,8 @@ def solve_grad(delta: torch.Tensor, cps: torch.Tensor, gbar: torch.Tensor, T: in
     flat = _flat(delta, device)
     g = _working(gbar.reshape(-1), device)
     if device == "cpu":
-        dd = kernel.solve_grad_plain(flat, cps.to(flat.dtype), g.to(flat.dtype), T,
-                                     lam1, lam2, scheme, interior_dtype)
-    else:
-        dd = kernel.bwd(flat, cps, g, T, lam1, lam2, scheme, interior_dtype)
+        cps, g = cps.to(flat.dtype), g.to(flat.dtype)
+    dd = goursat_bwd(flat, cps, g, T, lam1, lam2, scheme, interior_dtype)
     return dd.reshape(delta.shape).to(delta.dtype)
 
 
@@ -280,23 +349,23 @@ class _GramFused(torch.autograd.Function):
 def _solve_fused_forward(dx, dy, lam1, lam2, launch, scheme, interior_dtype):
     device = _route(dx)
     dx, dy = _working(dx, device), _working(dy, device)
-    if device == "cpu":
-        return kernel.solve_fused_plain(dx, dy, lam1, lam2, scheme, interior_dtype)
-    B, Lx, d = dx.shape
-    T = choose_T(Lx, dy.shape[1], lam1, lam2, B, d=d, scheme=scheme,
-                 max_t=_max_t(launch))
-    return kernel.fwd_fused(dx, dy, T, lam1, lam2, scheme, interior_dtype)
+    T = 0   # the plain version has no strip
+    if device == "cuda":
+        B, Lx, d = dx.shape
+        T = choose_T(Lx, dy.shape[1], lam1, lam2, B, d=d, scheme=scheme,
+                     max_t=_max_t(launch))
+    return goursat_fwd_fused(dx, dy, T, lam1, lam2, scheme, interior_dtype)
 
 
 def _gram_fused_forward(dX, dY, lam1, lam2, launch, scheme, interior_dtype):
     device = _route(dX)
     dX, dY = _working(dX, device), _working(dY, device)
-    if device == "cpu":
-        return kernel.gram_fused_plain(dX, dY, lam1, lam2, scheme, interior_dtype)
-    Bx, Lx, d = dX.shape
-    T = choose_T(Lx, dY.shape[1], lam1, lam2, Bx * dY.shape[0], d=d,
-                 scheme=scheme, max_t=_max_t(launch))
-    return kernel.gram_fused(dX, dY, T, lam1, lam2, scheme, interior_dtype)
+    T = 0
+    if device == "cuda":
+        Bx, Lx, d = dX.shape
+        T = choose_T(Lx, dY.shape[1], lam1, lam2, Bx * dY.shape[0], d=d,
+                     scheme=scheme, max_t=_max_t(launch))
+    return goursat_gram_fused(dX, dY, T, lam1, lam2, scheme, interior_dtype)
 
 
 def solve_fused(dx: torch.Tensor, dy: torch.Tensor, lam1: int = 0, lam2: int = 0,

@@ -26,12 +26,10 @@ How a cell runs:
   (:func:`repro_torch.parallel.api.local_call`);
 * the sig cells run the paper's Gram on each device's (rows, columns) tile
   (the JAX cell's ``shard_map``), or the exact-gradient MMD through it;
-* the sig Gram's row blocks, each the same program on a block of one
-  shape, are traced once here, the counts of the first block multiplied
-  by their number, as the JAX analysis multiplies a ``while`` body by its
-  trip count (a device's flops are then its pairwise products exactly,
-  ``tests/test_torch_dryrun.py``).  Every other loop is traced step by
-  step.
+  each Goursat solve is one ``torch.library`` op whose fake implementation
+  gives its output's shape, so every row block is traced (a device's flops
+  are its pairwise products exactly, ``tests/test_torch_dryrun.py``).
+  Every loop is traced step by step.
 
 The record keeps the JAX field names where a field has a counterpart:
 
@@ -79,7 +77,6 @@ import math
 import os
 import re
 import sys
-import threading
 import time
 import traceback
 from typing import Dict, Optional, Tuple
@@ -96,26 +93,6 @@ from .mesh import fake_group
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute")
 DOT_OPS = ("mm", "addmm", "bmm", "baddbmm")
 NULL_FIELDS = ("hlo_bytes", "peak_bytes_per_device", "temp_bytes", "generated_code_bytes")
-
-
-_state = threading.local()
-
-
-def _scale() -> int:
-    """How many times the ops being traced now are counted (1 outside
-    :func:`_counted`)."""
-    return getattr(_state, "scale", 1)
-
-
-@contextlib.contextmanager
-def _counted(n: int):
-    """The ops traced within stand for ``n`` runs of themselves."""
-    prev = _scale()
-    _state.scale = prev * n
-    try:
-        yield
-    finally:
-        _state.scale = prev
 
 
 def mesh_layout(multi_pod: bool) -> Tuple[Tuple[int, ...], Tuple[str, ...], str]:
@@ -175,7 +152,6 @@ def _device_modes():
                     split = math.prod(dt.device_mesh.size(i) for i, p in enumerate(dt.placements)
                                       if p.is_shard() or p.is_partial())
                     n = n // split if n % split == 0 else n / split
-                n = n * _scale()
                 self.flops += n
                 if packet.__name__ in DOT_OPS:
                     self.dot_flops += n
@@ -209,10 +185,10 @@ def _device_modes():
                     if isinstance(t, torch.Tensor))
             factor = {"all-gather": (n - 1) / n, "reduce-scatter": n - 1,
                       "all-reduce": 2 * (n - 1) / n, "all-to-all": (n - 1) / n}[kind]
-            st, k = self.stats[kind], _scale()
-            st["count"] += k
-            st["out_bytes"] += float(R) * k
-            st["traffic"] += float(R * factor) * k
+            st = self.stats[kind]
+            st["count"] += 1
+            st["out_bytes"] += float(R)
+            st["traffic"] += float(R * factor)
             return out
 
     return DeviceFlops, Collectives
@@ -328,8 +304,8 @@ def _lm_step(cfg, shape, mesh, multi_pod: bool, rules, fake, alloc, device):
 
 def _sig_step(shape, mesh, multi_pod: bool, alloc, device):
     """The paper's own cells: the forward Gram on each device's (rows of X,
-    rows of Y) tile, its row blocks counted from the first, or the
-    exact-gradient MMD through the reference Gram."""
+    rows of Y) tile, or the exact-gradient MMD through the reference
+    Gram."""
     from torch.distributed.tensor import Replicate
 
     from ..configs.sigkernel_workload import GRAM_ENGINE_DEFAULTS
@@ -346,16 +322,9 @@ def _sig_step(shape, mesh, multi_pod: bool, alloc, device):
     rows, cols, tile = ("batch", None, None), ("model", None, None), ("batch", "model")
 
     if shape.kind == "sig_fwd":
-        def gram(x, y):
-            blocks = x.split(GRAM_ENGINE_DEFAULTS["row_block"])
-            if len(blocks) == 1 or blocks[-1].shape != blocks[0].shape:
-                return sigkernel_gram(x, y, **GRAM_ENGINE_DEFAULTS)
-            with _counted(len(blocks)):
-                k = sigkernel_gram(blocks[0], y, **dict(GRAM_ENGINE_DEFAULTS, row_block=None))
-            return k.repeat(len(blocks), 1)   # the tile's shape, not its values
-
         def step():
-            return local_call(gram, (X, Y), (rows, cols), (tile,), ((B, B),))
+            return local_call(lambda x, y: sigkernel_gram(x, y, **GRAM_ENGINE_DEFAULTS),
+                              (X, Y), (rows, cols), (tile,), ((B, B),))
         return step, (X, Y), None, {}
 
     def step():

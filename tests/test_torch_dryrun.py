@@ -22,10 +22,10 @@ JAX package's.
   - ``argument_bytes`` equal JAX's but for the tokens (int64 in the port,
     int32 in JAX) and JAX's int32 ``cur_len`` (a Python int in the port;
     XLA drops it from the SSM decode, which does not read it).
-* A sig Gram's row blocks traced once and counted by their number give a
-  device's pairwise products exactly (2 x 2 mesh, 8 paths of 16 points in
-  d = 8: a 4 x 4 tile in 2 row blocks, 2·(16-1)²·8 flops a pair), its
-  tile's bytes and no collective.
+* A sig Gram's row blocks, each solve one op, traced whole give a device's
+  pairwise products exactly (2 x 2 mesh, 8 paths of 16 points in d = 8: a
+  4 x 4 tile in 2 row blocks, 2·(16-1)²·8 flops a pair), its tile's bytes
+  and no collective.
 """
 
 from __future__ import annotations

@@ -691,3 +691,80 @@ def test_int8_quantisation_on_the_card_equals_the_cpu(cuda, largest):
     assert sc.cpu().view(torch.int32).item() == s.view(torch.int32).item()
     assert torch.equal(dequantize(qc, sc).cpu().view(torch.int32),
                        dequantize(q, s).view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the Goursat ops and the streaming guard on the card
+# ---------------------------------------------------------------------------
+
+def _op_cases(device):
+    """Each Goursat kernel's op and the arguments of one small call on the
+    card (the geometry and strip heights its wrapper would pick)."""
+    g = torch.Generator().manual_seed(3)
+
+    def r(*shape, scale=0.1):
+        return (torch.randn(*shape, generator=g) * scale).to(device)
+
+    delta, dx, dy = r(3, 20, 17), r(3, 20, 4, scale=0.3), r(3, 17, 4, scale=0.3)
+    s2, T = (1, 0, "order2", "float32"), 8
+    geo = tuple(ops.geometry(20, 17, 1, 0, scheme="order2", T=T))
+    _, cps = ops.goursat_fwd_cps(delta, T, *geo, *s2)
+    return {
+        "goursat_fwd": (delta, *ops.geometry(20, 17, 1, 0, scheme="order2"), *s2),
+        "goursat_fwd_cps": (delta, T, *geo, *s2),
+        "goursat_bwd": (delta, cps, r(3, scale=1.0), T, *s2),
+        "goursat_fwd_fused": (dx, dy, ops.choose_T(20, 17, 0, 0, 3, d=4), 0, 0, "order1",
+                              "bfloat16"),
+        "goursat_gram_fused": (dx, dy[:2], ops.choose_T(20, 17, 0, 0, 6, d=4), 0, 0, "order1",
+                               "float32"),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["goursat_bwd", "goursat_fwd", "goursat_fwd_cps",
+                                  "goursat_fwd_fused", "goursat_gram_fused"])
+def test_goursat_op_opcheck_on_the_card(cuda, name):
+    """Schema and fake implementation of each kernel's op against the
+    kernel itself."""
+    res = torch.library.opcheck(getattr(ops, name), _op_cases(cuda)[name],
+                                test_utils=("test_schema", "test_faketensor"))
+    assert set(res.values()) == {"SUCCESS"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend, lift", [("gpu", "linear"), ("gpu", "rbf"),
+                                           ("gpu_fused", "linear")])
+def test_guarded_reduction_on_the_card_is_bit_for_bit(cuda, backend, lift, monkeypatch):
+    """The streaming guard on card tensors: mmd2's value and gradient bit for
+    bit the unguarded call's, the launches by shape equal; the dense Gram
+    raises, traced with no allocation and no launch."""
+    from repro_torch.core import gram
+    X, Y = _incs(41, 24, 33, 4, cuda).cumsum(1), _incs(42, 17, 33, 4, cuda).cumsum(1)
+    static = rt.RBF(1.0) if lift == "rbf" else None
+
+    def run(guarded):
+        with monkeypatch.context() as m:
+            if not guarded:
+                m.setattr(gram, "_guard_reduce", lambda *a, **k: None)
+            kernel.reset_launch_counts()
+            a, b = X.clone().requires_grad_(), Y.clone().requires_grad_()
+            v = rt.mmd2(a, b, row_block=4, backend=backend, static_kernel=static)
+            ga, gb = torch.autograd.grad(v, (a, b))
+            torch.cuda.synchronize()
+            return (v, ga, gb), kernel.launch_shapes()
+
+    gram._stream_checked.clear()
+    got, shapes_got = run(True)
+    want, shapes_want = run(False)
+    for p, q in zip(got, want):
+        assert torch.equal(p, q)
+    assert shapes_got == shapes_want and shapes_got
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernel.reset_launch_counts()
+    with pytest.raises(gram.StreamingViolation, match=r"\(24, 17\)"):
+        gram.assert_streaming_reduction(
+            lambda a, b: rt.sigkernel_gram(a, b, backend=backend, static_kernel=static).sum(),
+            X, Y, gram_shape=(24, 17), grad=True)
+    assert torch.cuda.max_memory_allocated() - base < 1 << 20
+    assert not kernel.launch_shapes()

@@ -6,8 +6,8 @@ the 1 x 1 host mesh, each dry-run record beside the bytes of the real
 step's tensors and ``FlopCounterMode``'s count of the real (plain) step on
 the CPU.  ``python tests/torch_dryrun_cells.py mesh`` prints the records of
 the 2 x 2 cells that the JAX side (``tests/torch_dryrun_jax_cells.py``)
-compiles, and ``trips`` a small sig Gram cell's record (its row blocks
-counted from the first).  One JSON object on the last line.  Imports no JAX.
+compiles, and ``trips`` a small sig Gram cell's record (its two row
+blocks traced whole).  One JSON object on the last line.  Imports no JAX.
 """
 
 from __future__ import annotations

@@ -2,8 +2,8 @@
 """Run chip_smoke.py's phases 15 (LM serving at full size) and 16 (the
 ``_torch`` examples), or phase 17 (the MoE family), 18 (the SSM family), 19
 (the encoder-decoder family), 20 (the vlm family), 21 (the training
-driver) or 22 (the dry run: its CPU records and a device's share on the
-card), alone on one CUDA card, with their shape checks: both kernel
+driver), 22 (the dry run: its CPU records and a device's share on the
+card) or 23 (the streaming-reduction guard), alone on one CUDA card, with their shape checks: both kernel
 libraries are built first, as the smoke builds them, and every line the
 phases print is the smoke's own.
 A quicker way than the whole smoke to measure the serving path again.
@@ -15,6 +15,7 @@ A quicker way than the whole smoke to measure the serving path again.
     python3 tools/serving_probe.py --phase 20   # phase 20 alone
     python3 tools/serving_probe.py --phase 21   # phase 21 alone
     python3 tools/serving_probe.py --phase 22   # phase 22 alone
+    python3 tools/serving_probe.py --phase 23   # phase 23 alone
 """
 
 import argparse
@@ -85,6 +86,9 @@ def main(argv=None) -> int:
                                 power)
     if 22 in phases:
         cs.dryrun_phase(dryrun_procs, reset_all, kernel, sig_kernel, name, power)
+    if 23 in phases:
+        import repro_torch as rt
+        cs.guard_phase(rt, dev, rng, reset_all, kernel, name, power)
     print(card)
     return 0
 
