@@ -42,8 +42,9 @@ engine); a cold cache, a foreign machine or no qualifying point gives the
 exact engine.
 
 The op counters (:class:`count_pair_solves`, :class:`count_scan_steps`,
-:class:`count_combines`) count on every call: the port has no trace cache,
-so a repeated call counts again (the JAX package's count at trace time).
+:class:`count_combines`, :class:`count_host_syncs`) count on every call:
+the port has no trace cache, so a repeated call counts again (the JAX
+package's count at trace time).
 """
 
 from __future__ import annotations
@@ -336,12 +337,21 @@ class count_combines(_op_counter):
     _slot = "combine"
 
 
+class count_host_syncs(_op_counter):
+    """Counts the transfers inside a call that block the host on the card
+    (each under a ``repro_torch.sync`` span, :mod:`repro_torch.spans`).
+    The same sites count on every device: on CPU tensors nothing waits, and
+    the count is the card's."""
+
+    _slot = "sync"
+
+
 @contextlib.contextmanager
 def paused_counters():
     """No op counter of this thread records within: a trace that runs
     nothing (the streaming guard of ``core/gram.py``) leaves them as they
     were."""
-    slots = ("pair", "scan", "combine")
+    slots = ("pair", "scan", "combine", "sync")
     saved = [getattr(_count_state, s, None) for s in slots]
     for s in slots:
         setattr(_count_state, s, None)
@@ -365,3 +375,8 @@ def record_scan_steps(n: int) -> None:
 def record_combines(n: int) -> None:
     """Report ``n`` Chen combines to the active counter."""
     _record("combine", n)
+
+
+def record_host_syncs(n: int) -> None:
+    """Report ``n`` blocking host-card transfers to the active counter."""
+    _record("sync", n)

@@ -52,12 +52,14 @@ from . import transforms as tf
 from .config import (_maybe_scale, delta_from_gram, resolve_kernel_configs,
                      resolve_launch)
 from .sigkernel import _sigkernel_from_delta
+from repro_torch import spans
 from repro_torch.kernels.sigkernel_pde import ops as pde_ops
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel.api import shard
 from repro_torch.parallel.sharding import block_cyclic_perm
 
 
+@spans.spanned(spans.PREPARE)
 def _prepare(paths: torch.Tensor, cfg, kernel, lengths=None) -> torch.Tensor:
     """Per-path stream the pair solvers consume: transformed increments for
     the linear lift, transformed points otherwise; end-aligned when ragged."""
@@ -68,9 +70,20 @@ def _prepare(paths: torch.Tensor, cfg, kernel, lengths=None) -> torch.Tensor:
 
 def _pair_delta(sa: torch.Tensor, sb: torch.Tensor, kernel) -> torch.Tensor:
     """Δ for batches of prepared streams (leading dims broadcast)."""
-    if kernel.lifts_increments:
-        return kernel.delta_from_increments(sa, sb)
-    return delta_from_gram(kernel.gram(sa, sb))
+    with spans.span(spans.DELTA):
+        if kernel.lifts_increments:
+            return kernel.delta_from_increments(sa, sb)
+        return delta_from_gram(kernel.gram(sa, sb))
+
+
+def _upload(a: np.ndarray, device: torch.device, dtype=None) -> torch.Tensor:
+    """The numpy array ``a`` as a tensor on ``device``.  On the card this is
+    a blocking copy from pageable memory, which waits for the stream: it is
+    counted (:class:`dispatch.count_host_syncs`, on every device) and
+    marked (``repro_torch.sync``)."""
+    dispatch.record_host_syncs(1)
+    with spans.span(spans.SYNC):
+        return torch.as_tensor(a, dtype=dtype, device=device)
 
 
 def _solve_pairs(sa: torch.Tensor, sb: torch.Tensor, kernel, backend: str, g,
@@ -107,8 +120,8 @@ def _solve_pairs_chunked(sX: torch.Tensor, a_idx, b_idx, kernel, backend: str,
                          g, chunk: Optional[int], launch=None) -> torch.Tensor:
     """k values for a pair list into one stream batch, at most ``chunk``
     pairs of gathered streams alive at once."""
-    a_idx = torch.as_tensor(a_idx, device=sX.device)
-    b_idx = torch.as_tensor(b_idx, device=sX.device)
+    a_idx = _upload(a_idx, sX.device)
+    b_idx = _upload(b_idx, sX.device)
     n = a_idx.shape[0]
     if chunk is None or chunk >= n:
         return _solve_pairs(sX[a_idx], sX[b_idx], kernel, backend, g, launch)
@@ -144,12 +157,13 @@ def _symmetric_gram(sX: torch.Tensor, kernel, backend: str,
 
 def _mirror(k: torch.Tensor, a_np, b_np, Bx: int) -> torch.Tensor:
     """The (Bx, Bx) Gram from its upper-triangle values ``k`` at (a, b)."""
-    a_idx = torch.as_tensor(a_np, device=k.device)
-    b_idx = torch.as_tensor(b_np, device=k.device)
+    a_idx = _upload(a_np, k.device)
+    b_idx = _upload(b_np, k.device)
     K = k.new_zeros(Bx, Bx).index_put((a_idx, b_idx), k)
     return K.index_put((b_idx, a_idx), k)     # the mirror; diagonal once
 
 
+@spans.spanned(spans.FRONT_END)
 def _resolve_engine(X, Y, symmetric, lengths, lengths_y, transforms, grid,
                     static_kernel, backend, launch, features=None, error_budget=None):
     """Shared front end: validation, configs, ragged padding, dispatch.
@@ -315,6 +329,7 @@ def _feature_maps(X, Y, feats, cfg, g, kernel, lengths, lengths_y, launch):
     return _nystroem_maps(sX, sY, feats, kernel, exact, g, launch)
 
 
+@spans.spanned(spans.ENTRY_GRAM)
 def sigkernel_gram(X: torch.Tensor, Y: Optional[torch.Tensor] = None, *,
                    backend: str = "auto", row_block: Optional[int] = None,
                    symmetric: Optional[bool] = None, lengths=None,
@@ -401,8 +416,8 @@ def _deal(s: torch.Tensor, n_shards: int, index: int, tile: int):
         s = torch.cat([s, s.new_zeros((padded - B,) + tuple(s.shape[1:]))])
     perm, inv = block_cyclic_perm(padded, n_shards, t)
     share = padded // n_shards
-    idx = torch.as_tensor(perm[index * share:(index + 1) * share], device=s.device)
-    return s[idx], torch.as_tensor(inv, device=s.device), padded
+    idx = _upload(perm[index * share:(index + 1) * share], s.device)
+    return s[idx], _upload(inv, s.device), padded
 
 
 def _shared_params(kernel, groups):
@@ -417,6 +432,7 @@ def _shared_params(kernel, groups):
     return dataclasses.replace(kernel, **wrapped) if wrapped else kernel
 
 
+@spans.spanned(spans.ENTRY_GRAM_SHARDED)
 def sigkernel_gram_sharded(X: torch.Tensor, Y: Optional[torch.Tensor] = None, *,
                            mesh=None, row_axis: str = "data", col_axis: str = "model",
                            tile: int = 8, backend: str = "auto",
@@ -695,6 +711,7 @@ def _guard_reduce(guard_args, **kw) -> None:
     _stream_checked.add(key)
 
 
+@spans.spanned(spans.ENTRY_GRAM_REDUCE)
 def sigkernel_gram_reduce(X: torch.Tensor, Y: Optional[torch.Tensor] = None, *,
                           include_diag: bool = True, backend: str = "auto",
                           row_block: Optional[int] = None,
@@ -786,10 +803,10 @@ def _reduce_symmetric(sX: torch.Tensor, kernel, backend: str, row_block: int, g,
     pairs: the last chunk is just shorter."""
     Bx = sX.shape[0]
     a_np, b_np = np.triu_indices(Bx)
-    w = torch.as_tensor(np.where(a_np == b_np, 1.0 if include_diag else 0.0, 2.0),
-                        dtype=sX.dtype, device=sX.device)
-    a_idx = torch.as_tensor(a_np, device=sX.device)
-    b_idx = torch.as_tensor(b_np, device=sX.device)
+    w = _upload(np.where(a_np == b_np, 1.0 if include_diag else 0.0, 2.0), sX.device,
+                sX.dtype)
+    a_idx = _upload(a_np, sX.device)
+    b_idx = _upload(b_np, sX.device)
     chunk = max(1, int(row_block)) * Bx
     dispatch.record_pair_solves(a_np.size)
 

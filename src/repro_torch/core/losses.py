@@ -25,6 +25,7 @@ import torch
 
 from .config import resolve_kernel_configs
 from .gram import sigkernel_gram, sigkernel_gram_reduce
+from repro_torch import spans
 
 
 def _use_streaming(streaming: Optional[bool], row_block: Optional[int],
@@ -37,6 +38,7 @@ def _use_streaming(streaming: Optional[bool], row_block: Optional[int],
     return bool(streaming)
 
 
+@spans.spanned(spans.ENTRY_MMD2)
 def mmd2(X: torch.Tensor, Y: torch.Tensor, *, transforms=None, grid=None,
          static_kernel=None, unbiased: bool = True, backend: str = "auto",
          row_block: Optional[int] = None, streaming: Optional[bool] = None,

@@ -46,6 +46,7 @@ from . import dispatch
 from . import transforms as tf
 from .config import (_maybe_scale, delta_from_gram, resolve_kernel_configs,
                      resolve_launch)
+from repro_torch import spans
 from repro_torch.kernels._ops import define
 from repro_torch.kernels.sigkernel_pde import kernel as pde_kernel
 from repro_torch.kernels.sigkernel_pde import ops as pde_ops
@@ -65,12 +66,16 @@ def delta_matrix(x: torch.Tensor, y: torch.Tensor, *, transforms=None,
     """
     cfg, _, kernel = resolve_kernel_configs(transforms, None, static_kernel)
     if kernel.lifts_increments:
-        dx = tf.pipeline_increments(x, cfg, lengths_x, align="end")
-        dy = tf.pipeline_increments(y, cfg, lengths_y, align="end")
-        return kernel.delta_from_increments(dx, dy)
-    xt = tf.transform_path(x, cfg, lengths_x, align="end")
-    yt = tf.transform_path(y, cfg, lengths_y, align="end")
-    return delta_from_gram(kernel.gram(xt, yt))
+        with spans.span(spans.PREPARE):
+            dx = tf.pipeline_increments(x, cfg, lengths_x, align="end")
+            dy = tf.pipeline_increments(y, cfg, lengths_y, align="end")
+        with spans.span(spans.DELTA):
+            return kernel.delta_from_increments(dx, dy)
+    with spans.span(spans.PREPARE):
+        xt = tf.transform_path(x, cfg, lengths_x, align="end")
+        yt = tf.transform_path(y, cfg, lengths_y, align="end")
+    with spans.span(spans.DELTA):
+        return delta_from_gram(kernel.gram(xt, yt))
 
 
 def _refine(delta: torch.Tensor, lam1: int, lam2: int) -> torch.Tensor:
@@ -501,6 +506,7 @@ def _sigkernel_from_delta(delta: torch.Tensor, g, backend: str,
     return _SolveDelta.apply(delta, g, backend, launch)
 
 
+@spans.spanned(spans.ENTRY_SIGKERNEL)
 def sigkernel(x: torch.Tensor, y: torch.Tensor, *, transforms=None, grid=None,
               static_kernel=None, backend: str = "auto", launch=None,
               lengths_x=None, lengths_y=None) -> torch.Tensor:
@@ -523,41 +529,43 @@ def sigkernel(x: torch.Tensor, y: torch.Tensor, *, transforms=None, grid=None,
 
     Differentiable in ``x`` and ``y`` with the exact one-pass backward.
     """
-    cfg, g, kernel = resolve_kernel_configs(transforms, grid, static_kernel)
-    launch = resolve_launch(launch)
-    if lengths_x is not None:
-        x, lengths_x = tf.pad_ragged(x, lengths_x)
-    if lengths_y is not None:
-        y, lengths_y = tf.pad_ragged(y, lengths_y)
-    backend = dispatch.canonicalize(backend, op="sigkernel")
-    if backend == "gpu_fused" and not kernel.lifts_increments:
-        raise ValueError(
-            "backend='gpu_fused' builds Δ from increments inside the kernel and "
-            f"only supports the linear lift, got static_kernel="
-            f"{type(kernel).__name__}; pass backend='auto'")
-    Lx = cfg.transformed_steps(x.shape[-2])
-    Ly = cfg.transformed_steps(y.shape[-2])
-    cells = (Lx << g.lam1) * (Ly << g.lam2)
-    was_auto = backend == "auto"
-    backend = dispatch.resolve(
-        backend, op="sigkernel", device=x.device, grid_cells=cells,
-        shape=(Lx << g.lam1, Ly << g.lam2, cfg.transformed_dim(x.shape[-1])),
-        dtype=x.dtype, allow_fused=kernel.lifts_increments,
-        ragged=lengths_x is not None or lengths_y is not None, scheme=g.scheme)
-    if was_auto and backend == "gpu_fused" and x.shape[:-2] != y.shape[:-2]:
-        # the cache key carries no batch shape, so a tuned fused winner can
-        # meet broadcast batches it cannot serve: "auto" takes the static
-        # rule then, where an explicit request raises below
-        backend = dispatch.resolve("auto", op="sigkernel", device=x.device,
-                                   grid_cells=cells, allow_fused=False,
-                                   scheme=g.scheme)
+    with spans.span(spans.FRONT_END):
+        cfg, g, kernel = resolve_kernel_configs(transforms, grid, static_kernel)
+        launch = resolve_launch(launch)
+        if lengths_x is not None:
+            x, lengths_x = tf.pad_ragged(x, lengths_x)
+        if lengths_y is not None:
+            y, lengths_y = tf.pad_ragged(y, lengths_y)
+        backend = dispatch.canonicalize(backend, op="sigkernel")
+        if backend == "gpu_fused" and not kernel.lifts_increments:
+            raise ValueError(
+                "backend='gpu_fused' builds Δ from increments inside the kernel and "
+                f"only supports the linear lift, got static_kernel="
+                f"{type(kernel).__name__}; pass backend='auto'")
+        Lx = cfg.transformed_steps(x.shape[-2])
+        Ly = cfg.transformed_steps(y.shape[-2])
+        cells = (Lx << g.lam1) * (Ly << g.lam2)
+        was_auto = backend == "auto"
+        backend = dispatch.resolve(
+            backend, op="sigkernel", device=x.device, grid_cells=cells,
+            shape=(Lx << g.lam1, Ly << g.lam2, cfg.transformed_dim(x.shape[-1])),
+            dtype=x.dtype, allow_fused=kernel.lifts_increments,
+            ragged=lengths_x is not None or lengths_y is not None, scheme=g.scheme)
+        if was_auto and backend == "gpu_fused" and x.shape[:-2] != y.shape[:-2]:
+            # the cache key carries no batch shape, so a tuned fused winner can
+            # meet broadcast batches it cannot serve: "auto" takes the static
+            # rule then, where an explicit request raises below
+            backend = dispatch.resolve("auto", op="sigkernel", device=x.device,
+                                       grid_cells=cells, allow_fused=False,
+                                       scheme=g.scheme)
     if backend == "gpu_fused":
         if x.shape[:-2] != y.shape[:-2]:
             raise ValueError("backend='gpu_fused' needs matching batch shapes, "
                              f"got {tuple(x.shape[:-2])} vs {tuple(y.shape[:-2])}")
-        dx = tf.pipeline_increments(x, cfg, lengths_x, align="end")
-        dy = tf.pipeline_increments(y, cfg, lengths_y, align="end")
-        dx = _maybe_scale(dx, kernel.scale)   # scale·⟨dx, dy⟩ = ⟨scale·dx, dy⟩
+        with spans.span(spans.PREPARE):
+            dx = tf.pipeline_increments(x, cfg, lengths_x, align="end")
+            dy = tf.pipeline_increments(y, cfg, lengths_y, align="end")
+            dx = _maybe_scale(dx, kernel.scale)   # scale·⟨dx, dy⟩ = ⟨scale·dx, dy⟩
         batch_shape = dx.shape[:-2]
         dispatch.record_pair_solves(math.prod(batch_shape))
         k = pde_ops.solve_fused(dx.reshape((-1,) + tuple(dx.shape[-2:])),

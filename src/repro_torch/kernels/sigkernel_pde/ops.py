@@ -40,6 +40,7 @@ import torch
 
 from . import kernel, stencil
 from .._ops import define
+from repro_torch import spans
 
 #: Strip caps from chip_smoke.py's strip sweep on an H100: a launch with
 #: few problems (one block per SM) is latency-bound, and tall strips cut its
@@ -260,7 +261,8 @@ def solve_with_grid(delta: torch.Tensor, lam1: int = 0, lam2: int = 0, launch=No
     not the full grid).  Returns ``(k, cps, T)``; pass T on to
     :func:`solve_grad`."""
     device = _route(delta)
-    flat = _flat(delta, device)
+    with spans.span(spans.DELTA):   # a copy where Δ is not in the kernels' layout
+        flat = _flat(delta, device)
     B, Lx, Ly = flat.shape
     T = choose_T(Lx, Ly, lam1, lam2, B, scheme=scheme, max_t=_max_t(launch))
     geo = _geometry(device, Lx, Ly, lam1, lam2, scheme=scheme, T=T)
@@ -276,7 +278,8 @@ def solve_grad(delta: torch.Tensor, cps: torch.Tensor, gbar: torch.Tensor, T: in
     interior dtype must be the forward's too: the backward recomputes the
     strip interiors with the same stencil and rounding)."""
     device = _route(delta)
-    flat = _flat(delta, device)
+    with spans.span(spans.DELTA):
+        flat = _flat(delta, device)
     g = _working(gbar.reshape(-1), device)
     if device == "cpu":
         cps, g = cps.to(flat.dtype), g.to(flat.dtype)
@@ -316,11 +319,14 @@ class _SolveFused(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gbar):
         dx, dy = ctx.saved_tensors
-        xw, yw = _working(dx, dx.device.type), _working(dy, dy.device.type)
-        dd = _rebuilt_grad(stencil.delta_einsum("bid,bjd->bij", xw, yw), gbar, *ctx.args)
-        ddx = torch.einsum("bij,bjd->bid", dd, yw)
-        ddy = torch.einsum("bij,bid->bjd", dd, xw)
-        return ddx.to(dx.dtype), ddy.to(dy.dtype), None, None, None, None, None
+        with spans.span(spans.DELTA):
+            xw, yw = _working(dx, dx.device.type), _working(dy, dy.device.type)
+            delta = stencil.delta_einsum("bid,bjd->bij", xw, yw)
+        dd = _rebuilt_grad(delta, gbar, *ctx.args)
+        with spans.span(spans.PULLBACK):
+            ddx = torch.einsum("bij,bjd->bid", dd, yw)
+            ddy = torch.einsum("bij,bid->bjd", dd, xw)
+            return ddx.to(dx.dtype), ddy.to(dy.dtype), None, None, None, None, None
 
 
 class _GramFused(torch.autograd.Function):
@@ -335,15 +341,17 @@ class _GramFused(torch.autograd.Function):
         # the reverse sweep holds the Bx·By pairwise Δ: row-block the Gram
         # (core/gram.py) to bound it
         dX, dY = ctx.saved_tensors
-        xw, yw = _working(dX, dX.device.type), _working(dY, dY.device.type)
-        dd = _rebuilt_grad(stencil.delta_einsum("aid,bjd->abij", xw, yw), gbar,
-                           *ctx.args)
-        # a dot product a pair (over j, or i), then the sum over the other
-        # side's paths in float64: the rows' gradients do not depend on how
-        # many rows share the launch (row blocks, sharded tiles)
-        ddX = (dd @ yw).double().sum(1)
-        ddY = (dd.transpose(-1, -2) @ xw[:, None]).double().sum(0)
-        return ddX.to(dX.dtype), ddY.to(dY.dtype), None, None, None, None, None
+        with spans.span(spans.DELTA):
+            xw, yw = _working(dX, dX.device.type), _working(dY, dY.device.type)
+            delta = stencil.delta_einsum("aid,bjd->abij", xw, yw)
+        dd = _rebuilt_grad(delta, gbar, *ctx.args)
+        with spans.span(spans.PULLBACK):
+            # a dot product a pair (over j, or i), then the sum over the other
+            # side's paths in float64: the rows' gradients do not depend on how
+            # many rows share the launch (row blocks, sharded tiles)
+            ddX = (dd @ yw).double().sum(1)
+            ddY = (dd.transpose(-1, -2) @ xw[:, None]).double().sum(0)
+            return ddX.to(dX.dtype), ddY.to(dY.dtype), None, None, None, None, None
 
 
 def _solve_fused_forward(dx, dy, lam1, lam2, launch, scheme, interior_dtype):

@@ -21,6 +21,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from repro_torch import spans
+
 
 class _Gather(torch.autograd.Function):
 
@@ -34,7 +36,8 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return g.narrow(ctx.dim, dist.get_rank(ctx.group) * ctx.n, ctx.n), None, None
+        with spans.span(spans.COLLECTIVE):
+            return g.narrow(ctx.dim, dist.get_rank(ctx.group) * ctx.n, ctx.n), None, None
 
 
 class _SumGrads(torch.autograd.Function):
@@ -46,17 +49,19 @@ class _SumGrads(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone(memory_format=torch.contiguous_format)
-        for group in ctx.groups:
-            dist.all_reduce(g, group=group)
-        return g, None
+        with spans.span(spans.COLLECTIVE):
+            g = g.clone(memory_format=torch.contiguous_format)
+            for group in ctx.groups:
+                dist.all_reduce(g, group=group)
+            return g, None
 
 
 def gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """Concatenate along ``dim`` the shares of every rank of ``group``, in
     group-rank order.  Every rank of the group must call it, each with a
     share of the same shape."""
-    return _Gather.apply(x, group, dim)
+    with spans.span(spans.COLLECTIVE):
+        return _Gather.apply(x, group, dim)
 
 
 def sum_grads(x: torch.Tensor, groups) -> torch.Tensor:

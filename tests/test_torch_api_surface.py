@@ -19,7 +19,7 @@ PACKAGES = ("repro_torch", "repro_torch.core", "repro_torch.stream", "repro_torc
             "repro_torch.checkpoint",
             "repro_torch.train", "repro_torch.bench",
             "repro_torch.kernels", "repro_torch.kernels.sigkernel_pde",
-            "repro_torch.kernels.signature")
+            "repro_torch.kernels.signature", "repro_torch.spans")
 
 
 def live_surface():

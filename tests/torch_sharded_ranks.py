@@ -195,3 +195,30 @@ def failing_rank(rank, world):
 
 def sleeping_rank(rank, world):
     time.sleep(120)
+
+
+def sync_count_rank(rank, world):
+    """The unbiased MMD² from three sharded Grams and its gradient in X,
+    as the benchmark's sharded cell assembles it: the blocking uploads
+    counted, and the port's spans under a CPU profiler."""
+    from collections import Counter
+
+    from repro_torch import spans
+    mesh = make_gram_mesh()
+    g = torch.Generator().manual_seed(7)
+    X = (torch.randn(BX, L, D, generator=g) * 0.1).cumsum(1).requires_grad_()
+    Y = (torch.randn(BY, L, D, generator=g) * 0.1).cumsum(1) + 0.3
+
+    def call():
+        gram = rt.sigkernel_gram_sharded
+        Kxx, Kyy, Kxy = gram(X, mesh=mesh), gram(Y, mesh=mesh), gram(X, Y, mesh=mesh)
+        v = ((Kxx.sum() - torch.trace(Kxx)) / (BX * (BX - 1))
+             + (Kyy.sum() - torch.trace(Kyy)) / (BY * (BY - 1)) - 2.0 * Kxy.mean())
+        torch.autograd.grad(v, X)
+
+    with dispatch.count_host_syncs() as c:
+        call()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        call()
+    return {"syncs": c.total,
+            "spans": dict(Counter(e.name for e in prof.events() if e.name in spans.NAMES))}
